@@ -3,18 +3,23 @@
 
     python3 chip_smoke.py
 
-Phases, each failing loudly:
+Three paths run on the card: elasticity (K1, K3, K2), heat conduction
+(the scalar K4 chain; porous flow is the same path) and viscosity (K1
+tau-sum mode, K3 with the dual constants, K2 Delta mode).  Phases, each
+failing loudly:
 
 1. the card's name and power limit; build the CUDA kernels from ``csrc/``;
-2. every kernel of the main path against its plain PyTorch twin at the
-   main path's shapes (256^3 float32) and on an odd float64 grid, with
-   kernel, twin and cuFFT times from CUDA events;
-3. the kernel path (cuda) against the plain path (cpu) on one solve;
-4. the main path: the bench's 256^3 sphere RVE solved to 1e-6 in float32
-   (timed second run, kernel launches counted), the same solve in float64,
-   and one 512^3 float32 solve;
-5. the x-laminate's analytic C11 on the card;
-6. the launch counts and one JSON line per kernel with its numbers.
+2. every kernel in every mode against its plain PyTorch twin at the paths'
+   shapes (256^3 float32) and on an odd float64 grid, with kernel, twin
+   and cuFFT times from CUDA events;
+3. the kernel path (cuda) against the plain path (cpu) on one 48^3
+   float64 solve of each path;
+4. the paths at full size: the bench's 256^3 sphere RVE solved to 1e-6 in
+   float32 in each mode (timed second run, kernel launches counted around
+   each), the elasticity solve also in float64 and at 512^3;
+5. the x-laminates' analytic C11 and conductivity on the card;
+6. the launch counts and one JSON line per kernel and mode with its
+   numbers.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits non-zero before printing any result.
@@ -69,33 +74,59 @@ def sphere_phi(n, dtype):
             < 0.09).astype(dtype)
 
 
-def sphere_solver(n, dtype, device, **opt):
-    """The bench's RVE (bench.py make_problem): fibre mu=10 lam=5, matrix
-    mu=1 lam=1, e_xx = 1."""
+# the bench's RVE (bench.py make_problem) per mode: the phases' moduli
+# (fibre, matrix) and the loading.  Elasticity: mu=10 lam=5 / mu=1 lam=1,
+# e_xx = 1; heat (and porous flow): conductivities 10 / 1, unit x gradient;
+# viscosity: fluidities 0.1 / 1, e_xz = 1.
+PATHS = {
+    "elasticity": dict(dim=6, law="isotropic", fiber=(10.0, 5.0),
+                       matrix=(1.0, 1.0), load=[1.0, 0, 0, 0, 0, 0]),
+    "heat": dict(dim=3, law="scalar", fiber=(10.0,), matrix=(1.0,),
+                 load=[1.0, 0, 0]),
+    "viscosity": dict(dim=6, law="scalar", fiber=(0.1,), matrix=(1.0,),
+                      load=[0, 0, 0, 0, 1.0, 0]),
+}
+# the kernels each path must launch
+PATH_KERNELS = {
+    "elasticity": ("stress_div_beta", "eps_from_u_dot", "g0_staggered_chain"),
+    "heat": ("g0_staggered_heat_chain",),
+    "viscosity": ("stress_div_beta", "eps_from_u_dot", "g0_staggered_chain"),
+}
+
+
+def sphere_solver(n, dtype, device, mode="elasticity", **opt):
+    """The bench's RVE in ``mode`` (PATHS) on an n^3 grid."""
     import fibergen_tpu_torch as ft
+    c = PATHS[mode]
     phi = sphere_phi(n, "float32" if dtype == "float32" else "float64")
     mat = ft.convert.material_from_numpy(
-        [("fiber", 10.0, 5.0, phi), ("matrix", 1.0, 1.0, 1.0 - phi)],
-        device=device)
+        [("fiber", *c["fiber"], phi), ("matrix", *c["matrix"], 1.0 - phi)],
+        dim=c["dim"], device=device, law=c["law"])
     s = ft.LSSolver(ft.Grid(n, n, n), mat, ft.SolverOptions(
-        mode="elasticity", method="cg", gamma_scheme="staggered",
-        dtype=dtype, **opt), device=device)
-    s.set_strain([1.0, 0, 0, 0, 0, 0])
+        mode=mode, method="cg", gamma_scheme="staggered", dtype=dtype,
+        **opt), device=device)
+    s.set_strain(c["load"])
     return s
 
 
-# per-voxel values moved and flops of each kernel's work on the main path:
+# per-voxel values moved and flops of each kernel's work on the paths:
 # K1 step reads r, p_prev, mu, lam and writes f, p; K1 init reads eps, mu,
-# lam and writes f; K2 dot reads u, p and writes w; K2 no-dot reads u and
-# writes w; K3 reads f and writes u (3 values each), and its flops are those
-# of a 3-component rfftn + irfftn pair (2.5 N log2 N each per component)
-# plus about 56 per half-spectrum bin for the G0 apply.
+# lam and writes f; the tau sum adds six per-block partials (no per-voxel
+# values); K2 dot reads u, p and writes w; K2 no-dot reads u and writes w;
+# K2 Delta also reads mu; the chains read f and write u (C values each, C
+# = 3 for K3, 1 for K4), and their flops are those of a C-component rfftn +
+# irfftn pair (2.5 N log2 N each per component) plus those of the G0 apply
+# per half-spectrum bin (about 56 for K3, 6 for K4).
 WORK = {
     "stress_div_beta": dict(values=14 + 9, flops=51),
     "stress_div_beta[init]": dict(values=8 + 3, flops=39),
+    "stress_div_beta[tau_sum]": dict(values=14 + 9, flops=57),
     "eps_from_u_dot": dict(values=9 + 6, flops=51),
     "eps_from_u_dot[nodot]": dict(values=3 + 6, flops=30),
-    "g0_staggered_chain": dict(values=3 + 3, flops=None),
+    "eps_from_u_dot[delta]": dict(values=10 + 6, flops=66),
+    "g0_staggered_chain": dict(values=3 + 3, flops=None, comps=3, apply=56),
+    "g0_staggered_heat_chain": dict(values=1 + 1, flops=None, comps=1,
+                                    apply=6),
 }
 
 
@@ -104,7 +135,7 @@ def bound_ms(name, count, itemsize):
     peak = H100_F32_FLOPS if itemsize == 4 else H100_F64_FLOPS
     flops = w["flops"]
     if flops is None:
-        flops = 3 * 2 * 2.5 * math.log2(count) + 56 / 2
+        flops = w["comps"] * 2 * 2.5 * math.log2(count) + w["apply"] / 2
     t_bytes = w["values"] * itemsize * count / H100_BYTES_PER_S
     t_ops = flops * count / peak
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else \
@@ -176,15 +207,49 @@ def check_kernels(shape, dtype, timed):
     report("eps_from_u_dot[nodot]", [rel_err(k2n()[0], p2n()[0])], k2n, p2n,
            n)
 
+    # K1 tau-sum mode (viscosity), step and init: f, p and the tau sum;
+    # the sum is compared relative to the largest sum
+    k1t = lambda: sk.stress_div_beta(g, r, pp, (gam, gam_prev), mu, lam, mu0,
+                                     lam0, want_tau_sum=True)
+    p1t = lambda: sk.stress_div_beta_plain(g, r, pp, gam / gam_prev, mu, lam,
+                                           mu0, lam0, want_tau_sum=True)
+    errs = [rel_err(a, b) for a, b in zip(k1t(), p1t())]
+    ki = sk.stress_div_beta(g, r, None, None, mu, lam, mu0, lam0,
+                            want_tau_sum=True)
+    pi = sk.stress_div_beta_plain(g, r, None, None, mu, lam, mu0, lam0,
+                                  want_tau_sum=True)
+    errs += [rel_err(ki[0], pi[0]), rel_err(ki[2], pi[2])]
+    report("stress_div_beta[tau_sum]", errs, k1t, p1t, n)
+
+    # K2 Delta mode (viscosity): the gradient plus the Delta term, and the
+    # dot against the full w
+    tau2c = -1.0 / (2.0 * mu0)
+    k2d = lambda: sk.eps_from_u_dot(g, E, u, pp, mu_x=mu, tau2c=tau2c,
+                                    mu0=mu0)
+    p2d = lambda: sk.eps_from_u_dot_plain(g, E, u, pp, mu_x=mu, tau2c=tau2c,
+                                          mu0=mu0)
+    (w, d), (wr, dr) = k2d(), p2d()
+    dot_rel = abs(float(d) - float(dr)) / abs(float(dr))
+    report("eps_from_u_dot[delta]", [rel_err(w, wr), (dot_rel, dot_rel)], k2d,
+           p2d, n)
+
     # K3: the whole chain against rfftn -> plain G0 apply -> irfftn
     k3 = lambda: spk.g0_staggered_chain(g, f, c10, c20)
     p3 = lambda: spk.g0_staggered_chain_plain(g, f, c10, c20)
     report("g0_staggered_chain", [rel_err(k3(), p3())], k3, p3, n)
+    # K4: the scalar chain (heat) on one component
+    f1 = f[:1].contiguous()
+    h10 = 1.0 / (2.0 * mu0)
+    k4 = lambda: spk.g0_staggered_heat_chain(g, f1, h10)
+    p4 = lambda: spk.g0_staggered_heat_chain_plain(g, f1, h10)
+    report("g0_staggered_heat_chain", [rel_err(k4(), p4())], k4, p4, n)
     if timed:
-        out["g0_staggered_chain"]["library_ms"] = cuda_ms(
-            lambda: fft.ifftn(fft.fftn(f), g.shape))
-        log(f"  cuFFT rfftn+irfftn (3, {shape}) {str(dtype)[6:]}: "
-            f"{out['g0_staggered_chain']['library_ms']:.4f} ms")
+        for name, x in (("g0_staggered_chain", f),
+                        ("g0_staggered_heat_chain", f1)):
+            out[name]["library_ms"] = cuda_ms(
+                lambda: fft.ifftn(fft.fftn(x), g.shape))
+            log(f"  cuFFT rfftn+irfftn ({x.shape[0]}, {shape}) "
+                f"{str(dtype)[6:]}: {out[name]['library_ms']:.4f} ms")
     return out
 
 
@@ -224,7 +289,7 @@ def main():
 
     def run_counted(solver, label):
         """Run one solve with every launch count set to 0 just before it;
-        fail unless each kernel of the path launched in it."""
+        fail unless each kernel of the solver's path launched in it."""
         for table in (sk.launches, spk.launches):
             for name in table:
                 table[name] = 0
@@ -232,7 +297,8 @@ def main():
         torch.cuda.synchronize()
         got = dict(sk.launches, **spk.launches)
         log(f"  {label} launches: {json.dumps(got)}")
-        assert all(v > 0 for v in got.values()), (label, got)
+        assert all(got[k] > 0 for k in PATH_KERNELS[solver.mode]), \
+            (label, got)
         return fail, got
 
     # ---- phase 2: kernels against their twins
@@ -242,43 +308,52 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- phase 3: kernel path vs plain path on the same solve
-    log("phase 3: 48^3 float64 solve, cuda kernels vs cpu twins")
+    log("phase 3: 48^3 float64 solves, cuda kernels vs cpu twins")
     opt = dict(error_estimator="residual", tol=1e-8, check_every=4,
                maxiter=1000)
-    s_cpu = sphere_solver(48, "float64", "cpu", **opt)
-    s_gpu = sphere_solver(48, "float64", "cuda", **opt)
-    assert not s_cpu.run()
-    assert not run_counted(s_gpu, "48^3 float64")[0]
-    rc, rg = np.asarray(s_cpu.residuals), np.asarray(s_gpu.residuals)
-    res_rel = float(np.max(np.abs(rg - rc) / np.abs(rc))) \
-        if len(rc) == len(rg) else float("inf")
-    Sc, Sg = s_cpu.calc_mean_stress(), s_gpu.calc_mean_stress()
-    s_rel = float(np.max(np.abs(Sg - Sc)) / np.max(np.abs(Sc)))
-    log(f"  iterations cpu {len(rc)} cuda {len(rg)}, residual history max "
-        f"rel diff {res_rel:.3e}, mean stress max rel diff {s_rel:.3e}")
-    assert len(rc) == len(rg), "iteration counts differ"
-    assert res_rel <= 1e-9 and s_rel <= 1e-10
-    del s_cpu, s_gpu
+    for mode in PATHS:
+        s_cpu = sphere_solver(48, "float64", "cpu", mode, **opt)
+        s_gpu = sphere_solver(48, "float64", "cuda", mode, **opt)
+        assert not s_cpu.run()
+        assert not run_counted(s_gpu, f"48^3 float64 {mode}")[0]
+        rc, rg = np.asarray(s_cpu.residuals), np.asarray(s_gpu.residuals)
+        res_rel = float(np.max(np.abs(rg - rc) / np.abs(rc))) \
+            if len(rc) == len(rg) else float("inf")
+        Sc, Sg = s_cpu.calc_mean_stress(), s_gpu.calc_mean_stress()
+        s_rel = float(np.max(np.abs(Sg - Sc)) / np.max(np.abs(Sc)))
+        log(f"  {mode}: iterations cpu {len(rc)} cuda {len(rg)}, residual "
+            f"history max rel diff {res_rel:.3e}, mean stress max rel diff "
+            f"{s_rel:.3e}")
+        assert len(rc) == len(rg), f"{mode}: iteration counts differ"
+        assert res_rel <= 1e-9 and s_rel <= 1e-10, mode
+        del s_cpu, s_gpu
 
-    # ---- phase 4: the main path at full size
+    # ---- phase 4: the paths at full size
     log("phase 4: bench sphere RVE, residual tol 1e-6, check_every 8")
     opt = dict(error_estimator="residual", tol=1e-6, check_every=8,
                maxiter=4000)
-    s32 = sphere_solver(256, "float32", "cuda", **opt)
-    assert not s32.run()                     # warm-up
-    fail, launches = run_counted(s32, "256^3 float32")
-    its = len(s32.residuals)
-    steps = launches["eps_from_u_dot"] - 1   # one no-dot launch at CG init
-    final_rel = float(s32.residuals[-1])
-    S32 = s32.calc_mean_stress()
-    log(f"  256^3 float32: {its} iterations ({steps} CG steps run), "
-        f"solve_time {s32.solve_time:.4f} s, {its / s32.solve_time:.2f} "
-        f"iter/s, {steps / s32.solve_time:.2f} steps/s, final_rel "
-        f"{final_rel:.3e}, mean stress {S32.tolist()}")
-    assert not fail and its < opt["maxiter"] and final_rel <= 1e-6
-    assert np.all(np.isfinite(S32))
-    del s32
-    torch.cuda.empty_cache()
+    path_launches, res32 = {}, {}
+    for mode in PATHS:
+        s32 = sphere_solver(256, "float32", "cuda", mode, **opt)
+        assert not s32.run()                     # warm-up
+        fail, got = run_counted(s32, f"256^3 float32 {mode}")
+        path_launches[mode] = got
+        its = len(s32.residuals)
+        # one launch of the path's chain per CG step, one at CG init
+        steps = got[PATH_KERNELS[mode][-1]] - 1
+        final_rel = float(s32.residuals[-1])
+        S32 = s32.calc_mean_stress()
+        log(f"  256^3 float32 {mode}: {its} iterations ({steps} CG steps "
+            f"run), solve_time {s32.solve_time:.4f} s, "
+            f"{its / s32.solve_time:.2f} iter/s, "
+            f"{steps / s32.solve_time:.2f} steps/s, final_rel "
+            f"{final_rel:.3e}, mean stress {S32.tolist()}")
+        assert not fail and its < opt["maxiter"] and final_rel <= 1e-6
+        assert np.all(np.isfinite(S32))
+        res32[mode] = (its, S32)
+        del s32
+        torch.cuda.empty_cache()
+    its, S32 = res32["elasticity"]
 
     s64 = sphere_solver(256, "float64", "cuda", **opt)
     assert not run_counted(s64, "256^3 float64")[0]
@@ -306,7 +381,7 @@ def main():
     del s512
     torch.cuda.empty_cache()
 
-    # ---- phase 5: analytic oracle
+    # ---- phase 5: analytic oracles
     shape = (64, 16, 16)
     x = (np.arange(shape[0]) + 0.5) / shape[0]
     phi = np.broadcast_to((x < 0.5)[:, None, None], shape).astype(np.float64)
@@ -322,24 +397,49 @@ def main():
     log(f"phase 5: laminate C11 {c11:.12f} vs exact {exact:.12f} "
         f"(rel {abs(c11 - exact) / exact:.3e}, {len(s.residuals)} its)")
     assert abs(c11 - exact) <= 1e-8 * exact
+    # series conduction: the harmonic mean of the conductivities
+    k1, k2 = 1.0, 10.0
+    mat = ft.convert.material_from_numpy(
+        [("a", k1, phi), ("b", k2, 1.0 - phi)], dim=3, law="scalar")
+    s = ft.LSSolver(ft.Grid(*shape), mat, ft.SolverOptions(
+        mode="heat", tol=1e-10, error_estimator="residual", check_every=4,
+        maxiter=500))
+    s.set_strain([1.0, 0, 0])
+    assert not run_counted(s, "heat laminate")[0]
+    k = float(s.calc_mean_stress()[0])
+    exact = 2 * k1 * k2 / (k1 + k2)
+    log(f"phase 5: heat laminate conductivity {k:.12f} vs exact "
+        f"{exact:.12f} (rel {abs(k - exact) / exact:.3e}, "
+        f"{len(s.residuals)} its)")
+    assert abs(k - exact) <= 1e-8 * exact
 
     # ---- phase 6: launches and per-kernel numbers.  The per-kernel list
-    # takes the key "kernels"; the launch counts of the timed 256^3 float32
-    # solve print on their own line as "kernel_launches".
-    log(json.dumps({"kernel_launches": launches}))
-    rows = [("stress_div_beta", "fibergen_tpu_torch/csrc/stress_div_beta.cu",
+    # takes the key "kernels"; the launch counts of each path's timed 256^3
+    # float32 solve print on their own line as "kernel_launches".  A mode's
+    # row takes its launches from the path that runs that mode.
+    log(json.dumps({"kernel_launches": path_launches}))
+    k1, k2, ch = ("fibergen_tpu_torch/csrc/stress_div_beta.cu",
+                  "fibergen_tpu_torch/csrc/eps_from_u_dot.cu",
+                  "fibergen_tpu_torch/csrc/g0_staggered_chain.cu")
+    rows = [("stress_div_beta", "stress_div_beta", "elasticity", k1,
              "fibergen_tpu/ops/pallas_sweep.py:301"),
-            ("eps_from_u_dot", "fibergen_tpu_torch/csrc/eps_from_u_dot.cu",
+            ("stress_div_beta[tau_sum]", "stress_div_beta", "viscosity", k1,
+             "fibergen_tpu/ops/pallas_sweep.py:301"),
+            ("eps_from_u_dot", "eps_from_u_dot", "elasticity", k2,
              "fibergen_tpu/ops/pallas_sweep.py:517"),
-            ("g0_staggered_chain",
-             "fibergen_tpu_torch/csrc/g0_staggered_chain.cu",
-             "fibergen_tpu/ops/pallas_chain.py:212")]
+            ("eps_from_u_dot[delta]", "eps_from_u_dot", "viscosity", k2,
+             "fibergen_tpu/ops/pallas_sweep.py:517"),
+            ("g0_staggered_chain", "g0_staggered_chain", "elasticity", ch,
+             "fibergen_tpu/ops/pallas_chain.py:212"),
+            ("g0_staggered_heat_chain", "g0_staggered_heat_chain", "heat",
+             ch, "fibergen_tpu/ops/pallas_chain.py:212")]
     kernels = []
-    for name, src, replaces in rows:
+    for name, counter, path, src, replaces in rows:
         m = main_nums[name]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": path_launches[path][counter],
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m.get("library_ms")})

@@ -2,8 +2,7 @@
 
 A problem set up elsewhere (for instance with the JAX package) carries
 across as numbers and arrays: the grid's shape and cell, each phase's
-isotropic moduli and volume-fraction array, and the solver options as a
-dict.
+moduli and volume-fraction array, and the solver options as a dict.
 """
 from __future__ import annotations
 
@@ -12,7 +11,7 @@ import torch
 
 from .core.device import resolve_device
 from .core.grid import Grid
-from .materials.laws import LinearIsotropic
+from .materials.laws import LinearIsotropic, ScalarLinearIsotropic
 from .materials.mixing import Phase, VoigtMixed
 from .solvers.ls import SolverOptions
 
@@ -24,17 +23,30 @@ def grid_from_numpy(shape, cell=(1.0, 1.0, 1.0)) -> Grid:
     return Grid(nx, ny, nz, dx=dx, dy=dy, dz=dz)
 
 
-def material_from_numpy(phases, dim=6, device=None) -> VoigtMixed:
-    """VoigtMixed from ``[(name, mu, lam, phi), ...]`` with ``phi`` a
-    (nx, ny, nz) numpy array, moved to ``device`` (default ``cuda``; raises
-    without a card unless ``device="cpu"``).  phi keeps its numpy dtype."""
+def material_from_numpy(phases, dim=6, device=None, law="isotropic"
+                        ) -> VoigtMixed:
+    """VoigtMixed from numpy phases, moved to ``device`` (default ``cuda``;
+    raises without a card unless ``device="cpu"``).  ``phi`` is a
+    (nx, ny, nz) numpy array and keeps its numpy dtype.
+
+    * ``law="isotropic"``: ``[(name, mu, lam, phi), ...]``, LinearIsotropic
+      phases (elasticity, dim 6);
+    * ``law="scalar"``: ``[(name, mu, phi), ...]``, ScalarLinearIsotropic
+      phases (sigma = mu E): heat and porous flow with ``dim=3``, viscosity
+      (mu the fluidity) with ``dim=6``."""
     dev = resolve_device(device)
+    if law not in ("isotropic", "scalar"):
+        raise ValueError(f"law must be 'isotropic' or 'scalar', got {law!r}")
     out = []
-    for name, mu, lam, phi in phases:
+    for name, *moduli, phi in phases:
         t = torch.as_tensor(np.array(phi, order="C"), device=dev)
-        out.append(Phase(str(name), LinearIsotropic(mu=float(mu),
-                                                    lam=float(lam), dim=dim),
-                         t))
+        if law == "scalar":
+            (mu,) = moduli
+            pl = ScalarLinearIsotropic(mu=float(mu), dim=dim)
+        else:
+            mu, lam = moduli
+            pl = LinearIsotropic(mu=float(mu), lam=float(lam), dim=dim)
+        out.append(Phase(str(name), pl, t))
     return VoigtMixed(out, dim=dim)
 
 

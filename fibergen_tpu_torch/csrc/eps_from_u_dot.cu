@@ -1,25 +1,31 @@
-// K2 eps_from_u_dot: staggered symmetrized gradient plus the CG denominator.
+// K2 eps_from_u_dot: staggered symmetrized gradient plus the CG denominator,
+// optionally with the viscosity Delta term.
 //
 // Replaces the TPU kernels fibergen_tpu/ops/pallas_sweep.py
-// eps_from_u_dot_sweep (mu_x=None), pallas_kernels.py
-// eps_from_u_dot_staggered and pallas_kernels.py eps_from_u_staggered
-// (no-dot mode).  Maths (pallas_kernels.py:286-302, staggered.py:39-52):
+// eps_from_u_dot_sweep (mu_x=None and the Delta variant with mu_x),
+// pallas_kernels.py eps_from_u_dot_staggered and pallas_kernels.py
+// eps_from_u_staggered (no-dot mode).  Maths (pallas_kernels.py:286-302,
+// staggered.py:39-52, pallas_sweep.py:441-453):
 //
 //   w0 = E0 + D+x ux     w3 = E3 + (D-y uz + D-z uy) / 2
 //   w1 = E1 + D+y uy     w4 = E4 + (D-x uz + D-z ux) / 2
 //   w2 = E2 + D+z uz     w5 = E5 + (D-x uy + D-y ux) / 2
 //
-// and, in dot mode, the raw Voigt-weighted sum  sum_v sum_c wv_c p_c (p_c - w_c)
-// with wv = (1, 1, 1, 2, 2, 2).
+// in Delta mode plus  w_c += 2 tau2c (mu(x) - mu0) p_c  (tau2c folds the
+// Delta coefficient 2 alpha mu0v, fibergen.cpp:20446-20458), and, in dot
+// mode, the raw Voigt-weighted sum  sum_v sum_c wv_c p_c (p_c - w_c) with
+// wv = (1, 1, 1, 2, 2, 2), against the full w.  Delta mode always takes p
+// and computes the dot.
 //
 // Bound on the card: device-memory bytes (dot mode reads u (3) and p (6) and
-// writes w (6): 15 values per voxel for about 40 flops).  Design: one thread
-// per voxel, z fastest; the six neighbour values of u come from L1/L2.  The
-// TPU kernel chains a Kahan sum across its sequential grid; blocks here run
-// in no order, so each block reduces its voxels' terms in double (warp
-// shuffles, then shared memory) into one partial in a scratch buffer, and a
-// second one-block kernel sums the partials in a fixed order.  No atomics:
-// the result is the same from run to run.  E is a device vector.
+// writes w (6): 15 values per voxel for about 40 flops; Delta mode also reads
+// mu: 16 values).  Design: one thread per voxel, z fastest; the six
+// neighbour values of u come from L1/L2.  The TPU kernel chains a Kahan sum
+// across its sequential grid; blocks here run in no order, so each block
+// reduces its voxels' terms in double (warp shuffles, then shared memory)
+// into one partial in a scratch buffer, and fg::sum_partials sums the
+// partials in a fixed order in one block.  No atomics: the result is the
+// same from run to run.  E is a device vector.
 
 #include "fg_common.cuh"
 
@@ -28,11 +34,11 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kSumThreads = 1024;
 
-template <typename T, bool DOT>
+template <typename T, bool DOT, bool DELTA>
 __global__ void eps_from_u_kernel(
     const T* __restrict__ u, const T* __restrict__ E, const T* __restrict__ p,
-    T hx, T hy, T hz, int nx, int ny, int nz,
-    T* __restrict__ w, double* __restrict__ partials) {
+    const T* __restrict__ mu, T tc2, T mu0, T hx, T hy, T hz, int nx, int ny,
+    int nz, T* __restrict__ w, double* __restrict__ partials) {
   const int64_t n = static_cast<int64_t>(nx) * ny * nz;
   const int64_t v = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   double acc = 0.0;
@@ -49,13 +55,22 @@ __global__ void eps_from_u_kernel(
     e[3] = E[3] + T(0.5) * ((z0 - uz[nb.ym]) * hy + (y0 - uy[nb.zm]) * hz);
     e[4] = E[4] + T(0.5) * ((z0 - uz[nb.xm]) * hx + (x0 - ux[nb.zm]) * hz);
     e[5] = E[5] + T(0.5) * ((y0 - uy[nb.xm]) * hx + (x0 - ux[nb.ym]) * hy);
+    T pv[6];
+    if (DOT) {
+#pragma unroll
+      for (int c = 0; c < 6; ++c) pv[c] = p[c * n + v];
+    }
+    if (DELTA) {
+      const T d = tc2 * (mu[v] - mu0);
+#pragma unroll
+      for (int c = 0; c < 6; ++c) e[c] += d * pv[c];
+    }
 #pragma unroll
     for (int c = 0; c < 6; ++c) w[c * n + v] = e[c];
     if (DOT) {
 #pragma unroll
       for (int c = 0; c < 6; ++c) {
-        const T pc = p[c * n + v];
-        const double t = static_cast<double>(pc * (pc - e[c]));
+        const double t = static_cast<double>(pv[c] * (pv[c] - e[c]));
         acc += c < 3 ? t : 2.0 * t;
       }
     }
@@ -67,34 +82,29 @@ __global__ void eps_from_u_kernel(
 }
 
 template <typename T>
-__global__ void sum_partials_kernel(const double* __restrict__ partials,
-                                    int64_t count, T* __restrict__ out) {
-  double acc = 0.0;
-  for (int64_t i = threadIdx.x; i < count; i += blockDim.x) acc += partials[i];
-  acc = fg::block_sum(acc);
-  if (threadIdx.x == 0) out[0] = static_cast<T>(acc);
-}
-
-template <typename T>
-int launch(const void* u, const void* E, const void* p, double hx, double hy,
-           double hz, int nx, int ny, int nz, void* w, void* partials,
-           void* dot, void* stream) {
+int launch(const void* u, const void* E, const void* p, const void* mu,
+           double tau2c, double mu0, double hx, double hy, double hz, int nx,
+           int ny, int nz, void* w, void* partials, void* dot, void* stream) {
   const int64_t n = static_cast<int64_t>(nx) * ny * nz;
   const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
   auto s = static_cast<cudaStream_t>(stream);
-  if (p) {
-    eps_from_u_kernel<T, true><<<blocks, kThreads, 0, s>>>(
-        (const T*)u, (const T*)E, (const T*)p, T(hx), T(hy), T(hz),
-        nx, ny, nz, (T*)w, (double*)partials);
-    const int err = static_cast<int>(cudaGetLastError());
-    if (err) return err;
-    sum_partials_kernel<T><<<1, kSumThreads, 0, s>>>(
-        (const double*)partials, static_cast<int64_t>(blocks), (T*)dot);
-  } else {
-    eps_from_u_kernel<T, false><<<blocks, kThreads, 0, s>>>(
-        (const T*)u, (const T*)E, nullptr, T(hx), T(hy), T(hz),
-        nx, ny, nz, (T*)w, nullptr);
+  auto go = [&](auto kernel) {
+    kernel<<<blocks, kThreads, 0, s>>>(
+        (const T*)u, (const T*)E, (const T*)p, (const T*)mu, T(2 * tau2c),
+        T(mu0), T(hx), T(hy), T(hz), nx, ny, nz, (T*)w, (double*)partials);
+  };
+  if (!p) {
+    go(eps_from_u_kernel<T, false, false>);
+    return static_cast<int>(cudaGetLastError());
   }
+  if (mu)
+    go(eps_from_u_kernel<T, true, true>);
+  else
+    go(eps_from_u_kernel<T, true, false>);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  fg::sum_partials<T><<<1, kSumThreads, 0, s>>>(
+      (const double*)partials, static_cast<int64_t>(blocks), (T*)dot);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -106,19 +116,16 @@ extern "C" long long eps_from_u_dot_partials(int nx, int ny, int nz) {
   return (n + kThreads - 1) / kThreads;
 }
 
-// p == nullptr selects no-dot mode (partials and dot unused).
-extern "C" int eps_from_u_dot_f32(const void* u, const void* E, const void* p,
-                                  double hx, double hy, double hz, int nx,
-                                  int ny, int nz, void* w, void* partials,
-                                  void* dot, void* stream) {
-  return launch<float>(u, E, p, hx, hy, hz, nx, ny, nz, w, partials, dot,
-                       stream);
-}
+// p == nullptr selects no-dot mode (mu, partials and dot unused); mu !=
+// nullptr (with p) selects Delta mode.
+#define FG_K2_ENTRY(NAME, T)                                                  \
+  extern "C" int NAME(const void* u, const void* E, const void* p,            \
+                      const void* mu, double tau2c, double mu0, double hx,    \
+                      double hy, double hz, int nx, int ny, int nz, void* w,  \
+                      void* partials, void* dot, void* stream) {              \
+    return launch<T>(u, E, p, mu, tau2c, mu0, hx, hy, hz, nx, ny, nz, w,      \
+                     partials, dot, stream);                                  \
+  }
 
-extern "C" int eps_from_u_dot_f64(const void* u, const void* E, const void* p,
-                                  double hx, double hy, double hz, int nx,
-                                  int ny, int nz, void* w, void* partials,
-                                  void* dot, void* stream) {
-  return launch<double>(u, E, p, hx, hy, hz, nx, ny, nz, w, partials, dot,
-                        stream);
-}
+FG_K2_ENTRY(eps_from_u_dot_f32, float)
+FG_K2_ENTRY(eps_from_u_dot_f64, double)

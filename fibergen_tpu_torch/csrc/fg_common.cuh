@@ -34,19 +34,48 @@ __device__ __forceinline__ Nbr neighbours(int64_t v, int nx, int ny, int nz,
   return n;
 }
 
-// Deterministic block sum of one double per thread (blockDim.x a multiple
-// of 32, at most 1024); the result is valid in thread 0.
-__device__ __forceinline__ double block_sum(double x) {
-  __shared__ double warp_sums[32];
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
+// Deterministic block sums of K doubles per thread (blockDim.x a multiple
+// of 32, at most 1024): warp shuffles for all K values, one barrier, then
+// thread c < K adds component c's warp sums in warp order.  Returns
+// component threadIdx.x's block sum in threads 0..K-1.
+template <int K>
+__device__ __forceinline__ double block_sums(double (&x)[K]) {
+  __shared__ double warp_sums[K][32];
+#pragma unroll
+  for (int c = 0; c < K; ++c)
+    for (int o = 16; o > 0; o >>= 1)
+      x[c] += __shfl_down_sync(0xffffffffu, x[c], o);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sums[warp] = x;
+  if (lane == 0) {
+#pragma unroll
+    for (int c = 0; c < K; ++c) warp_sums[c][warp] = x[c];
+  }
   __syncthreads();
-  const int nwarps = blockDim.x >> 5;
-  x = (threadIdx.x < nwarps) ? warp_sums[threadIdx.x] : 0.0;
-  if (warp == 0)
-    for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
-  return x;
+  double s = 0.0;
+  if (threadIdx.x < K)
+    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w)
+      s += warp_sums[threadIdx.x][w];
+  return s;
+}
+
+// Deterministic block sum of one double per thread; the result is valid
+// in thread 0.
+__device__ __forceinline__ double block_sum(double x) {
+  double v[1] = {x};
+  return block_sums(v);
+}
+
+// Second pass of a deterministic grid sum: block c adds the `count`
+// per-block partials partials[c * count ...] in a fixed order into out[c].
+// Launch with one block per summed component and a multiple of 32 threads.
+template <typename T>
+__global__ void sum_partials(const double* __restrict__ partials,
+                             int64_t count, T* __restrict__ out) {
+  const double* p = partials + blockIdx.x * count;
+  double acc = 0.0;
+  for (int64_t i = threadIdx.x; i < count; i += blockDim.x) acc += p[i];
+  acc = block_sum(acc);
+  if (threadIdx.x == 0) out[blockIdx.x] = static_cast<T>(acc);
 }
 
 }  // namespace fg

@@ -1,23 +1,29 @@
-// K3 g0_staggered_chain: u = irfftn(G0 rfftn(f)) on a 3-component force
-// field, the staggered-grid Green operator between hand-written transforms.
+// K3 g0_staggered_chain and K4 g0_staggered_heat_chain: u = irfftn(G0
+// rfftn(f)), the staggered-grid Green operator between hand-written
+// transforms, on a 3-component force field (K3, elasticity and the viscosity
+// Delta scheme) or a 1-component source field (K4, heat and porous flow).
 //
 // Replaces the TPU kernel fibergen_tpu/ops/pallas_chain.py _middle with
-// _g0_apply (via g0_staggered_middle).  _middle runs four matmul-DFT c2c
-// stages (y, x forward; x, y inverse) with the G0 apply between the x stages;
-// the JAX package puts the z r2c/c2r stages around it.  Here the whole chain
-// is five kernels, launched one after another on one stream:
+// _g0_apply (K3, via g0_staggered_middle) and with _g0_heat_apply (K4, via
+// g0_staggered_heat_middle).  _middle runs four matmul-DFT c2c stages (y, x
+// forward; x, y inverse) with the G0 apply between the x stages; the JAX
+// package puts the z r2c/c2r stages around it.  Here the whole chain is five
+// kernels, launched one after another on one stream:
 //
-//   z_fwd    real lines along z -> half-spectrum (3, nx, ny, nz/2+1)
+//   z_fwd    real lines along z -> half-spectrum (C, nx, ny, nz/2+1)
 //   y_line   c2c forward along y, in place
-//   x_g0     c2c forward along x, the G0 apply, c2c inverse along x, in place
+//   x_apply  c2c forward along x, the G0 apply, c2c inverse along x, in place
 //   y_line   c2c inverse along y, in place
 //   z_inv    half-spectrum -> real lines along z (Hermitian completion)
 //
-// G0 (green.py:457-496, pallas_chain.py:288-314):
-//   eta = c1 f - c2 (f . k+) conj(k+),   c1 = c10 / |k|^2,  c2 = c20 / |k|^4
+// The five passes are templates on the apply step, which fixes the
+// component count C; K3 and K4 are two instantiations of one chain.
+// G0 (green.py:457-496 and :890-899, pallas_chain.py:288-331):
+//   K3 (C = 3): eta = c1 f - c2 (f . k+) conj(k+), c1 = c10/|k|^2, c2 = c20/|k|^4
+//   K4 (C = 1): eta = c10 f / |k|^2
 //   k+_a = sin(xi_a) / h_a * exp(i xi_a)  per axis; the DC bin is zeroed.
 // k+ comes from three 1-D tables in natural rfft bin order (rows Re k+,
-// Im k+, |k+|^2); the 1/N of norm="forward" is folded into c10 and c20.
+// Im k+, |k+|^2); the 1/N of norm="forward" is folded into the constants.
 //
 // Each block loads a tile of whole lines into shared memory and transforms
 // it there.  A power-of-two length runs radix-4 passes (radix 2 for an odd
@@ -27,15 +33,15 @@
 // length runs a direct O(n^2) DFT.  Twiddles exp(-2 pi i t / n) come from
 // a per-axis table built in double.  The z kernels pack two real lines into
 // one complex transform (a + i b) and split or join their spectra by
-// Hermitian symmetry.
+// Hermitian symmetry; with C = 1 the pairs are neighbouring y lines.
 //
 // Bound on the card: device-memory bytes.  The function reads f and writes
-// u once (6 values per voxel); the chain moves the spectrum five times, so
+// u once (2C values per voxel); the chain moves the spectrum five times, so
 // it runs at about five times that bound at best.  Design: y and x tiles
 // take TK consecutive kz bins of every line (coalesced along kz); the x
-// kernel holds all three components of its tile, so the G0 apply, which
-// mixes components, happens between the forward and inverse x transforms
-// without a trip through device memory, as in the TPU kernel.
+// kernel holds all C components of its tile, so the G0 apply, which mixes
+// components, happens between the forward and inverse x transforms without
+// a trip through device memory, as in the TPU kernel.
 
 #include "fg_common.cuh"
 
@@ -96,7 +102,7 @@ __device__ __forceinline__ void item(const Tile& t, int e, int lg, int& c,
 template <typename T>
 __device__ void fft_pow2(Cx<T>* s, const Tile& t, const Cx<T>* __restrict__ tw,
                          bool inv, bool dif) {
-  const int n = t.n, nt = blockDim.x;
+  const int nt = blockDim.x;
   const T sg = inv ? T(-1) : T(1);
   int left = t.log2n;
   int lh = dif ? t.log2n - 1 : 0;            // log2 of the current half size
@@ -320,42 +326,14 @@ __global__ void y_line(Cx<T>* __restrict__ spec, const Cx<T>* __restrict__ tw,
   }
 }
 
-// Forward x transform, G0 apply, inverse x transform, in place: block
-// (kz tile, y) holds all three components, tile layout
-// s[c * nx * TK + i * TK + t].  The forward pass leaves the x bins in
-// bit-reversed order and the inverse pass takes them so.
+// The elasticity G0 (K3) on one bin of a 3-component tile; v[c * bs] is
+// component c.
 template <typename T>
-__global__ void x_g0(Cx<T>* __restrict__ spec, const Cx<T>* __restrict__ tw,
-                     const T* __restrict__ tx, const T* __restrict__ ty,
-                     const T* __restrict__ tz, T c10, T c20, int nx,
-                     int log2nx, int ny, int nzh, int log2TK) {
-  const int TK = 1 << log2TK;
-  const int bs = nx * TK;
-  Cx<T>* s = smem_base<T>();
-  const int kz0 = blockIdx.x * TK, y = blockIdx.y;
-  const int64_t sc = static_cast<int64_t>(nx) * ny * nzh;  // component
-  const int64_t sx = static_cast<int64_t>(ny) * nzh;       // x
-  Cx<T>* base = spec + static_cast<int64_t>(y) * nzh + kz0;
-  for (int e = threadIdx.x; e < 3 * bs; e += blockDim.x) {
-    const int c = e / bs, i = (e - c * bs) >> log2TK, q = e & (TK - 1);
-    s[e] = kz0 + q < nzh ? base[c * sc + i * sx + q] : Cx<T>{T(0), T(0)};
-  }
-  __syncthreads();
-  const Tile t{nx, log2nx, log2TK, 3, TK, 1, bs};
-  line_dft(s, s + 3 * bs, t, tw, false, true);
-  const T kyr = ty[y], kyi = ty[ny + y], ky2 = ty[2 * ny + y];
-  for (int e = threadIdx.x; e < bs; e += blockDim.x) {
-    const int p = e >> log2TK, q = e & (TK - 1), k = kz0 + q;
-    const int i = rev(p, log2nx);
-    if (k >= nzh) continue;
-    Cx<T>* v = s + e;
-    if (i == 0 && y == 0 && k == 0) {
-      v[0] = v[bs] = v[2 * bs] = Cx<T>{T(0), T(0)};
-      continue;
-    }
-    const T kr[3] = {tx[i], kyr, tz[k]};
-    const T ki[3] = {tx[nx + i], kyi, tz[nzh + k]};
-    const T n2 = tx[2 * nx + i] + ky2 + tz[2 * nzh + k];
+struct G0Vector {
+  static constexpr int C = 3;
+  T c10, c20;
+  __device__ __forceinline__ void operator()(Cx<T>* v, int bs, const T* kr,
+                                             const T* ki, T n2) const {
     const T c1 = c10 / n2, c2 = c20 / (n2 * n2);
     T re[3], im[3], fr = T(0), fi = T(0);
 #pragma unroll
@@ -371,9 +349,62 @@ __global__ void x_g0(Cx<T>* __restrict__ spec, const Cx<T>* __restrict__ tw,
       v[c * bs] = {c1 * re[c] - (cfr * kr[c] + cfi * ki[c]),
                    c1 * im[c] - (cfi * kr[c] - cfr * ki[c])};
   }
+};
+
+// The scalar G0 (K4) on one bin of a 1-component tile.
+template <typename T>
+struct G0Scalar {
+  static constexpr int C = 1;
+  T c10;
+  __device__ __forceinline__ void operator()(Cx<T>* v, int, const T*,
+                                             const T*, T n2) const {
+    const T c1 = c10 / n2;
+    v[0] = {c1 * v[0].r, c1 * v[0].i};
+  }
+};
+
+// Forward x transform, G0 apply, inverse x transform, in place: block
+// (kz tile, y) holds all C components, tile layout
+// s[c * nx * TK + i * TK + t].  The forward pass leaves the x bins in
+// bit-reversed order and the inverse pass takes them so.
+template <typename T, class A>
+__global__ void x_apply(Cx<T>* __restrict__ spec, const Cx<T>* __restrict__ tw,
+                        const T* __restrict__ tx, const T* __restrict__ ty,
+                        const T* __restrict__ tz, A apply, int nx,
+                        int log2nx, int ny, int nzh, int log2TK) {
+  constexpr int C = A::C;
+  const int TK = 1 << log2TK;
+  const int bs = nx * TK;
+  Cx<T>* s = smem_base<T>();
+  const int kz0 = blockIdx.x * TK, y = blockIdx.y;
+  const int64_t sc = static_cast<int64_t>(nx) * ny * nzh;  // component
+  const int64_t sx = static_cast<int64_t>(ny) * nzh;       // x
+  Cx<T>* base = spec + static_cast<int64_t>(y) * nzh + kz0;
+  for (int e = threadIdx.x; e < C * bs; e += blockDim.x) {
+    const int c = e / bs, i = (e - c * bs) >> log2TK, q = e & (TK - 1);
+    s[e] = kz0 + q < nzh ? base[c * sc + i * sx + q] : Cx<T>{T(0), T(0)};
+  }
   __syncthreads();
-  line_dft(s, s + 3 * bs, t, tw, true, false);
-  for (int e = threadIdx.x; e < 3 * bs; e += blockDim.x) {
+  const Tile t{nx, log2nx, log2TK, C, TK, 1, bs};
+  line_dft(s, s + C * bs, t, tw, false, true);
+  const T kyr = ty[y], kyi = ty[ny + y], ky2 = ty[2 * ny + y];
+  for (int e = threadIdx.x; e < bs; e += blockDim.x) {
+    const int p = e >> log2TK, q = e & (TK - 1), k = kz0 + q;
+    const int i = rev(p, log2nx);
+    if (k >= nzh) continue;
+    Cx<T>* v = s + e;
+    if (i == 0 && y == 0 && k == 0) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) v[c * bs] = Cx<T>{T(0), T(0)};
+      continue;
+    }
+    const T kr[3] = {tx[i], kyr, tz[k]};
+    const T ki[3] = {tx[nx + i], kyi, tz[nzh + k]};
+    apply(v, bs, kr, ki, tx[2 * nx + i] + ky2 + tz[2 * nzh + k]);
+  }
+  __syncthreads();
+  line_dft(s, s + C * bs, t, tw, true, false);
+  for (int e = threadIdx.x; e < C * bs; e += blockDim.x) {
     const int c = e / bs, i = (e - c * bs) >> log2TK, q = e & (TK - 1);
     if (kz0 + q < nzh) base[c * sc + i * sx + q] = s[e];
   }
@@ -407,67 +438,81 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-template <typename T>
+template <typename T, class A>
 int launch(const void* f, void* spec, void* out, const void* tx,
            const void* ty, const void* tz, const void* twx, const void* twy,
-           const void* twz, double c10, double c20, int nx, int ny, int nz,
+           const void* twz, const A& apply, int nx, int ny, int nz,
            void* stream) {
-  using C = Cx<T>;
+  using Cp = Cx<T>;
+  constexpr int C = A::C;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int nzh = nz / 2 + 1;
   const int lx = log2_or_neg(nx), ly = log2_or_neg(ny), lz = log2_or_neg(nz);
-  const size_t cs = sizeof(C);
-  const double n_all = static_cast<double>(nx) * ny * nz;
-  C* sp = static_cast<C*>(spec);
+  const size_t cs = sizeof(Cp);
+  Cp* sp = static_cast<Cp*>(spec);
   cudaError_t err;
 
   // z: 2^lP complex lines (twice as many real lines) per block
-  const int64_t zlines = 3LL * nx * ny;
+  const int64_t zlines = static_cast<int64_t>(C) * nx * ny;
   const size_t zunit = (lz >= 0 ? 1 : 2) * nz * cs;
   const int lP = pick_log2(zunit, nz >= 2048 ? 1 : 2048 / nz, 1 << 30);
   const int64_t zper = 2LL << lP;
   const unsigned zblocks = static_cast<unsigned>((zlines + zper - 1) / zper);
-  // y: TK kz columns of all ny rows; x: TK columns of 3 components x nx rows
+  // y: TK kz columns of all ny rows; x: TK columns of C components x nx rows
   const int want = sizeof(T) == 4 ? 16 : 8;
   const size_t yunit = (ly >= 0 ? 1 : 2) * ny * cs;
   const int lTy = pick_log2(yunit, want, nzh);
-  const size_t xunit = (lx >= 0 ? 1 : 2) * 3 * nx * cs;
+  const size_t xunit = (lx >= 0 ? 1 : 2) * C * nx * cs;
   const int lTx = pick_log2(xunit, want, nzh);
   const size_t zb = zunit << lP, yb = yunit << lTy, xb = xunit << lTx;
 
   if ((err = allow_smem(z_fwd<T>, zb)) || (err = allow_smem(z_inv<T>, zb)) ||
-      (err = allow_smem(y_line<T>, yb)) || (err = allow_smem(x_g0<T>, xb)))
+      (err = allow_smem(y_line<T>, yb)) ||
+      (err = allow_smem(x_apply<T, A>, xb)))
     return static_cast<int>(err);
 
   z_fwd<T><<<zblocks, kThreads, zb, st>>>(
-      static_cast<const T*>(f), sp, static_cast<const C*>(twz), nz, lz, nzh,
+      static_cast<const T*>(f), sp, static_cast<const Cp*>(twz), nz, lz, nzh,
       zlines, lP);
-  const dim3 yg((nzh + (1 << lTy) - 1) >> lTy, 3 * nx);
-  y_line<T><<<yg, kThreads, yb, st>>>(sp, static_cast<const C*>(twy), ny, ly,
-                                      nzh, lTy, false);
+  const dim3 yg((nzh + (1 << lTy) - 1) >> lTy, C * nx);
+  y_line<T><<<yg, kThreads, yb, st>>>(sp, static_cast<const Cp*>(twy), ny,
+                                      ly, nzh, lTy, false);
   const dim3 xg((nzh + (1 << lTx) - 1) >> lTx, ny);
-  x_g0<T><<<xg, kThreads, xb, st>>>(
-      sp, static_cast<const C*>(twx), static_cast<const T*>(tx),
-      static_cast<const T*>(ty), static_cast<const T*>(tz), T(c10 / n_all),
-      T(c20 / n_all), nx, lx, ny, nzh, lTx);
-  y_line<T><<<yg, kThreads, yb, st>>>(sp, static_cast<const C*>(twy), ny, ly,
-                                      nzh, lTy, true);
+  x_apply<T, A><<<xg, kThreads, xb, st>>>(
+      sp, static_cast<const Cp*>(twx), static_cast<const T*>(tx),
+      static_cast<const T*>(ty), static_cast<const T*>(tz), apply, nx, lx,
+      ny, nzh, lTx);
+  y_line<T><<<yg, kThreads, yb, st>>>(sp, static_cast<const Cp*>(twy), ny,
+                                      ly, nzh, lTy, true);
   z_inv<T><<<zblocks, kThreads, zb, st>>>(
-      sp, static_cast<T*>(out), static_cast<const C*>(twz), nz, lz, nzh,
+      sp, static_cast<T*>(out), static_cast<const Cp*>(twz), nz, lz, nzh,
       zlines, lP);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-#define FG_CHAIN_ENTRY(NAME, T)                                              \
-  extern "C" int NAME(const void* f, void* spec, void* out, const void* tx,  \
-                      const void* ty, const void* tz, const void* twx,       \
-                      const void* twy, const void* twz, double c10,          \
-                      double c20, int nx, int ny, int nz, void* stream) {    \
-    return launch<T>(f, spec, out, tx, ty, tz, twx, twy, twz, c10, c20, nx,  \
-                     ny, nz, stream);                                        \
+// The 1/N of norm="forward" is folded into the constants here.
+#define FG_CHAIN_ARGS                                                        \
+  const void *f, void *spec, void *out, const void *tx, const void *ty,      \
+      const void *tz, const void *twx, const void *twy, const void *twz
+#define FG_CHAIN_PASS f, spec, out, tx, ty, tz, twx, twy, twz
+
+#define FG_CHAIN_ENTRIES(SUF, T)                                             \
+  extern "C" int g0_staggered_chain_##SUF(FG_CHAIN_ARGS, double c10,        \
+                                          double c20, int nx, int ny,        \
+                                          int nz, void* stream) {            \
+    const double n = static_cast<double>(nx) * ny * nz;                      \
+    return launch<T>(FG_CHAIN_PASS, G0Vector<T>{T(c10 / n), T(c20 / n)},     \
+                     nx, ny, nz, stream);                                    \
+  }                                                                          \
+  extern "C" int g0_staggered_heat_chain_##SUF(FG_CHAIN_ARGS, double c10,   \
+                                               int nx, int ny, int nz,       \
+                                               void* stream) {               \
+    const double n = static_cast<double>(nx) * ny * nz;                      \
+    return launch<T>(FG_CHAIN_PASS, G0Scalar<T>{T(c10 / n)}, nx, ny, nz,     \
+                     stream);                                                \
   }
 
-FG_CHAIN_ENTRY(g0_staggered_chain_f32, float)
-FG_CHAIN_ENTRY(g0_staggered_chain_f64, double)
+FG_CHAIN_ENTRIES(f32, float)
+FG_CHAIN_ENTRIES(f64, double)

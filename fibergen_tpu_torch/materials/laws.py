@@ -1,4 +1,5 @@
-"""Constitutive laws of the elasticity slice: linear isotropic only.
+"""Linear constitutive laws: isotropic elasticity and the scalar law of
+heat conduction, porous flow and viscosity (fluidity).
 
 Laws act on whole Voigt fields ``(dim, nx, ny, nz)``; dim-6 strains store
 tensor shear components (core.voigt).
@@ -35,3 +36,25 @@ class LinearIsotropic:
 
     def __str__(self):
         return f"linear isotropic lambda={self.lam:g} mu={self.mu:g}"
+
+
+@dataclasses.dataclass
+class ScalarLinearIsotropic:
+    """Scalar conductivity/fluidity law sigma = mu * E on dim-3 fields
+    (fibergen.cpp:11161-11228).  Also used for viscosity (dim 6)."""
+
+    mu: float
+    dim: int = 3
+    is_linear: bool = True
+
+    def pk1(self, F):
+        return self.mu * F
+
+    def eig_range_const(self):
+        return (self.mu, self.mu)
+
+    def iso_moduli(self):
+        return (0.5 * self.mu, 0.0)  # C = mu * I == 2*(mu/2)*Id with lam=0
+
+    def __str__(self):
+        return f"scalar linear isotropic mu={self.mu:g}"

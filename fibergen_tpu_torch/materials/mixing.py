@@ -4,7 +4,9 @@ Equivalent of PhaseBase + VoigtMixedMaterialLaw (fibergen.cpp:12004-12062,
 12729-12777).  Phases hold per-voxel volume-fraction tensors phi
 (nx, ny, nz).  For all-isotropic phase sets the per-voxel moduli
 mu(x) = sum phi_p mu_p and lam(x) = sum phi_p lam_p are formed once and
-cached, so the stencil kernels read two moduli planes per voxel.
+cached, so the stencil kernels read two moduli planes per voxel.  Fields
+are dim 6 (elasticity, viscosity) or dim 3 (heat, porous flow, with scalar
+laws: sigma = 2 mu(x) E).
 """
 from __future__ import annotations
 
@@ -35,8 +37,8 @@ class VoigtMixed:
     rule = "voigt"
 
     def __init__(self, phases: List[Phase], dim: int = 6):
-        if dim != 6:
-            raise NotImplementedError("the port's elasticity slice is dim 6")
+        if dim not in (3, 6):
+            raise NotImplementedError(f"dim {dim} is not ported (3 and 6 are)")
         self._dim = dim
         self.phases = []
         self._iso_key = None
@@ -99,6 +101,8 @@ class VoigtMixed:
     def pk1(self, F):
         mu_x, lam_x = self.iso_moduli(F.dtype, F.device)
         two_mu = 2.0 * mu_x
+        if self._dim == 3:
+            return two_mu * F
         ltr = lam_x * (F[0] + F[1] + F[2])
         return torch.stack([two_mu * F[0] + ltr, two_mu * F[1] + ltr,
                             two_mu * F[2] + ltr]
@@ -114,13 +118,17 @@ class VoigtMixed:
         mu_x, lam_x = self.iso_moduli(F.dtype, F.device)
         return stress_diff_iso(F, mu_x, lam_x, mu_0, lambda_0)
 
-    def eig_range(self):
+    def eig_range(self, zero_trace=False):
         """Per-voxel tangent eigenvalue bounds reduced over the grid
         (getRefMaterial, fibergen.cpp:12153-12236): the isotropic tangent
-        has eigenvalues {2 mu, 2 mu + 3 lam}."""
+        has eigenvalues {2 mu, 2 mu + 3 lam}; without row and column 0
+        (``zero_trace``, viscosity) {2 mu, 2 mu + 2 lam}; a scalar law's
+        (dim 3) is 2 mu."""
         mu_x, lam_x = self._all_iso()
         e1 = 2.0 * mu_x
-        e2 = 2.0 * mu_x + 3.0 * lam_x
+        if self._dim == 3:
+            return e1.min(), e1.max()
+        e2 = 2.0 * mu_x + (2.0 if zero_trace else 3.0) * lam_x
         return torch.minimum(e1, e2).min(), torch.maximum(e1, e2).max()
 
     def __str__(self):
@@ -129,8 +137,10 @@ class VoigtMixed:
 
 def stress_diff_iso(F, mu_x, lam_x, mu_0, lambda_0):
     """tau = 2(mu(x) - mu_0) F + (lam(x) - lambda_0) tr(F) I on a dim-6
-    field."""
+    field; tau = 2(mu(x) - mu_0) F on a dim-3 field."""
     two_dmu = 2.0 * (mu_x - mu_0)
+    if F.shape[0] == 3:
+        return two_dmu * F
     ltr = (lam_x - lambda_0) * (F[0] + F[1] + F[2])
     return torch.stack([two_dmu * F[0] + ltr, two_dmu * F[1] + ltr,
                         two_dmu * F[2] + ltr]

@@ -8,7 +8,10 @@ that the stencil kernels (ops/stencil_kernels.py) are checked against.
     D- f = (f(i) - f(i-1)) * n/d      backward difference
 
 eps uses D+ on the diagonal and D- on the shear terms; div uses D- on the
-diagonal and D+ on the shear terms (adjoint pair).
+diagonal and D+ on the shear terms (adjoint pair).  The scalar (heat and
+porous) pair uses D+ for the gradient and D- for the divergence; it stays
+plain PyTorch on every device, as the JAX package computes it outside any
+Pallas kernel.
 """
 from __future__ import annotations
 
@@ -57,3 +60,20 @@ def div_staggered(grid, tau):
         _dp(tau[5], 0, hx) + _dm(tau[1], 1, hy) + _dp(tau[3], 2, hz),
         _dp(tau[4], 0, hx) + _dp(tau[3], 1, hy) + _dm(tau[2], 2, hz),
     ])
+
+
+def eps_staggered_heat(grid, E, u):
+    """Staggered gradient of a scalar potential + mean gradient E
+    (fibergen.cpp:18697-18758).  u: (1,nx,ny,nz), E: (3,), returns (3,...)."""
+    hx, hy, hz = hs(grid)
+    p = u[0]
+    return torch.stack([E[0] + _dp(p, 0, hx), E[1] + _dp(p, 1, hy),
+                        E[2] + _dp(p, 2, hz)])
+
+
+def div_staggered_heat(grid, tau):
+    """Staggered divergence of a vector field into a scalar, backward
+    differences (fibergen.cpp:18914-18968).  Returns (1, nx, ny, nz)."""
+    hx, hy, hz = hs(grid)
+    return (_dm(tau[0], 0, hx) + _dm(tau[1], 1, hy)
+            + _dm(tau[2], 2, hz))[None]

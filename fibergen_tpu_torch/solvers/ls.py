@@ -1,13 +1,19 @@
-"""Lippmann-Schwinger solver: linear-elastic CG on the staggered grid.
+"""Lippmann-Schwinger solver: linear CG on the staggered grid.
 
-Port of the main path of fibergen_tpu/solvers/ls.py (the reference's
-LSSolver, fibergen.cpp:14643-24741): trivial (pure strain) boundary
-conditions, the staggered discretization, one device.  Each CG step runs
-the three hand-written kernels on a card (ops/stencil_kernels.py K1 and K2,
-ops/spectral_kernels.py K3, the G0 chain with its own transforms) and
-their plain twins on the CPU.  The scalars gamma, gamma_prev and beta stay
-on the device; the host reads the residual history once per ``check_every``
-iterations.
+Port of fibergen_tpu/solvers/ls.py (the reference's LSSolver,
+fibergen.cpp:14643-24741) for trivial (pure strain) boundary conditions,
+the staggered discretization and one device, in four modes.  On a card each
+CG step runs hand-written kernels, on the CPU their plain twins:
+
+* elasticity: K1 (ops/stencil_kernels.py), the K3 G0 chain
+  (ops/spectral_kernels.py, with its own transforms), K2;
+* heat and porous flow: plain stencils around the scalar K4 chain
+  (ops/gamma.py gamma_heat_staggered);
+* viscosity (the Delta dual scheme): K1 tau-sum mode, K3 with the dual
+  constants, K2 Delta mode (ops/gamma.py fused_visc).
+
+The scalars gamma, gamma_prev and beta stay on the device; the host reads
+the residual history once per ``check_every`` iterations.
 """
 from __future__ import annotations
 
@@ -21,12 +27,13 @@ import torch
 
 from ..core import fields
 from ..core.device import resolve_device, resolve_dtype
+from ..ops import gamma as gammamod
 from ..ops import green
 from ..ops.stencil_kernels import eps_from_u_dot, stress_div_beta
 from ..utils.logging import LOG
 from .estimators import make_estimator
 
-MODE_DIM = {"elasticity": 6}
+MODE_DIM = {"elasticity": 6, "heat": 3, "porous": 3, "viscosity": 6}
 
 
 class SolverError(RuntimeError):
@@ -102,7 +109,8 @@ class SolverOptions:
 _FREE = {"tol", "tol_red", "abs_tol", "bc_tol", "maxiter", "update_ref",
          "ref_scale", "error_estimator", "check_every", "dtype", "refine",
          "print_mean", "ref_mu", "ref_lambda"}
-_ALSO = {"gamma_scheme": ("staggered",), "adaptive_drain": ("off",),
+_ALSO = {"mode": ("heat", "porous", "viscosity"),
+         "gamma_scheme": ("staggered",), "adaptive_drain": ("off",),
          "low_mem": ("off",), "use_dim2": ("off",)}
 
 
@@ -114,7 +122,8 @@ def _check_options(opt: SolverOptions):
         if v != f.default and v not in _ALSO.get(f.name, ()):
             raise NotImplementedError(
                 f"SolverOptions.{f.name}={v!r} is not ported yet (the port "
-                f"implements the staggered elasticity CG main path)")
+                f"implements the staggered CG of elasticity, heat, porous "
+                f"flow and viscosity)")
     if opt.refine not in ("auto", "on", "off"):
         raise ValueError(f"refine must be auto/on/off, got {opt.refine!r}")
     make_estimator(opt.error_estimator)
@@ -139,6 +148,11 @@ class LSSolver:
             raise SolverError(
                 f"material dim {material.dim} incompatible with mode "
                 f"'{self.mode}'")
+        if self.mode == "viscosity" and any(
+                float(p.law.iso_moduli()[1]) != 0.0 for p in material.phases):
+            raise NotImplementedError(
+                "viscosity phases that carry a lambda take the JAX package's "
+                "generic Delta path, which is not ported yet")
         self.scheme = self.opt.resolved_scheme()
         self.dtype = resolve_dtype(self.opt.dtype)
         self._tiny = float(np.finfo(np.float64 if self.dtype == torch.float64
@@ -189,7 +203,8 @@ class LSSolver:
         if self._eig_memo is not None and self._eig_memo[0] == key:
             lmin, lmax = self._eig_memo[1]
         else:
-            lmin, lmax = (float(x) for x in self.mat.eig_range())
+            lmin, lmax = (float(x) for x in self.mat.eig_range(
+                zero_trace=self.mode == "viscosity"))
             self._eig_memo = (key, (lmin, lmax))
         if lmin < 0:
             LOG.warn(f"negative tangent eigenvalue ({lmin}); cutting off at 0")
@@ -245,11 +260,19 @@ class LSSolver:
 
     def _krylov(self, eps, mu_x, lam_x, zero):
         """-Gamma (C - C0) eps with zero mean (krylovOperator,
-        fibergen.cpp:20583-20587): K1 init mode, G0, K2 no-dot mode."""
-        f, _ = stress_div_beta(self.grid, eps, None, None, mu_x, lam_x,
-                               self.mu_0, self.lambda_0)
-        u = green.g0_staggered_fused(self.grid, self.mu_0, self.lambda_0, f)
-        w, _ = eps_from_u_dot(self.grid, zero, u)
+        fibergen.cpp:20583-20587).  Elasticity: K1 init mode, G0, K2 no-dot
+        mode; heat/porous: the plain stress difference and the scalar
+        Gamma; viscosity: the Delta operator (its dot is not read)."""
+        grid, mu0, lam0 = self.grid, self.mu_0, self.lambda_0
+        if self.mode == "viscosity":
+            return gammamod.fused_visc(grid, eps, None, None, zero, mu_x,
+                                       lam_x, mu0, lam0)[0]
+        if self.dim == 3:
+            return gammamod.gamma_heat_staggered(
+                grid, zero, mu0, self.mat.stress_diff(eps, mu0, lam0))
+        f, _ = stress_div_beta(grid, eps, None, None, mu_x, lam_x, mu0, lam0)
+        u = green.g0_staggered_fused(grid, mu0, lam0, f)
+        w, _ = eps_from_u_dot(grid, zero, u)
         return w
 
     def _cg_init(self, Ej, mu_x, lam_x, zero):
@@ -266,14 +289,25 @@ class LSSolver:
 
     def _cg_step(self, eps, r, p_prev, gamma, gamma_prev, mu_x, lam_x, zero):
         """One CG step; eps and r are updated in place."""
-        grid = self.grid
-        f, p = stress_div_beta(grid, r, p_prev, (gamma, gamma_prev), mu_x,
-                               lam_x, self.mu_0, self.lambda_0)
-        u = green.g0_staggered_fused(grid, self.mu_0, self.lambda_0, f)
-        del f
-        w, dot_raw = eps_from_u_dot(grid, zero, u, p)
-        del u
-        alpha = gamma / (dot_raw / grid.nxyz + self._tiny)
+        grid, mu0, lam0 = self.grid, self.mu_0, self.lambda_0
+        beta = (gamma, gamma_prev)
+        if self.mode == "elasticity":
+            f, p = stress_div_beta(grid, r, p_prev, beta, mu_x, lam_x, mu0,
+                                   lam0)
+            u = green.g0_staggered_fused(grid, mu0, lam0, f)
+            del f
+            w, dot_raw = eps_from_u_dot(grid, zero, u, p)
+            del u
+            denom = dot_raw / grid.nxyz
+        elif self.mode == "viscosity":
+            w, p, dot_raw = gammamod.fused_visc(grid, r, p_prev, beta, zero,
+                                                mu_x, lam_x, mu0, lam0)
+            denom = dot_raw / grid.nxyz
+        else:
+            p = r + (gamma / gamma_prev) * p_prev
+            w = self._krylov(p, mu_x, lam_x, zero)
+            denom = fields.inner_l2_diff(p, p, w)
+        alpha = gamma / (denom + self._tiny)
         eps.addcmul_(p, alpha)                 # eps + alpha p
         met = self._metric(eps)
         r.addcmul_(w.sub_(p), alpha)           # r - alpha (p - w)

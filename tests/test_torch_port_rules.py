@@ -66,9 +66,9 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 def test_unported_options_raise():
     mat = ft.convert.material_from_numpy([("a", 1.0, 1.0, np.ones((4, 4, 4)))],
                                          device="cpu")
-    for kw in ({"method": "polarization"}, {"mode": "heat"},
-               {"loadsteps": 3}, {"use_pallas": "on"},
-               {"error_estimator": "energy"}):
+    for kw in ({"method": "polarization"}, {"mode": "hyperelasticity"},
+               {"gamma_scheme": "full_staggered"}, {"loadsteps": 3},
+               {"use_pallas": "on"}, {"error_estimator": "energy"}):
         with pytest.raises(NotImplementedError):
             ft.LSSolver(ft.Grid(4, 4, 4), mat, ft.SolverOptions(**kw),
                         device="cpu")
@@ -91,5 +91,14 @@ def test_cpu_tensors_take_the_twins_and_count_no_launch():
     u = green.g0_staggered_fused(grid, 1.0, 0.0, f)
     assert f.shape == (3, 5, 4, 3) and w.shape == (6, 5, 4, 3)
     assert dot.shape == () and u.shape == (3, 5, 4, 3)
+    f, p, ts = stencil_kernels.stress_div_beta(
+        grid, t(6, 5, 4, 3), None, None, t(5, 4, 3), t(5, 4, 3), 1.0, 0.0,
+        want_tau_sum=True)
+    w, dot = stencil_kernels.eps_from_u_dot(grid, t(6), t(3, 5, 4, 3),
+                                            t(6, 5, 4, 3), mu_x=t(5, 4, 3),
+                                            tau2c=-0.5, mu0=1.0)
+    h = green.g0_staggered_heat_fused(grid, 1.0, 0.0, f[:1])
+    assert p is None and ts.shape == (6,) and dot.shape == ()
+    assert h.shape == (1, 5, 4, 3)
     assert dict(stencil_kernels.launches, **spectral_kernels.launches) \
         == before
