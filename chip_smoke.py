@@ -3,9 +3,12 @@
 
     python3 chip_smoke.py
 
-Three paths run on the card: elasticity (K1, K3, K2), heat conduction
-(the scalar K4 chain; porous flow is the same path) and viscosity (K1
-tau-sum mode, K3 with the dual constants, K2 Delta mode).  Phases, each
+Seven paths run on the card (PATHS).  Staggered CG: elasticity (K1, K3,
+K2), heat conduction (the scalar K4 chain; porous flow is the same path)
+and viscosity (K1 tau-sum mode, K3 with the dual constants, K2 Delta mode).
+Collocated: CG in elasticity and heat (the plain stress difference and the
+K5 collocated Gamma chain) and in viscosity (the K6 zero-trace chain), and
+the Eyre-Milton polarization scheme in elasticity (K5).  Phases, each
 failing loudly:
 
 1. the card's name and power limit; build the CUDA kernels from ``csrc/``;
@@ -15,9 +18,11 @@ failing loudly:
 3. the kernel path (cuda) against the plain path (cpu) on one 48^3
    float64 solve of each path;
 4. the paths at full size: the bench's 256^3 sphere RVE solved to 1e-6 in
-   float32 in each mode (timed second run, kernel launches counted around
-   each), the elasticity solve also in float64 and at 512^3;
-5. the x-laminates' analytic C11 and conductivity on the card;
+   float32 on each path (timed second run, kernel launches counted around
+   each; a path launches each of its kernels and no other), the staggered
+   elasticity solve also in float64 and at 512^3;
+5. the x-laminates' analytic C11 and conductivity on the card, on the
+   staggered and the collocated grid;
 6. the launch counts and one JSON line per kernel and mode with its
    numbers.
 
@@ -78,7 +83,7 @@ def sphere_phi(n, dtype):
 # (fibre, matrix) and the loading.  Elasticity: mu=10 lam=5 / mu=1 lam=1,
 # e_xx = 1; heat (and porous flow): conductivities 10 / 1, unit x gradient;
 # viscosity: fluidities 0.1 / 1, e_xz = 1.
-PATHS = {
+RVE = {
     "elasticity": dict(dim=6, law="isotropic", fiber=(10.0, 5.0),
                        matrix=(1.0, 1.0), load=[1.0, 0, 0, 0, 0, 0]),
     "heat": dict(dim=3, law="scalar", fiber=(10.0,), matrix=(1.0,),
@@ -86,27 +91,51 @@ PATHS = {
     "viscosity": dict(dim=6, law="scalar", fiber=(0.1,), matrix=(1.0,),
                       load=[0, 0, 0, 0, 1.0, 0]),
 }
-# the kernels each path must launch
+# path -> (mode, gamma_scheme, method)
+PATHS = {
+    "elasticity": ("elasticity", "staggered", "cg"),
+    "heat": ("heat", "staggered", "cg"),
+    "viscosity": ("viscosity", "staggered", "cg"),
+    "elasticity-collocated": ("elasticity", "collocated", "cg"),
+    "heat-collocated": ("heat", "collocated", "cg"),
+    "viscosity-collocated": ("viscosity", "collocated", "cg"),
+    "elasticity-polarization": ("elasticity", "collocated", "polarization"),
+}
+# the kernels each path must launch; it launches no other
 PATH_KERNELS = {
     "elasticity": ("stress_div_beta", "eps_from_u_dot", "g0_staggered_chain"),
     "heat": ("g0_staggered_heat_chain",),
     "viscosity": ("stress_div_beta", "eps_from_u_dot", "g0_staggered_chain"),
+    "elasticity-collocated": ("gamma_collocated_chain",),
+    "heat-collocated": ("gamma_collocated_chain",),
+    "viscosity-collocated": ("gamma_collocated_zt_chain",),
+    "elasticity-polarization": ("gamma_collocated_chain",),
 }
 
 
-def sphere_solver(n, dtype, device, mode="elasticity", **opt):
-    """The bench's RVE in ``mode`` (PATHS) on an n^3 grid."""
+def sphere_solver(n, dtype, device, mode="elasticity", scheme="staggered",
+                  method="cg", **opt):
+    """The bench's RVE in ``mode`` (RVE) on an n^3 grid, solved with
+    ``method`` on the ``scheme`` grid."""
     import fibergen_tpu_torch as ft
-    c = PATHS[mode]
+    c = RVE[mode]
     phi = sphere_phi(n, "float32" if dtype == "float32" else "float64")
     mat = ft.convert.material_from_numpy(
         [("fiber", *c["fiber"], phi), ("matrix", *c["matrix"], 1.0 - phi)],
         dim=c["dim"], device=device, law=c["law"])
     s = ft.LSSolver(ft.Grid(n, n, n), mat, ft.SolverOptions(
-        mode=mode, method="cg", gamma_scheme="staggered", dtype=dtype,
-        **opt), device=device)
+        mode=mode, method=method, gamma_scheme=scheme, dtype=dtype, **opt),
+        device=device)
     s.set_strain(c["load"])
     return s
+
+
+def path_solver(n, dtype, device, path, **opt):
+    """The bench's RVE on ``path`` (PATHS).  The polarization scheme has no
+    CG residual: it runs with the epsilon estimator at the same tol."""
+    if PATHS[path][2] == "polarization":
+        opt["error_estimator"] = "epsilon"
+    return sphere_solver(n, dtype, device, *PATHS[path], **opt)
 
 
 # per-voxel values moved and flops of each kernel's work on the paths:
@@ -114,9 +143,11 @@ def sphere_solver(n, dtype, device, mode="elasticity", **opt):
 # lam and writes f; the tau sum adds six per-block partials (no per-voxel
 # values); K2 dot reads u, p and writes w; K2 no-dot reads u and writes w;
 # K2 Delta also reads mu; the chains read f and write u (C values each, C
-# = 3 for K3, 1 for K4), and their flops are those of a C-component rfftn +
-# irfftn pair (2.5 N log2 N each per component) plus those of the G0 apply
-# per half-spectrum bin (about 56 for K3, 6 for K4).
+# = 3 for K3, 1 for K4, 6 or 3 for K5, 5 for K6), and their flops are those
+# of a C-component rfftn + irfftn pair (2.5 N log2 N each per component)
+# plus those of the apply per half-spectrum bin (about 56 for K3, 6 for K4;
+# counted from GammaCollocated: 154 for K5 at C = 6 and for K6, 36 for K5
+# at C = 3).
 WORK = {
     "stress_div_beta": dict(values=14 + 9, flops=51),
     "stress_div_beta[init]": dict(values=8 + 3, flops=39),
@@ -127,6 +158,12 @@ WORK = {
     "g0_staggered_chain": dict(values=3 + 3, flops=None, comps=3, apply=56),
     "g0_staggered_heat_chain": dict(values=1 + 1, flops=None, comps=1,
                                     apply=6),
+    "gamma_collocated_chain": dict(values=6 + 6, flops=None, comps=6,
+                                   apply=154),
+    "gamma_collocated_chain[heat]": dict(values=3 + 3, flops=None, comps=3,
+                                         apply=36),
+    "gamma_collocated_zt_chain": dict(values=5 + 5, flops=None, comps=5,
+                                      apply=154),
 }
 
 
@@ -243,9 +280,27 @@ def check_kernels(shape, dtype, timed):
     k4 = lambda: spk.g0_staggered_heat_chain(g, f1, h10)
     p4 = lambda: spk.g0_staggered_heat_chain_plain(g, f1, h10)
     report("g0_staggered_heat_chain", [rel_err(k4(), p4())], k4, p4, n)
+
+    # K5 (6 and 3 components) and K6 with a device E and beta != 0
+    A, B = green.collocated_constants(mu0, 0.4)
+    r3 = r[:3].contiguous()
+    k5 = lambda: spk.gamma_collocated_chain(g, r, A, B, E, 0.37)
+    p5 = lambda: spk.gamma_collocated_chain_plain(g, r, A, B, E, 0.37)
+    report("gamma_collocated_chain", [rel_err(k5(), p5())], k5, p5, n)
+    k5h = lambda: spk.gamma_collocated_chain(g, r3, A, 0.0, E[:3], 0.37)
+    p5h = lambda: spk.gamma_collocated_chain_plain(g, r3, A, 0.0, E[:3], 0.37)
+    report("gamma_collocated_chain[heat]", [rel_err(k5h(), p5h())], k5h, p5h,
+           n)
+    Az, Bz = green.collocated_constants(-mu0, float("inf"))
+    k6 = lambda: spk.gamma_collocated_zt_chain(g, r, Az, Bz, E, -0.2)
+    p6 = lambda: spk.gamma_collocated_zt_chain_plain(g, r, Az, Bz, E, -0.2)
+    report("gamma_collocated_zt_chain", [rel_err(k6(), p6())], k6, p6, n)
     if timed:
         for name, x in (("g0_staggered_chain", f),
-                        ("g0_staggered_heat_chain", f1)):
+                        ("g0_staggered_heat_chain", f1),
+                        ("gamma_collocated_chain", r),
+                        ("gamma_collocated_chain[heat]", r3),
+                        ("gamma_collocated_zt_chain", r[1:])):
             out[name]["library_ms"] = cuda_ms(
                 lambda: fft.ifftn(fft.fftn(x), g.shape))
             log(f"  cuFFT rfftn+irfftn ({x.shape[0]}, {shape}) "
@@ -287,9 +342,9 @@ def main():
             if "Used" in line or "spill" in line:
                 log(f"  {src}: {line.strip()}")
 
-    def run_counted(solver, label):
+    def run_counted(solver, label, path):
         """Run one solve with every launch count set to 0 just before it;
-        fail unless each kernel of the solver's path launched in it."""
+        fail unless each kernel of ``path`` launched in it and no other."""
         for table in (sk.launches, spk.launches):
             for name in table:
                 table[name] = 0
@@ -297,7 +352,7 @@ def main():
         torch.cuda.synchronize()
         got = dict(sk.launches, **spk.launches)
         log(f"  {label} launches: {json.dumps(got)}")
-        assert all(got[k] > 0 for k in PATH_KERNELS[solver.mode]), \
+        assert all((got[k] > 0) == (k in PATH_KERNELS[path]) for k in got), \
             (label, got)
         return fail, got
 
@@ -311,21 +366,25 @@ def main():
     log("phase 3: 48^3 float64 solves, cuda kernels vs cpu twins")
     opt = dict(error_estimator="residual", tol=1e-8, check_every=4,
                maxiter=1000)
-    for mode in PATHS:
-        s_cpu = sphere_solver(48, "float64", "cpu", mode, **opt)
-        s_gpu = sphere_solver(48, "float64", "cuda", mode, **opt)
+    for path in PATHS:
+        # the epsilon estimator of the polarization scheme subtracts two
+        # norms: at 1e-8 their rounding would show in the 1e-9 comparison
+        popt = dict(opt, tol=1e-6) if PATHS[path][2] == "polarization" \
+            else opt
+        s_cpu = path_solver(48, "float64", "cpu", path, **popt)
+        s_gpu = path_solver(48, "float64", "cuda", path, **popt)
         assert not s_cpu.run()
-        assert not run_counted(s_gpu, f"48^3 float64 {mode}")[0]
+        assert not run_counted(s_gpu, f"48^3 float64 {path}", path)[0]
         rc, rg = np.asarray(s_cpu.residuals), np.asarray(s_gpu.residuals)
         res_rel = float(np.max(np.abs(rg - rc) / np.abs(rc))) \
             if len(rc) == len(rg) else float("inf")
         Sc, Sg = s_cpu.calc_mean_stress(), s_gpu.calc_mean_stress()
         s_rel = float(np.max(np.abs(Sg - Sc)) / np.max(np.abs(Sc)))
-        log(f"  {mode}: iterations cpu {len(rc)} cuda {len(rg)}, residual "
+        log(f"  {path}: iterations cpu {len(rc)} cuda {len(rg)}, residual "
             f"history max rel diff {res_rel:.3e}, mean stress max rel diff "
             f"{s_rel:.3e}")
-        assert len(rc) == len(rg), f"{mode}: iteration counts differ"
-        assert res_rel <= 1e-9 and s_rel <= 1e-10, mode
+        assert len(rc) == len(rg), f"{path}: iteration counts differ"
+        assert res_rel <= 1e-9 and s_rel <= 1e-10, path
         del s_cpu, s_gpu
 
     # ---- phase 4: the paths at full size
@@ -333,30 +392,37 @@ def main():
     opt = dict(error_estimator="residual", tol=1e-6, check_every=8,
                maxiter=4000)
     path_launches, res32 = {}, {}
-    for mode in PATHS:
-        s32 = sphere_solver(256, "float32", "cuda", mode, **opt)
+    for path in PATHS:
+        s32 = path_solver(256, "float32", "cuda", path, **opt)
         assert not s32.run()                     # warm-up
-        fail, got = run_counted(s32, f"256^3 float32 {mode}")
-        path_launches[mode] = got
+        fail, got = run_counted(s32, f"256^3 float32 {path}", path)
+        path_launches[path] = got
         its = len(s32.residuals)
-        # one launch of the path's chain per CG step, one at CG init
-        steps = got[PATH_KERNELS[mode][-1]] - 1
+        # one launch of the path's chain per step, one more at CG init
+        steps = got[PATH_KERNELS[path][-1]] - (PATHS[path][2] == "cg")
         final_rel = float(s32.residuals[-1])
         S32 = s32.calc_mean_stress()
-        log(f"  256^3 float32 {mode}: {its} iterations ({steps} CG steps "
+        log(f"  256^3 float32 {path}: {its} iterations ({steps} steps "
             f"run), solve_time {s32.solve_time:.4f} s, "
             f"{its / s32.solve_time:.2f} iter/s, "
             f"{steps / s32.solve_time:.2f} steps/s, final_rel "
             f"{final_rel:.3e}, mean stress {S32.tolist()}")
         assert not fail and its < opt["maxiter"] and final_rel <= 1e-6
         assert np.all(np.isfinite(S32))
-        res32[mode] = (its, S32)
+        res32[path] = (its, S32)
         del s32
         torch.cuda.empty_cache()
+    # polarization and collocated CG solve the same discretization; the
+    # epsilon estimator stops the polarization scheme a few 1e-5 away
+    d = float(np.max(np.abs(res32["elasticity-polarization"][1]
+                            - res32["elasticity-collocated"][1]))
+              / np.max(np.abs(res32["elasticity-collocated"][1])))
+    log(f"  polarization vs collocated CG mean stress: rel diff {d:.3e}")
+    assert d <= 5e-4
     its, S32 = res32["elasticity"]
 
     s64 = sphere_solver(256, "float64", "cuda", **opt)
-    assert not run_counted(s64, "256^3 float64")[0]
+    assert not run_counted(s64, "256^3 float64", "elasticity")[0]
     S64 = s64.calc_mean_stress()
     d = float(np.max(np.abs(S64 - S32)) / np.max(np.abs(S64)))
     log(f"  256^3 float64: {len(s64.residuals)} iterations, solve_time "
@@ -369,7 +435,7 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     s512 = sphere_solver(512, "float32", "cuda", **opt)
     t0 = time.perf_counter()
-    assert not run_counted(s512, "512^3 float32")[0]
+    assert not run_counted(s512, "512^3 float32", "elasticity")[0]
     wall = time.perf_counter() - t0
     S512 = s512.calc_mean_stress()
     log(f"  512^3 float32: {len(s512.residuals)} iterations, wall {wall:.3f}"
@@ -386,32 +452,38 @@ def main():
     x = (np.arange(shape[0]) + 0.5) / shape[0]
     phi = np.broadcast_to((x < 0.5)[:, None, None], shape).astype(np.float64)
     (mu1, lam1), (mu2, lam2) = (1.0, 2.0), (10.0, 5.0)
-    mat = ft.convert.material_from_numpy(
-        [("a", mu1, lam1, phi), ("b", mu2, lam2, 1.0 - phi)])
-    s = ft.LSSolver(ft.Grid(*shape), mat, ft.SolverOptions(
-        tol=1e-10, error_estimator="residual", check_every=4, maxiter=500))
-    s.set_strain([1.0, 0, 0, 0, 0, 0])
-    assert not run_counted(s, "laminate")[0]
-    c11 = float(s.calc_mean_stress()[0])
-    exact = 1.0 / (0.5 / (lam1 + 2 * mu1) + 0.5 / (lam2 + 2 * mu2))
-    log(f"phase 5: laminate C11 {c11:.12f} vs exact {exact:.12f} "
-        f"(rel {abs(c11 - exact) / exact:.3e}, {len(s.residuals)} its)")
-    assert abs(c11 - exact) <= 1e-8 * exact
+    for scheme, path in (("staggered", "elasticity"),
+                         ("collocated", "elasticity-collocated")):
+        mat = ft.convert.material_from_numpy(
+            [("a", mu1, lam1, phi), ("b", mu2, lam2, 1.0 - phi)])
+        s = ft.LSSolver(ft.Grid(*shape), mat, ft.SolverOptions(
+            gamma_scheme=scheme, tol=1e-10, error_estimator="residual",
+            check_every=4, maxiter=500))
+        s.set_strain([1.0, 0, 0, 0, 0, 0])
+        assert not run_counted(s, f"{scheme} laminate", path)[0]
+        c11 = float(s.calc_mean_stress()[0])
+        exact = 1.0 / (0.5 / (lam1 + 2 * mu1) + 0.5 / (lam2 + 2 * mu2))
+        log(f"phase 5: {scheme} laminate C11 {c11:.12f} vs exact "
+            f"{exact:.12f} (rel {abs(c11 - exact) / exact:.3e}, "
+            f"{len(s.residuals)} its)")
+        assert abs(c11 - exact) <= 1e-8 * exact
     # series conduction: the harmonic mean of the conductivities
     k1, k2 = 1.0, 10.0
-    mat = ft.convert.material_from_numpy(
-        [("a", k1, phi), ("b", k2, 1.0 - phi)], dim=3, law="scalar")
-    s = ft.LSSolver(ft.Grid(*shape), mat, ft.SolverOptions(
-        mode="heat", tol=1e-10, error_estimator="residual", check_every=4,
-        maxiter=500))
-    s.set_strain([1.0, 0, 0])
-    assert not run_counted(s, "heat laminate")[0]
-    k = float(s.calc_mean_stress()[0])
-    exact = 2 * k1 * k2 / (k1 + k2)
-    log(f"phase 5: heat laminate conductivity {k:.12f} vs exact "
-        f"{exact:.12f} (rel {abs(k - exact) / exact:.3e}, "
-        f"{len(s.residuals)} its)")
-    assert abs(k - exact) <= 1e-8 * exact
+    for scheme, path in (("staggered", "heat"),
+                         ("collocated", "heat-collocated")):
+        mat = ft.convert.material_from_numpy(
+            [("a", k1, phi), ("b", k2, 1.0 - phi)], dim=3, law="scalar")
+        s = ft.LSSolver(ft.Grid(*shape), mat, ft.SolverOptions(
+            mode="heat", gamma_scheme=scheme, tol=1e-10,
+            error_estimator="residual", check_every=4, maxiter=500))
+        s.set_strain([1.0, 0, 0])
+        assert not run_counted(s, f"{scheme} heat laminate", path)[0]
+        k = float(s.calc_mean_stress()[0])
+        exact = 2 * k1 * k2 / (k1 + k2)
+        log(f"phase 5: {scheme} heat laminate conductivity {k:.12f} vs "
+            f"exact {exact:.12f} (rel {abs(k - exact) / exact:.3e}, "
+            f"{len(s.residuals)} its)")
+        assert abs(k - exact) <= 1e-8 * exact
 
     # ---- phase 6: launches and per-kernel numbers.  The per-kernel list
     # takes the key "kernels"; the launch counts of each path's timed 256^3
@@ -432,7 +504,15 @@ def main():
             ("g0_staggered_chain", "g0_staggered_chain", "elasticity", ch,
              "fibergen_tpu/ops/pallas_chain.py:212"),
             ("g0_staggered_heat_chain", "g0_staggered_heat_chain", "heat",
-             ch, "fibergen_tpu/ops/pallas_chain.py:212")]
+             ch, "fibergen_tpu/ops/pallas_chain.py:212"),
+            ("gamma_collocated_chain", "gamma_collocated_chain",
+             "elasticity-collocated", ch,
+             "fibergen_tpu/ops/pallas_chain.py:385"),
+            ("gamma_collocated_chain[heat]", "gamma_collocated_chain",
+             "heat-collocated", ch, "fibergen_tpu/ops/pallas_chain.py:385"),
+            ("gamma_collocated_zt_chain", "gamma_collocated_zt_chain",
+             "viscosity-collocated", ch,
+             "fibergen_tpu/ops/pallas_chain.py:430")]
     kernels = []
     for name, counter, path, src, replaces in rows:
         m = main_nums[name]

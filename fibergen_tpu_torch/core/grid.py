@@ -68,6 +68,14 @@ class Grid:
         fz = _rfreq_index(self.nz)
         return fx, fy, fz
 
+    def xi(self, two_pi=False):
+        """Continuous wavenumbers xi_a = f_a / d_a (optionally * 2 pi) of
+        the collocated Green operators, which use only their ratios
+        (fibergen.cpp:19386)."""
+        fx, fy, fz = self.freq_index
+        s = 2.0 * np.pi if two_pi else 1.0
+        return (fx * (s / self.dx), fy * (s / self.dy), fz * (s / self.dz))
+
     def xi_staggered(self):
         """Half-shifted phases of the staggered-grid G0 operator:
         xi_a = pi * f_a / n_a (fibergen.cpp:19838-19839)."""

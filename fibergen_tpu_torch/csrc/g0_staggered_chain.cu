@@ -1,29 +1,53 @@
-// K3 g0_staggered_chain and K4 g0_staggered_heat_chain: u = irfftn(G0
-// rfftn(f)), the staggered-grid Green operator between hand-written
-// transforms, on a 3-component force field (K3, elasticity and the viscosity
-// Delta scheme) or a 1-component source field (K4, heat and porous flow).
+// K3 g0_staggered_chain, K4 g0_staggered_heat_chain, K5
+// gamma_collocated_chain and K6 gamma_collocated_zt_chain: a spectral
+// operator between hand-written transforms, u = irfftn(apply(rfftn(f))), on
+// a real (C, nx, ny, nz) field.
 //
 // Replaces the TPU kernel fibergen_tpu/ops/pallas_chain.py _middle with
-// _g0_apply (K3, via g0_staggered_middle) and with _g0_heat_apply (K4, via
-// g0_staggered_heat_middle).  _middle runs four matmul-DFT c2c stages (y, x
-// forward; x, y inverse) with the G0 apply between the x stages; the JAX
-// package puts the z r2c/c2r stages around it.  Here the whole chain is five
-// kernels, launched one after another on one stream:
+//   _g0_apply (K3, via g0_staggered_middle): the staggered elasticity G0 on
+//     a 3-component force field (elasticity, the viscosity Delta scheme);
+//   _g0_heat_apply (K4, via g0_staggered_heat_middle): the scalar G0 on a
+//     1-component source field (heat, porous flow);
+//   _gamma_collocated_apply (K5, via gamma_collocated_middle): the collocated
+//     Gamma on a 6-component strain field (elasticity) or a 3-component
+//     gradient field (heat, porous flow);
+//   _zt_apply (K6, via gamma_collocated_zt_middle): the zero-trace collocated
+//     Gamma of the viscosity Delta scheme on components 1..5 of a traceless
+//     6-component field.
+// _middle runs four matmul-DFT c2c stages (y, x forward; x, y inverse) with
+// the apply between the x stages; the JAX package puts the z r2c/c2r stages
+// around it.  Here the whole chain is five kernels, launched one after
+// another on one stream:
 //
 //   z_fwd    real lines along z -> half-spectrum (C, nx, ny, nz/2+1)
 //   y_line   c2c forward along y, in place
-//   x_apply  c2c forward along x, the G0 apply, c2c inverse along x, in place
+//   x_apply  c2c forward along x, the apply, c2c inverse along x, in place
 //   y_line   c2c inverse along y, in place
 //   z_inv    half-spectrum -> real lines along z (Hermitian completion)
 //
-// The five passes are templates on the apply step, which fixes the
-// component count C; K3 and K4 are two instantiations of one chain.
-// G0 (green.py:457-496 and :890-899, pallas_chain.py:288-331):
-//   K3 (C = 3): eta = c1 f - c2 (f . k+) conj(k+), c1 = c10/|k|^2, c2 = c20/|k|^4
-//   K4 (C = 1): eta = c10 f / |k|^2
-//   k+_a = sin(xi_a) / h_a * exp(i xi_a)  per axis; the DC bin is zeroed.
-// k+ comes from three 1-D tables in natural rfft bin order (rows Re k+,
-// Im k+, |k+|^2); the 1/N of norm="forward" is folded into the constants.
+// The five passes are templates on the apply functor, which fixes the
+// component count C, reads its own per-axis tables (natural rfft bin order,
+// built in double on the host) and treats the DC bin itself.  The 1/N of
+// norm="forward" is folded into the constants.
+//   K3 (C = 3): eta = c1 f - c2 (f . k+) conj(k+), c1 = c10/|k|^2,
+//       c2 = c20/|k|^4, k+_a = sin(xi_a) / h_a * exp(i xi_a); DC zeroed
+//       (green.py:457-496, pallas_chain.py:288-314).
+//   K4 (C = 1): eta = c10 f / |k+|^2, DC zeroed (pallas_chain.py:317-331).
+//   K5 (C = 6): t = tau xi, s = xi . t, eta_ij = A (xi_i t_j + xi_j t_i) /
+//       |xi|^2 + B xi_i xi_j s / |xi|^4 + beta tau_ij; (C = 3): eta_i = A
+//       xi_i (xi . tau) / |xi|^2 + beta tau_i; real xi = f / d per axis, so
+//       the coefficients act on the real and imaginary parts apart
+//       (green.py:36-135, 260-299, 358-379).  The DC bin takes E, a device
+//       vector of C values, in its real part: the unnormalized inverse of a
+//       DC-only spectrum is that value at every voxel, so E is not scaled.
+//   K6 (C = 5 transformed): component 0 is rebuilt as -(c1 + c2) in
+//       registers, the 6-component K5 apply runs, component 0 is dropped;
+//       the DC bin takes E[1..5] (green.py:302-355, pallas_chain.py:400-444).
+//       The caller forms out[0] = -(out[1] + out[2]) in real space.
+// The collocated Gamma is even in xi, so the sign of a Nyquist bin's xi
+// does not matter; at the kz = 0 and Nyquist planes the applied spectrum
+// need not be Hermitian in (kx, ky), and z_inv keeps the real part there,
+// as a c2r transform that drops those imaginary parts does.
 //
 // Each block loads a tile of whole lines into shared memory and transforms
 // it there.  A power-of-two length runs radix-4 passes (radix 2 for an odd
@@ -39,9 +63,11 @@
 // u once (2C values per voxel); the chain moves the spectrum five times, so
 // it runs at about five times that bound at best.  Design: y and x tiles
 // take TK consecutive kz bins of every line (coalesced along kz); the x
-// kernel holds all C components of its tile, so the G0 apply, which mixes
+// kernel holds all C components of its tile, so the apply, which mixes
 // components, happens between the forward and inverse x transforms without
-// a trip through device memory, as in the TPU kernel.
+// a trip through device memory, as in the TPU kernel.  The x tile holds
+// C * nx * TK values: TK shrinks to keep it within 96 KiB, and the launcher
+// refuses a tile past Hopper's 227 KiB (the error reaches the caller).
 
 #include "fg_common.cuh"
 
@@ -326,14 +352,46 @@ __global__ void y_line(Cx<T>* __restrict__ spec, const Cx<T>* __restrict__ tw,
   }
 }
 
+// Staggered tables: per axis, rows (Re k+, Im k+, |k+|^2) of n_a bins.
+template <typename T>
+struct StaggeredK {
+  const T *tx, *ty, *tz;
+  int nx, ny, nzh;
+  struct Row {
+    T kr, ki, k2;
+    bool dc;
+  };
+  __device__ __forceinline__ Row row(int y) const {
+    return {ty[y], ty[ny + y], ty[2 * ny + y], y == 0};
+  }
+  // k+ and |k+|^2 at bin (i, row, k); false at the DC bin
+  __device__ __forceinline__ bool at(const Row& r, int i, int k, T (&kr)[3],
+                                     T (&ki)[3], T& n2) const {
+    if (r.dc && i == 0 && k == 0) return false;
+    kr[0] = tx[i]; kr[1] = r.kr; kr[2] = tz[k];
+    ki[0] = tx[nx + i]; ki[1] = r.ki; ki[2] = tz[nzh + k];
+    n2 = tx[2 * nx + i] + r.k2 + tz[2 * nzh + k];
+    return true;
+  }
+};
+
 // The elasticity G0 (K3) on one bin of a 3-component tile; v[c * bs] is
 // component c.
 template <typename T>
 struct G0Vector {
   static constexpr int C = 3;
+  using Row = typename StaggeredK<T>::Row;
+  StaggeredK<T> tab;
   T c10, c20;
-  __device__ __forceinline__ void operator()(Cx<T>* v, int bs, const T* kr,
-                                             const T* ki, T n2) const {
+  __device__ __forceinline__ Row row(int y) const { return tab.row(y); }
+  __device__ __forceinline__ void operator()(Cx<T>* v, int bs, const Row& r,
+                                             int i, int k) const {
+    T kr[3], ki[3], n2;
+    if (!tab.at(r, i, k, kr, ki, n2)) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) v[c * bs] = Cx<T>{T(0), T(0)};
+      return;
+    }
     const T c1 = c10 / n2, c2 = c20 / (n2 * n2);
     T re[3], im[3], fr = T(0), fi = T(0);
 #pragma unroll
@@ -355,23 +413,105 @@ struct G0Vector {
 template <typename T>
 struct G0Scalar {
   static constexpr int C = 1;
+  using Row = typename StaggeredK<T>::Row;
+  StaggeredK<T> tab;
   T c10;
-  __device__ __forceinline__ void operator()(Cx<T>* v, int, const T*,
-                                             const T*, T n2) const {
+  __device__ __forceinline__ Row row(int y) const { return tab.row(y); }
+  __device__ __forceinline__ void operator()(Cx<T>* v, int, const Row& r,
+                                             int i, int k) const {
+    T kr[3], ki[3], n2;
+    if (!tab.at(r, i, k, kr, ki, n2)) {
+      v[0] = Cx<T>{T(0), T(0)};
+      return;
+    }
     const T c1 = c10 / n2;
     v[0] = {c1 * v[0].r, c1 * v[0].i};
   }
 };
 
-// Forward x transform, G0 apply, inverse x transform, in place: block
+// The collocated Gamma of a symmetric tensor (Voigt order xx yy zz yz xz
+// xy) with real coefficients, on one spectrum part p -> q; a = A/|xi|^2,
+// b = B/|xi|^4.
+template <typename T>
+__device__ __forceinline__ void gamma6(const T (&p)[6], T x0, T x1, T x2,
+                                       T a, T b, T (&q)[6]) {
+  const T t0 = p[0] * x0 + p[5] * x1 + p[4] * x2;
+  const T t1 = p[5] * x0 + p[1] * x1 + p[3] * x2;
+  const T t2 = p[4] * x0 + p[3] * x1 + p[2] * x2;
+  const T s = b * (x0 * t0 + x1 * t1 + x2 * t2);
+  q[0] = a * (T(2) * x0 * t0) + s * (x0 * x0);
+  q[1] = a * (T(2) * x1 * t1) + s * (x1 * x1);
+  q[2] = a * (T(2) * x2 * t2) + s * (x2 * x2);
+  q[3] = a * (x1 * t2 + x2 * t1) + s * (x1 * x2);
+  q[4] = a * (x0 * t2 + x2 * t0) + s * (x0 * x2);
+  q[5] = a * (x0 * t1 + x1 * t0) + s * (x0 * x1);
+}
+
+// The collocated Gamma (K5, NC = 6 or 3) and its zero-trace form (K6,
+// NC = 5: components 1..5 of a traceless tensor) on one bin of an
+// NC-component tile: eta = Gamma tau + beta tau, DC bin = E.  Tables: real
+// xi per axis.
+template <typename T, int NC>
+struct GammaCollocated {
+  static constexpr int C = NC;
+  const T *tx, *ty, *tz;
+  const T* E;          // device vector: NC values, 6 for NC = 5
+  T A, B, beta;        // 1/N folded in
+  struct Row {
+    T x1;
+    bool dc;
+  };
+  __device__ __forceinline__ Row row(int y) const { return {ty[y], y == 0}; }
+  __device__ __forceinline__ void part(const T (&p)[NC], T x0, T x1, T x2,
+                                       T k2, T (&q)[NC]) const {
+    const T a = A / k2;
+    if constexpr (NC == 3) {
+      const T c = a * (p[0] * x0 + p[1] * x1 + p[2] * x2);
+      q[0] = c * x0 + beta * p[0];
+      q[1] = c * x1 + beta * p[1];
+      q[2] = c * x2 + beta * p[2];
+    } else {
+      constexpr int o = 6 - NC;    // 1: component 0 is rebuilt
+      T p6[6], q6[6];
+      if constexpr (o == 1) p6[0] = -(p[0] + p[1]);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) p6[c + o] = p[c];
+      gamma6(p6, x0, x1, x2, a, B / (k2 * k2), q6);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) q[c] = q6[c + o] + beta * p[c];
+    }
+  }
+  __device__ __forceinline__ void operator()(Cx<T>* v, int bs, const Row& r,
+                                             int i, int k) const {
+    if (r.dc && i == 0 && k == 0) {
+      constexpr int eo = NC == 5 ? 1 : 0;   // K6: E holds component 0 too
+#pragma unroll
+      for (int c = 0; c < NC; ++c) v[c * bs] = Cx<T>{E[c + eo], T(0)};
+      return;
+    }
+    const T x0 = tx[i], x1 = r.x1, x2 = tz[k];
+    const T k2 = x0 * x0 + x1 * x1 + x2 * x2;
+    T pr[NC], pi[NC], qr[NC], qi[NC];
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      pr[c] = v[c * bs].r;
+      pi[c] = v[c * bs].i;
+    }
+    part(pr, x0, x1, x2, k2, qr);
+    part(pi, x0, x1, x2, k2, qi);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) v[c * bs] = Cx<T>{qr[c], qi[c]};
+  }
+};
+
+// Forward x transform, apply, inverse x transform, in place: block
 // (kz tile, y) holds all C components, tile layout
 // s[c * nx * TK + i * TK + t].  The forward pass leaves the x bins in
 // bit-reversed order and the inverse pass takes them so.
 template <typename T, class A>
 __global__ void x_apply(Cx<T>* __restrict__ spec, const Cx<T>* __restrict__ tw,
-                        const T* __restrict__ tx, const T* __restrict__ ty,
-                        const T* __restrict__ tz, A apply, int nx,
-                        int log2nx, int ny, int nzh, int log2TK) {
+                        A apply, int nx, int log2nx, int ny, int nzh,
+                        int log2TK) {
   constexpr int C = A::C;
   const int TK = 1 << log2TK;
   const int bs = nx * TK;
@@ -387,20 +527,10 @@ __global__ void x_apply(Cx<T>* __restrict__ spec, const Cx<T>* __restrict__ tw,
   __syncthreads();
   const Tile t{nx, log2nx, log2TK, C, TK, 1, bs};
   line_dft(s, s + C * bs, t, tw, false, true);
-  const T kyr = ty[y], kyi = ty[ny + y], ky2 = ty[2 * ny + y];
+  const typename A::Row row = apply.row(y);
   for (int e = threadIdx.x; e < bs; e += blockDim.x) {
     const int p = e >> log2TK, q = e & (TK - 1), k = kz0 + q;
-    const int i = rev(p, log2nx);
-    if (k >= nzh) continue;
-    Cx<T>* v = s + e;
-    if (i == 0 && y == 0 && k == 0) {
-#pragma unroll
-      for (int c = 0; c < C; ++c) v[c * bs] = Cx<T>{T(0), T(0)};
-      continue;
-    }
-    const T kr[3] = {tx[i], kyr, tz[k]};
-    const T ki[3] = {tx[nx + i], kyi, tz[nzh + k]};
-    apply(v, bs, kr, ki, tx[2 * nx + i] + ky2 + tz[2 * nzh + k]);
+    if (k < nzh) apply(s + e, bs, row, rev(p, log2nx), k);
   }
   __syncthreads();
   line_dft(s, s + C * bs, t, tw, true, false);
@@ -439,10 +569,9 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 }
 
 template <typename T, class A>
-int launch(const void* f, void* spec, void* out, const void* tx,
-           const void* ty, const void* tz, const void* twx, const void* twy,
-           const void* twz, const A& apply, int nx, int ny, int nz,
-           void* stream) {
+int launch(const void* f, void* spec, void* out, const void* twx,
+           const void* twy, const void* twz, const A& apply, int nx, int ny,
+           int nz, void* stream) {
   using Cp = Cx<T>;
   constexpr int C = A::C;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -478,10 +607,8 @@ int launch(const void* f, void* spec, void* out, const void* tx,
   y_line<T><<<yg, kThreads, yb, st>>>(sp, static_cast<const Cp*>(twy), ny,
                                       ly, nzh, lTy, false);
   const dim3 xg((nzh + (1 << lTx) - 1) >> lTx, ny);
-  x_apply<T, A><<<xg, kThreads, xb, st>>>(
-      sp, static_cast<const Cp*>(twx), static_cast<const T*>(tx),
-      static_cast<const T*>(ty), static_cast<const T*>(tz), apply, nx, lx,
-      ny, nzh, lTx);
+  x_apply<T, A><<<xg, kThreads, xb, st>>>(sp, static_cast<const Cp*>(twx),
+                                          apply, nx, lx, ny, nzh, lTx);
   y_line<T><<<yg, kThreads, yb, st>>>(sp, static_cast<const Cp*>(twy), ny,
                                       ly, nzh, lTy, true);
   z_inv<T><<<zblocks, kThreads, zb, st>>>(
@@ -490,29 +617,65 @@ int launch(const void* f, void* spec, void* out, const void* tx,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+StaggeredK<T> staggered_tables(const void* tx, const void* ty, const void* tz,
+                               int nx, int ny, int nz) {
+  return {static_cast<const T*>(tx), static_cast<const T*>(ty),
+          static_cast<const T*>(tz), nx, ny, nz / 2 + 1};
+}
+
+template <typename T, int NC>
+GammaCollocated<T, NC> collocated(const void* tx, const void* ty,
+                                  const void* tz, const void* E, double A,
+                                  double B, double beta, double n) {
+  return {static_cast<const T*>(tx), static_cast<const T*>(ty),
+          static_cast<const T*>(tz), static_cast<const T*>(E), T(A / n),
+          T(B / n), T(beta / n)};
+}
+
 }  // namespace
 
-// The 1/N of norm="forward" is folded into the constants here.
+// The 1/N of norm="forward" is folded into the constants here; E is not
+// scaled.  tx, ty, tz: the staggered tables (K3, K4) or the xi tables (K5,
+// K6).  K6 reads components 1..5 of its input and writes components 1..5 of
+// its output: f and out point at component 1.
 #define FG_CHAIN_ARGS                                                        \
   const void *f, void *spec, void *out, const void *tx, const void *ty,      \
       const void *tz, const void *twx, const void *twy, const void *twz
-#define FG_CHAIN_PASS f, spec, out, tx, ty, tz, twx, twy, twz
+#define FG_CHAIN_PASS f, spec, out, twx, twy, twz
+#define FG_COLLOCATED_ENTRY(NAME, SUF, T, NC)                                \
+  extern "C" int NAME##_##SUF(FG_CHAIN_ARGS, const void* E, double A,       \
+                              double B, double beta, int nx, int ny,         \
+                              int nz, void* stream) {                        \
+    const double n = static_cast<double>(nx) * ny * nz;                      \
+    return launch<T>(FG_CHAIN_PASS,                                          \
+                     collocated<T, NC>(tx, ty, tz, E, A, B, beta, n), nx,    \
+                     ny, nz, stream);                                        \
+  }
 
 #define FG_CHAIN_ENTRIES(SUF, T)                                             \
   extern "C" int g0_staggered_chain_##SUF(FG_CHAIN_ARGS, double c10,        \
                                           double c20, int nx, int ny,        \
                                           int nz, void* stream) {            \
     const double n = static_cast<double>(nx) * ny * nz;                      \
-    return launch<T>(FG_CHAIN_PASS, G0Vector<T>{T(c10 / n), T(c20 / n)},     \
-                     nx, ny, nz, stream);                                    \
+    return launch<T>(                                                        \
+        FG_CHAIN_PASS,                                                       \
+        G0Vector<T>{staggered_tables<T>(tx, ty, tz, nx, ny, nz), T(c10 / n), \
+                    T(c20 / n)},                                             \
+        nx, ny, nz, stream);                                                 \
   }                                                                          \
   extern "C" int g0_staggered_heat_chain_##SUF(FG_CHAIN_ARGS, double c10,   \
                                                int nx, int ny, int nz,       \
                                                void* stream) {               \
     const double n = static_cast<double>(nx) * ny * nz;                      \
-    return launch<T>(FG_CHAIN_PASS, G0Scalar<T>{T(c10 / n)}, nx, ny, nz,     \
-                     stream);                                                \
-  }
+    return launch<T>(                                                        \
+        FG_CHAIN_PASS,                                                       \
+        G0Scalar<T>{staggered_tables<T>(tx, ty, tz, nx, ny, nz), T(c10 / n)},\
+        nx, ny, nz, stream);                                                 \
+  }                                                                          \
+  FG_COLLOCATED_ENTRY(gamma_collocated_chain, SUF, T, 6)                     \
+  FG_COLLOCATED_ENTRY(gamma_collocated_heat_chain, SUF, T, 3)                \
+  FG_COLLOCATED_ENTRY(gamma_collocated_zt_chain, SUF, T, 5)
 
 FG_CHAIN_ENTRIES(f32, float)
 FG_CHAIN_ENTRIES(f64, double)

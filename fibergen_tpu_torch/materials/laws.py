@@ -34,6 +34,21 @@ class LinearIsotropic:
     def iso_moduli(self):
         return (self.mu, self.lam)
 
+    def polarization(self, mu_0, F, inv=False):
+        """Eyre-Milton transform (C - C0)(C + C0)^{-1} F with C0 = 2 mu_0 Id,
+        or (C + C0)^{-1} F with ``inv`` (calcPolarization,
+        fibergen.cpp:10414-10445, 11427-11467).  (C + C0)^{-1} =
+        Id/m - lam/(m (3 lam + m)) II with m = 2 (mu + mu_0)."""
+        m = 2.0 * (self.mu + mu_0)
+        b = self.lam / (m * (3.0 * self.lam + m))
+        P = (1.0 / m) * F
+        P = torch.cat([P[0:3] - b * (F[0] + F[1] + F[2]), P[3:]])
+        if inv:
+            return P
+        trP = self.lam * (P[0] + P[1] + P[2])
+        P = 2.0 * (self.mu - mu_0) * P
+        return torch.cat([P[0:3] + trP, P[3:]])
+
     def __str__(self):
         return f"linear isotropic lambda={self.lam:g} mu={self.mu:g}"
 
@@ -55,6 +70,14 @@ class ScalarLinearIsotropic:
 
     def iso_moduli(self):
         return (0.5 * self.mu, 0.0)  # C = mu * I == 2*(mu/2)*Id with lam=0
+
+    def polarization(self, mu_0, F, inv=False):
+        """Eyre-Milton transform of C = mu I against C0 = 2 mu_0 I: the law's
+        own mu, not the halved ``iso_moduli`` one (calcPolarization)."""
+        denom = self.mu + 2.0 * mu_0
+        if inv:
+            return F / denom
+        return (self.mu - 2.0 * mu_0) / denom * F
 
     def __str__(self):
         return f"scalar linear isotropic mu={self.mu:g}"

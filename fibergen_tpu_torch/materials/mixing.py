@@ -112,6 +112,19 @@ class VoigtMixed:
         """<P(F)> over voxels (meanPK1, fibergen.cpp:12312)."""
         return fields.mean(self.pk1(F))
 
+    def polarization(self, mu_0, F, inv=False):
+        """Eyre-Milton transform, each phase's law phi-weighted
+        (fibergen.cpp:12087-12099; exact for sharp 0/1 phase fields).  Needs
+        the phase fields: raises after :meth:`drop_phi`."""
+        if self._phi_dropped:
+            raise ValueError("polarization needs the phase fields phi, which "
+                             "drop_phi freed")
+        out = torch.zeros_like(F)
+        for p in self.phases:
+            phi = p.phi.to(dtype=F.dtype, device=F.device)
+            out += phi[None] * p.law.polarization(mu_0, F, inv)
+        return out
+
     def stress_diff(self, F, mu_0, lambda_0):
         """(C - C0) : F (calcStressDiff, fibergen.cpp:18030) with the moduli
         shift folded into the mixed coefficients."""

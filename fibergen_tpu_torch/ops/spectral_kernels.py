@@ -1,10 +1,9 @@
-"""Staggered G0 chains u = irfftn(G0 rfftn(f)), with their plain twins.
+"""Spectral chains u = irfftn(apply(rfftn(f))), with their plain twins.
 
-Counterpart of fibergen_tpu/ops/pallas_chain.py (``_middle`` with
-``_g0_apply`` or ``_g0_heat_apply`` and the z stages around it).  Both
-chains are instantiations of one templated CUDA chain
-(``csrc/g0_staggered_chain.cu``) that computes hand-written transforms
-around a G0 apply on the rfft half-spectrum:
+Counterpart of fibergen_tpu/ops/pallas_chain.py (``_middle`` with an apply
+and the z stages around it).  Every chain is an instantiation of one
+templated CUDA chain (``csrc/g0_staggered_chain.cu``) that computes
+hand-written transforms around an apply on the rfft half-spectrum:
 
 * K3 :func:`g0_staggered_chain`, a real 3-component force field f of shape
   (3, nx, ny, nz):  eta = c1 f - c2 (f . k+) conj(k+),  c1 = c10/|k|^2,
@@ -12,13 +11,24 @@ around a G0 apply on the rfft half-spectrum:
 * K4 :func:`g0_staggered_heat_chain`, a real 1-component source field of
   shape (1, nx, ny, nz):  eta = c10 f / |k|^2;
 
-with k+ = sin(xi)/h e^{i xi} per axis and the DC bin zeroed.  The tables
-come from :func:`staggered_tables` in natural rfft bin order; transforms
-are norm="forward" like ``ops/fft.py``.
+with k+ = sin(xi)/h e^{i xi} per axis and the DC bin zeroed (tables from
+:func:`staggered_tables`);
 
-A wrapper given CPU tensors computes the plain twin (``torch.fft`` and
-:func:`g0_staggered_apply_plain`); given CUDA tensors it launches the kernel
-or raises.  ``launches`` counts kernel launches only.
+* K5 :func:`gamma_collocated_chain`, the collocated Gamma on a 6-component
+  strain field (A/|xi|^2 and B/|xi|^4 terms) or a 3-component gradient
+  field (A/|xi|^2 term), plus beta tau, with the DC bin set to E;
+* K6 :func:`gamma_collocated_zt_chain`, the zero-trace form on a traceless
+  6-component field: components 1..5 are transformed, component 0 is
+  -(c1 + c2) in the spectrum and in real space;
+
+with real xi = f/d per axis (tables from :func:`collocated_tables`).
+Tables are in natural rfft bin order; transforms are norm="forward" like
+``ops/fft.py``.
+
+A wrapper given CPU tensors computes the plain twin (``torch.fft`` around
+the plain apply, ``*_apply_plain``); given CUDA tensors it launches the
+kernel or raises.  ``launches`` counts kernel launches only; K5 counts both
+of its component counts under one name.
 """
 from __future__ import annotations
 
@@ -29,7 +39,8 @@ import torch
 
 from . import _build, fft
 
-launches = {"g0_staggered_chain": 0, "g0_staggered_heat_chain": 0}
+launches = {"g0_staggered_chain": 0, "g0_staggered_heat_chain": 0,
+            "gamma_collocated_chain": 0, "gamma_collocated_zt_chain": 0}
 
 _COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -55,6 +66,20 @@ def staggered_tables(grid, dtype, device):
             t.append(torch.as_tensor(rows, dtype=dtype, device=device)
                      .contiguous())
         t = tuple(t)
+        _tables[key] = t
+    return t
+
+
+def collocated_tables(grid, dtype, device):
+    """Per-axis real wavenumbers xi_a = f_a / d_a of the x, y and
+    half-spectrum z axes (Grid.xi), built in float64 and cast to the real
+    ``dtype``; cached per grid, dtype and device."""
+    key = ("collocated", grid, dtype, torch.device(device))
+    t = _tables.get(key)
+    if t is None:
+        t = tuple(torch.as_tensor(np.reshape(np.asarray(x, np.float64), (-1,)),
+                                  dtype=dtype, device=device).contiguous()
+                  for x in grid.xi())
         _tables[key] = t
     return t
 
@@ -102,6 +127,83 @@ def g0_staggered_heat_apply_plain(f_hat, tables, c10):
     return (c10 * (1.0 - dc) / (n2 + dc)) * f_hat
 
 
+def _gamma_part(p, xis, k2, A, B):
+    """Real-coefficient collocated Gamma on a list of 6 (Voigt xx yy zz yz xz
+    xy) or 3 spectrum components (green.py part functions)."""
+    x0, x1, x2 = xis
+    a = A / k2
+    if len(p) == 3:
+        c = a * (p[0] * x0 + p[1] * x1 + p[2] * x2)
+        return [c * x0, c * x1, c * x2]
+    t0 = p[0] * x0 + p[5] * x1 + p[4] * x2
+    t1 = p[5] * x0 + p[1] * x1 + p[3] * x2
+    t2 = p[4] * x0 + p[3] * x1 + p[2] * x2
+    b = (B / (k2 * k2)) * (x0 * t0 + x1 * t1 + x2 * t2)
+    return [a * (2.0 * x0 * t0) + b * (x0 * x0),
+            a * (2.0 * x1 * t1) + b * (x1 * x1),
+            a * (2.0 * x2 * t2) + b * (x2 * x2),
+            a * (x1 * t2 + x2 * t1) + b * (x1 * x2),
+            a * (x0 * t2 + x2 * t0) + b * (x0 * x2),
+            a * (x0 * t1 + x1 * t0) + b * (x0 * x1)]
+
+
+def gamma_collocated_apply_plain(tau_hat, tables, A, B, E, beta):
+    """Plain PyTorch collocated Gamma on a (C, nx, ny, nz//2+1)
+    half-spectrum, C = 6 or 3 (out of place): eta = Gamma tau + beta tau
+    with the DC bin set to E (C values)."""
+    tx, ty, tz = tables
+    E = _vector(E, tx, tau_hat.shape[0])
+    xis = (tx.reshape(-1, 1, 1), ty.reshape(-1, 1), tz)
+    dc = torch.zeros(tau_hat.shape[1:], dtype=tx.dtype, device=tx.device)
+    dc[0, 0, 0] = 1.0
+    k2 = xis[0] * xis[0] + xis[1] * xis[1] + xis[2] * xis[2] + dc
+    eta = torch.stack(_gamma_part(list(tau_hat), xis, k2, A, B))
+    eta = eta + beta * tau_hat
+    return eta * (1.0 - dc) + E.reshape(-1, 1, 1, 1) * dc
+
+
+def _real_z_planes(y, nz):
+    """The kz = 0 plane (and the kz = nz/2 plane of an even nz) made
+    Hermitian in (kx, ky): the part of it that a c2r transform keeps when it
+    drops the imaginary parts of those z bins.  A spectrum that is not
+    Hermitian there (the collocated Gamma at Nyquist bins) then inverts the
+    same whatever library transforms it."""
+    y = y.clone()
+    for k in (0, nz // 2) if nz % 2 == 0 else (0,):
+        p = y[..., k]
+        q = torch.roll(torch.flip(p, dims=(-2, -1)), shifts=(1, 1),
+                       dims=(-2, -1))
+        y[..., k] = 0.5 * (p + q.conj())
+    return y
+
+
+def gamma_collocated_chain_plain(grid, tau, A, B, E, beta):
+    """Plain PyTorch K5: irfftn(collocated Gamma apply(rfftn tau))."""
+    tables = collocated_tables(grid, tau.dtype, tau.device)
+    y = gamma_collocated_apply_plain(fft.fftn(tau), tables, A, B, E, beta)
+    return fft.ifftn(_real_z_planes(y, grid.nz), grid.shape)
+
+
+def gamma_collocated_zt_chain_plain(grid, tau, A, B, E, beta):
+    """Plain PyTorch K6: the zero-trace transforms (components 1.. are
+    transformed, component 0 is -(c1 + c2) in the spectrum and in real
+    space) around the 6-component apply."""
+    tables = collocated_tables(grid, tau.dtype, tau.device)
+    y = gamma_collocated_apply_plain(fft.fftn_zero_trace(tau), tables, A, B,
+                                     E, beta)
+    return fft.ifftn_zero_trace(_real_z_planes(y, grid.nz), grid.shape)
+
+
+def _vector(E, like, n):
+    """E as a contiguous (n,) tensor of ``like``'s dtype and device; a
+    tensor already so is returned as it is."""
+    E = torch.as_tensor(E, dtype=like.dtype, device=like.device)
+    E = E.reshape(-1).contiguous()
+    if E.numel() != n:
+        raise ValueError(f"E has {E.numel()} values, expected {n}")
+    return E
+
+
 def g0_staggered_chain_plain(grid, f, c10, c20):
     """Plain PyTorch K3: irfftn(G0 apply(rfftn f))."""
     tables = staggered_tables(grid, f.dtype, f.device)
@@ -116,34 +218,39 @@ def g0_staggered_heat_chain_plain(grid, f, c10):
                      grid.shape)
 
 
-def _chain(name, grid, f, ncomp, consts):
-    """Launch the CUDA chain ``name`` on a real (ncomp, nx, ny, nz)
-    contiguous ``f`` with the G0 constants ``consts``; returns u."""
+def _chain(fn_name, counter, grid, f, ncomp, tables, consts, ptrs=(),
+           out=None):
+    """Launch the CUDA chain entry ``fn_name`` on a real (ncomp, nx, ny, nz)
+    contiguous ``f`` with the per-axis ``tables``, the device pointers
+    ``ptrs`` and the constants ``consts``; writes ``out`` (a new field if
+    None) and returns it."""
     if f.device.type != "cuda":
         raise ValueError(f"unsupported device {f.device}")
     if f.dtype not in _SUFFIX:
-        raise TypeError(f"{name} takes float32/float64, got {f.dtype}")
+        raise TypeError(f"{fn_name} takes float32/float64, got {f.dtype}")
     shape = (ncomp,) + grid.shape
     if tuple(f.shape) != shape:
         raise ValueError(f"f has shape {tuple(f.shape)}, expected {shape}")
     if not f.is_contiguous():
         raise ValueError("f must be contiguous")
     cdt = _COMPLEX[f.dtype]
-    tx, ty, tz = staggered_tables(grid, f.dtype, f.device)
+    tx, ty, tz = tables
     twx, twy, twz = (_twiddle(n, cdt, f.device) for n in grid.shape)
     spec = torch.empty((ncomp,) + grid.rshape, dtype=cdt, device=f.device)
-    out = torch.empty_like(f)
+    if out is None:
+        out = torch.empty_like(f)
     vp = ctypes.c_void_p
     fn = _build.function(
-        "g0_staggered_chain", f"{name}_{_SUFFIX[f.dtype]}", ctypes.c_int,
-        [vp] * 9 + [ctypes.c_double] * len(consts) + [ctypes.c_int] * 3
-        + [vp])
+        "g0_staggered_chain", f"{fn_name}_{_SUFFIX[f.dtype]}", ctypes.c_int,
+        [vp] * (9 + len(ptrs)) + [ctypes.c_double] * len(consts)
+        + [ctypes.c_int] * 3 + [vp])
     err = fn(f.data_ptr(), spec.data_ptr(), out.data_ptr(), tx.data_ptr(),
              ty.data_ptr(), tz.data_ptr(), twx.data_ptr(), twy.data_ptr(),
-             twz.data_ptr(), *(float(c) for c in consts), grid.nx, grid.ny,
-             grid.nz, torch.cuda.current_stream(f.device).cuda_stream)
+             twz.data_ptr(), *(p.data_ptr() for p in ptrs),
+             *(float(c) for c in consts), grid.nx, grid.ny, grid.nz,
+             torch.cuda.current_stream(f.device).cuda_stream)
     _build.check(err, "g0_staggered_chain")
-    launches[name] += 1
+    launches[counter] += 1
     return out
 
 
@@ -152,7 +259,8 @@ def g0_staggered_chain(grid, f, c10, c20):
     ``f``; returns a new field.  ``c10``/``c20`` are numbers."""
     if f.device.type == "cpu":
         return g0_staggered_chain_plain(grid, f, c10, c20)
-    return _chain("g0_staggered_chain", grid, f, 3, (c10, c20))
+    return _chain("g0_staggered_chain", "g0_staggered_chain", grid, f, 3,
+                  staggered_tables(grid, f.dtype, f.device), (c10, c20))
 
 
 def g0_staggered_heat_chain(grid, f, c10):
@@ -160,4 +268,42 @@ def g0_staggered_heat_chain(grid, f, c10):
     contiguous ``f``; returns a new field.  ``c10`` is a number."""
     if f.device.type == "cpu":
         return g0_staggered_heat_chain_plain(grid, f, c10)
-    return _chain("g0_staggered_heat_chain", grid, f, 1, (c10,))
+    return _chain("g0_staggered_heat_chain", "g0_staggered_heat_chain", grid,
+                  f, 1, staggered_tables(grid, f.dtype, f.device), (c10,))
+
+
+def gamma_collocated_chain(grid, tau, A, B, E, beta):
+    """K5: eta = irfftn(Gamma rfftn tau + beta rfftn tau), DC bin = E, for a
+    real contiguous ``tau`` of shape (6, nx, ny, nz) (elasticity: A and B
+    terms) or (3, nx, ny, nz) (heat, porous flow: A term; B is not read).
+    ``A``, ``B``, ``beta`` are numbers, ``E`` C values (a tensor stays on
+    its device: the card reads it there).  Returns a new field."""
+    if tau.device.type == "cpu":
+        return gamma_collocated_chain_plain(grid, tau, A, B, E, beta)
+    ncomp = tau.shape[0]
+    if ncomp not in (6, 3):
+        raise ValueError(f"tau has {ncomp} components, expected 6 or 3")
+    name = "gamma_collocated_chain" if ncomp == 6 else \
+        "gamma_collocated_heat_chain"
+    return _chain(name, "gamma_collocated_chain", grid, tau, ncomp,
+                  collocated_tables(grid, tau.dtype, tau.device),
+                  (A, B, beta), ptrs=(_vector(E, tau, ncomp),))
+
+
+def gamma_collocated_zt_chain(grid, tau, A, B, E, beta):
+    """K6: the zero-trace collocated Gamma of a real contiguous traceless
+    ``tau`` of shape (6, nx, ny, nz): components 1..5 go through the chain
+    (component 0 rebuilt as -(c1 + c2) inside the apply), the DC bin takes
+    E (6 values), and out[0] = -(out[1] + out[2]).  Returns a new field."""
+    if tau.device.type == "cpu":
+        return gamma_collocated_zt_chain_plain(grid, tau, A, B, E, beta)
+    if tau.shape[0] != 6:
+        raise ValueError(f"tau has {tau.shape[0]} components, expected 6")
+    if not tau.is_contiguous():
+        raise ValueError("tau must be contiguous")
+    out = torch.empty_like(tau)
+    _chain("gamma_collocated_zt_chain", "gamma_collocated_zt_chain", grid,
+           tau[1:], 5, collocated_tables(grid, tau.dtype, tau.device),
+           (A, B, beta), ptrs=(_vector(E, tau, 6),), out=out[1:])
+    torch.add(out[1], out[2], out=out[0]).neg_()
+    return out

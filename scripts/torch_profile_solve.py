@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
 """Where a CG solve of the PyTorch/CUDA port spends its time on one card.
 
-    python3 scripts/torch_profile_solve.py [n] [mode]
+    python3 scripts/torch_profile_solve.py [n] [mode] [scheme] [method]
 
 Solves the bench's sphere RVE (n^3, default 256, float32, residual tol
-1e-6, check_every 8) in ``mode`` (elasticity, the default, heat or
-viscosity; chip_smoke.PATHS) twice without the profiler and reports the second
-run's wall time, then once under torch.profiler and reports the device
-time by kernel, by kind (the port's kernels, cuFFT, PyTorch elementwise
-and reduction kernels) and the device's idle share of the unprofiled wall
-time.  Prints one JSON line last.
+1e-6, check_every 8; chip_smoke.RVE) in ``mode`` (elasticity, the default,
+heat or viscosity) on the ``scheme`` grid (staggered, the default, or
+collocated) with ``method`` (cg, the default, basic or polarization; the
+latter two stop on the epsilon estimator) twice without the profiler and
+reports the second run's wall time, then once under torch.profiler and
+reports the device time by kernel, by kind (the port's kernels, the
+chains' passes included, cuFFT, PyTorch elementwise and reduction
+kernels) and the device's idle share of the unprofiled wall time.  Prints
+one JSON line last.
 """
 import json
 import sys
@@ -46,8 +49,12 @@ def main():
     LOG.enabled = False
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 256
     mode = sys.argv[2] if len(sys.argv) > 2 else "elasticity"
-    s = sphere_solver(n, "float32", "cuda", mode, error_estimator="residual",
-                      tol=1e-6, check_every=8, maxiter=4000)
+    scheme = sys.argv[3] if len(sys.argv) > 3 else "staggered"
+    method = sys.argv[4] if len(sys.argv) > 4 else "cg"
+    est = "residual" if method == "cg" else "epsilon"
+    s = sphere_solver(n, "float32", "cuda", mode, scheme, method,
+                      error_estimator=est, tol=1e-6, check_every=8,
+                      maxiter=4000)
     assert not s.run()
     assert not s.run()
     wall = s.solve_time
@@ -69,14 +76,16 @@ def main():
     for us, _, name in rows:
         kinds[kind_of(name)] = kinds.get(kind_of(name), 0.0) + us / 1e3
     card = torch.cuda.get_device_name(0)
-    print(f"{card}: {n}^3 float32 {mode}, {its} iterations, unprofiled wall "
+    print(f"{card}: {n}^3 float32 {mode} {scheme} {method}, {its} "
+          f"iterations, unprofiled wall "
           f"{1e3 * wall:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
           f"{1 - busy_ms / (1e3 * wall):.3f}")
     for us, count, name in rows[:16]:
         print(f"  {us / 1e3:9.3f} ms {count:6d}x  {name[:90]}")
     for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
         print(f"  {k:18s} {ms:9.3f} ms  {ms / busy_ms:6.1%} of busy")
-    print(json.dumps({"n": n, "mode": mode, "iterations": its,
+    print(json.dumps({"n": n, "mode": mode, "scheme": scheme,
+                      "method": method, "iterations": its,
                       "wall_ms": 1e3 * wall,
                       "device_busy_ms": busy_ms,
                       "idle_share": 1 - busy_ms / (1e3 * wall),

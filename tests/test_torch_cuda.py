@@ -69,7 +69,8 @@ def test_cuda_kernels_match_twins(cuda, shape, dtype, tol):
     after = dict(stencil_kernels.launches, **spectral_kernels.launches)
     assert {k: after[k] - before[k] for k in after} == {
         "stress_div_beta": 2, "eps_from_u_dot": 2, "g0_staggered_chain": 1,
-        "g0_staggered_heat_chain": 0}
+        "g0_staggered_heat_chain": 0, "gamma_collocated_chain": 0,
+        "gamma_collocated_zt_chain": 0}
 
 
 @pytest.mark.parametrize("shape,dtype,tol", [
@@ -117,7 +118,42 @@ def test_cuda_mode_kernels_match_twins(cuda, shape, dtype, tol):
     after = dict(stencil_kernels.launches, **spectral_kernels.launches)
     assert {k: after[k] - before[k] for k in after} == {
         "stress_div_beta": 2, "eps_from_u_dot": 1, "g0_staggered_chain": 0,
-        "g0_staggered_heat_chain": 1}
+        "g0_staggered_heat_chain": 1, "gamma_collocated_chain": 0,
+        "gamma_collocated_zt_chain": 0}
+
+
+@pytest.mark.parametrize("shape,dtype,tol", [
+    ((33, 17, 29), torch.float64, 1e-12),
+    ((16, 12, 10), torch.float64, 1e-12),
+    ((32, 64, 1), torch.float32, 1e-5),
+    ((256, 256, 256), torch.float32, 1e-5)])
+def test_cuda_collocated_chains_match_twins(cuda, shape, dtype, tol):
+    """K5 (6 and 3 components) and K6 against their twins, with a device E
+    and beta != 0, and the launch counts they add."""
+    g = Grid(*shape, dx=1.2, dy=0.8, dz=1.0)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=cuda, dtype=dtype)
+    tau6, tau3, E6, E3 = rnd(6, *shape), rnd(3, *shape), rnd(6), rnd(3)
+    tau6[0] = -(tau6[1] + tau6[2])
+    A, B = green.collocated_constants(1.7, 0.3)
+    before = dict(stencil_kernels.launches, **spectral_kernels.launches)
+    for tau, E in ((tau6, E6), (tau3, E3)):
+        out = spectral_kernels.gamma_collocated_chain(g, tau, A, B, E, 0.37)
+        ref = spectral_kernels.gamma_collocated_chain_plain(g, tau, A, B, E,
+                                                            0.37)
+        torch.cuda.synchronize()
+        assert out.shape == tau.shape and _rel(out, ref) <= tol
+    A, B = green.collocated_constants(-1.7, float("inf"))
+    out = spectral_kernels.gamma_collocated_zt_chain(g, tau6, A, B, E6, -0.3)
+    ref = spectral_kernels.gamma_collocated_zt_chain_plain(g, tau6, A, B, E6,
+                                                           -0.3)
+    torch.cuda.synchronize()
+    assert out.shape == tau6.shape and _rel(out, ref) <= tol
+    after = dict(stencil_kernels.launches, **spectral_kernels.launches)
+    assert {k: after[k] - before[k] for k in after} == {
+        "stress_div_beta": 0, "eps_from_u_dot": 0, "g0_staggered_chain": 0,
+        "g0_staggered_heat_chain": 0, "gamma_collocated_chain": 2,
+        "gamma_collocated_zt_chain": 1}
 
 
 def test_cuda_wrappers_reject_bad_input(cuda):
@@ -140,3 +176,12 @@ def test_cuda_wrappers_reject_bad_input(cuda):
                                                         device=cuda), mu_x=mu)
     with pytest.raises(ValueError):
         spectral_kernels.g0_staggered_heat_chain(g, r[:3].contiguous(), 1.0)
+    E6 = torch.zeros(6, device=cuda)
+    with pytest.raises(ValueError, match="components"):
+        spectral_kernels.gamma_collocated_chain(g, r[:5].contiguous(), 1.0,
+                                                1.0, E6[:5], 0.0)
+    with pytest.raises(ValueError, match="E has"):
+        spectral_kernels.gamma_collocated_chain(g, r, 1.0, 1.0, E6[:3], 0.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        spectral_kernels.gamma_collocated_zt_chain(
+            g, r.transpose(1, 2), 1.0, 1.0, E6, 0.0)

@@ -184,8 +184,9 @@ def test_heat_laminate_oracle():
 
 
 def test_unported_viscosity_variants_raise():
-    """Lambda-carrying viscosity laws and the half/full staggered schemes
-    go through the JAX package's generic Delta path, not ported yet."""
+    """Lambda-carrying viscosity laws on the staggered grid and the
+    half/full staggered schemes go through the JAX package's generic Delta
+    path, not ported yet; nor is the polarization method in viscosity."""
     phi = np.ones((4, 4, 4))
     iso = ft.convert.material_from_numpy([("a", 1.0, 0.5, phi)],
                                          device="cpu")
@@ -198,6 +199,9 @@ def test_unported_viscosity_variants_raise():
         with pytest.raises(NotImplementedError):
             ft.LSSolver(ft.Grid(4, 4, 4), scal, ft.SolverOptions(
                 mode="viscosity", gamma_scheme=scheme), device="cpu")
+    with pytest.raises(NotImplementedError, match="polarization"):
+        ft.LSSolver(ft.Grid(4, 4, 4), scal, ft.SolverOptions(
+            mode="viscosity", method="polarization"), device="cpu")
     with pytest.raises(ft.solvers.ls.SolverError):
         ft.LSSolver(ft.Grid(4, 4, 4), scal, ft.SolverOptions(mode="heat"),
                     device="cpu")

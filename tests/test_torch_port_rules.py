@@ -66,9 +66,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 def test_unported_options_raise():
     mat = ft.convert.material_from_numpy([("a", 1.0, 1.0, np.ones((4, 4, 4)))],
                                          device="cpu")
-    for kw in ({"method": "polarization"}, {"mode": "hyperelasticity"},
-               {"gamma_scheme": "full_staggered"}, {"loadsteps": 3},
-               {"use_pallas": "on"}, {"error_estimator": "energy"}):
+    for kw in ({"method": "nesterov"}, {"mode": "hyperelasticity"},
+               {"gamma_scheme": "full_staggered"}, {"gamma_scheme": "willot"},
+               {"freq_hack": True}, {"loadsteps": 3}, {"use_pallas": "on"},
+               {"error_estimator": "energy"}):
         with pytest.raises(NotImplementedError):
             ft.LSSolver(ft.Grid(4, 4, 4), mat, ft.SolverOptions(**kw),
                         device="cpu")
@@ -100,5 +101,15 @@ def test_cpu_tensors_take_the_twins_and_count_no_launch():
     h = green.g0_staggered_heat_fused(grid, 1.0, 0.0, f[:1])
     assert p is None and ts.shape == (6,) and dot.shape == ()
     assert h.shape == (1, 5, 4, 3)
+    for c in (6, 3):
+        out = spectral_kernels.gamma_collocated_chain(
+            grid, t(c, 5, 4, 3), 0.5, -0.3, np.ones(c), 0.2)
+        assert out.shape == (c, 5, 4, 3)
+    out = spectral_kernels.gamma_collocated_zt_chain(grid, t(6, 5, 4, 3), 0.5,
+                                                     -0.3, np.ones(6), 0.2)
+    assert out.shape == (6, 5, 4, 3)
     assert dict(stencil_kernels.launches, **spectral_kernels.launches) \
         == before
+    with pytest.raises(ValueError, match="E has"):
+        spectral_kernels.gamma_collocated_chain(grid, t(6, 5, 4, 3), 0.5,
+                                                -0.3, np.ones(3), 0.2)
