@@ -3,26 +3,32 @@
 
     python3 chip_smoke.py
 
-Seven paths run on the card (PATHS).  Staggered CG: elasticity (K1, K3,
+Nine paths run on the card (PATHS).  Staggered CG: elasticity (K1, K3,
 K2), heat conduction (the scalar K4 chain; porous flow is the same path)
 and viscosity (K1 tau-sum mode, K3 with the dual constants, K2 Delta mode).
 Collocated: CG in elasticity and heat (the plain stress difference and the
 K5 collocated Gamma chain) and in viscosity (the K6 zero-trace chain), and
-the Eyre-Milton polarization scheme in elasticity (K5).  Phases, each
-failing loudly:
+the Eyre-Milton polarization scheme in elasticity (K5).  Finite-strain
+hyperelasticity (Newton-Krylov): staggered (K3 with the full-gradient
+constants) and collocated (K5 at C = 9).  Phases, each failing loudly:
 
 1. the card's name and power limit; build the CUDA kernels from ``csrc/``;
 2. every kernel in every mode against its plain PyTorch twin at the paths'
    shapes (256^3 float32) and on an odd float64 grid, with kernel, twin
    and cuFFT times from CUDA events;
 3. the kernel path (cuda) against the plain path (cpu) on one 48^3
-   float64 solve of each path;
+   float64 solve of each linear path and one 24^3 float64 Newton solve of
+   each hyperelastic path;
 4. the paths at full size: the bench's 256^3 sphere RVE solved to 1e-6 in
-   float32 on each path (timed second run, kernel launches counted around
-   each; a path launches each of its kernels and no other), the staggered
-   elasticity solve also in float64 and at 512^3;
+   float32 on each linear path (timed second run, kernel launches counted
+   around each; a path launches each of its kernels and no other), the
+   staggered elasticity solve also in float64 and at 512^3; the JAX
+   package's hyperelastic bench (a 256^3 two-phase SVK sphere at 2 %
+   stretch, tol 1e-5) on both hyperelastic paths and with the frozen
+   tangent, its P11 held against the JAX package's answer;
 5. the x-laminates' analytic C11 and conductivity on the card, on the
-   staggered and the collocated grid;
+   staggered and the collocated grid, and the SVK laminate at a small
+   strain against the linear C11;
 6. the launch counts and one JSON line per kernel and mode with its
    numbers.
 
@@ -90,6 +96,11 @@ RVE = {
                  load=[1.0, 0, 0]),
     "viscosity": dict(dim=6, law="scalar", fiber=(0.1,), matrix=(1.0,),
                       load=[0, 0, 0, 0, 1.0, 0]),
+    # scripts/bench_hyper_newton.py: SVK fibre mu=10 lam=5, matrix mu=1
+    # lam=1, uniaxial stretch F = diag(1.02, 1, 1)
+    "hyperelasticity": dict(dim=9, law="svk", fiber=(10.0, 5.0),
+                            matrix=(1.0, 1.0),
+                            load=[1.02, 1, 1, 0, 0, 0, 0, 0, 0]),
 }
 # path -> (mode, gamma_scheme, method)
 PATHS = {
@@ -100,7 +111,17 @@ PATHS = {
     "heat-collocated": ("heat", "collocated", "cg"),
     "viscosity-collocated": ("viscosity", "collocated", "cg"),
     "elasticity-polarization": ("elasticity", "collocated", "polarization"),
+    "hyperelasticity": ("hyperelasticity", "staggered", "cg"),
+    "hyperelasticity-collocated": ("hyperelasticity", "collocated", "cg"),
 }
+HYPER_PATHS = ("hyperelasticity", "hyperelasticity-collocated")
+LINEAR_PATHS = tuple(p for p in PATHS if p not in HYPER_PATHS)
+# the hyperelastic bench's options (scripts/bench_hyper_newton.py) and the
+# JAX package's answer there, the mean P11 at 256^3 (PARITY.md:699)
+HYPER_OPT = dict(tol=1e-5, error_estimator="residual",
+                 outer_error_estimator="epsilon", check_every=8,
+                 maxiter=2000)
+HYPER_P11 = 0.074716
 # the kernels each path must launch; it launches no other
 PATH_KERNELS = {
     "elasticity": ("stress_div_beta", "eps_from_u_dot", "g0_staggered_chain"),
@@ -110,6 +131,8 @@ PATH_KERNELS = {
     "heat-collocated": ("gamma_collocated_chain",),
     "viscosity-collocated": ("gamma_collocated_zt_chain",),
     "elasticity-polarization": ("gamma_collocated_chain",),
+    "hyperelasticity": ("g0_staggered_chain",),
+    "hyperelasticity-collocated": ("gamma_collocated_chain",),
 }
 
 
@@ -147,7 +170,7 @@ def path_solver(n, dtype, device, path, **opt):
 # of a C-component rfftn + irfftn pair (2.5 N log2 N each per component)
 # plus those of the apply per half-spectrum bin (about 56 for K3, 6 for K4;
 # counted from GammaCollocated: 154 for K5 at C = 6 and for K6, 36 for K5
-# at C = 3).
+# at C = 3; from GammaCollocatedHyper: 176 for K5 at C = 9).
 WORK = {
     "stress_div_beta": dict(values=14 + 9, flops=51),
     "stress_div_beta[init]": dict(values=8 + 3, flops=39),
@@ -164,6 +187,10 @@ WORK = {
                                          apply=36),
     "gamma_collocated_zt_chain": dict(values=5 + 5, flops=None, comps=5,
                                       apply=154),
+    "gamma_collocated_chain[hyper]": dict(values=9 + 9, flops=None, comps=9,
+                                          apply=176),
+    "g0_staggered_chain[hyper]": dict(values=3 + 3, flops=None, comps=3,
+                                      apply=56),
 }
 
 
@@ -295,12 +322,33 @@ def check_kernels(shape, dtype, timed):
     k6 = lambda: spk.gamma_collocated_zt_chain(g, r, Az, Bz, E, -0.2)
     p6 = lambda: spk.gamma_collocated_zt_chain_plain(g, r, Az, Bz, E, -0.2)
     report("gamma_collocated_zt_chain", [rel_err(k6(), p6())], k6, p6, n)
+
+    # K5 at C = 9 (hyperelasticity) with the path's constants (lambda_0 =
+    # 0, so B = 0; beta = 0), and once with B and beta set; K3 with the
+    # full-gradient constants (c20 = 0 at lambda_0 = 0)
+    tau9, E9 = rnd(9, *shape), rnd(9)
+    Ah, Bh = green.hyper_constants(mu0, 0.0)
+    k9 = lambda: spk.gamma_collocated_hyper_chain(g, tau9, Ah, Bh, E9, 0.0)
+    p9 = lambda: spk.gamma_collocated_hyper_chain_plain(g, tau9, Ah, Bh, E9,
+                                                        0.0)
+    A4, B4 = green.hyper_constants(mu0, 0.4)
+    errs = [rel_err(k9(), p9()),
+            rel_err(spk.gamma_collocated_hyper_chain(g, tau9, A4, B4, E9,
+                                                     0.37),
+                    spk.gamma_collocated_hyper_chain_plain(g, tau9, A4, B4,
+                                                           E9, 0.37))]
+    report("gamma_collocated_chain[hyper]", errs, k9, p9, n)
+    k3h = lambda: spk.g0_staggered_chain(g, f, -Ah, Bh)
+    p3h = lambda: spk.g0_staggered_chain_plain(g, f, -Ah, Bh)
+    report("g0_staggered_chain[hyper]", [rel_err(k3h(), p3h())], k3h, p3h, n)
     if timed:
         for name, x in (("g0_staggered_chain", f),
                         ("g0_staggered_heat_chain", f1),
                         ("gamma_collocated_chain", r),
                         ("gamma_collocated_chain[heat]", r3),
-                        ("gamma_collocated_zt_chain", r[1:])):
+                        ("gamma_collocated_zt_chain", r[1:]),
+                        ("gamma_collocated_chain[hyper]", tau9),
+                        ("g0_staggered_chain[hyper]", f)):
             out[name]["library_ms"] = cuda_ms(
                 lambda: fft.ifftn(fft.fftn(x), g.shape))
             log(f"  cuFFT rfftn+irfftn ({x.shape[0]}, {shape}) "
@@ -366,7 +414,7 @@ def main():
     log("phase 3: 48^3 float64 solves, cuda kernels vs cpu twins")
     opt = dict(error_estimator="residual", tol=1e-8, check_every=4,
                maxiter=1000)
-    for path in PATHS:
+    for path in LINEAR_PATHS:
         # the epsilon estimator of the polarization scheme subtracts two
         # norms: at 1e-8 their rounding would show in the 1e-9 comparison
         popt = dict(opt, tol=1e-6) if PATHS[path][2] == "polarization" \
@@ -386,13 +434,35 @@ def main():
         assert len(rc) == len(rg), f"{path}: iteration counts differ"
         assert res_rel <= 1e-9 and s_rel <= 1e-10, path
         del s_cpu, s_gpu
+    # Newton: the history holds the inner residual and the outer epsilon
+    # entries; an epsilon entry, a difference of two norms, compares within
+    # 1e-9 relative or 1e-14 absolute
+    for path in HYPER_PATHS:
+        hopt = dict(HYPER_OPT, tol=1e-6, check_every=4)
+        s_cpu = path_solver(24, "float64", "cpu", path, **hopt)
+        s_gpu = path_solver(24, "float64", "cuda", path, **hopt)
+        assert not s_cpu.run()
+        assert not run_counted(s_gpu, f"24^3 float64 {path}", path)[0]
+        rc, rg = np.asarray(s_cpu.residuals), np.asarray(s_gpu.residuals)
+        same = len(rc) == len(rg)
+        res_rel = float(np.max(np.abs(rg - rc) / np.abs(rc))) if same \
+            else float("inf")
+        Sc, Sg = s_cpu.calc_mean_stress(), s_gpu.calc_mean_stress()
+        s_rel = float(np.max(np.abs(Sg - Sc)) / np.max(np.abs(Sc)))
+        log(f"  {path}: iterations cpu {len(rc)} cuda {len(rg)} (outer, "
+            f"inner {s_gpu.newton_iterations}), residual history max rel "
+            f"diff {res_rel:.3e}, mean PK1 max rel diff {s_rel:.3e}")
+        assert same, f"{path}: iteration counts differ"
+        assert np.all(np.abs(rg - rc) <= 1e-9 * np.abs(rc) + 1e-14), path
+        assert s_rel <= 1e-10, path
+        del s_cpu, s_gpu
 
     # ---- phase 4: the paths at full size
     log("phase 4: bench sphere RVE, residual tol 1e-6, check_every 8")
     opt = dict(error_estimator="residual", tol=1e-6, check_every=8,
                maxiter=4000)
     path_launches, res32 = {}, {}
-    for path in PATHS:
+    for path in LINEAR_PATHS:
         s32 = path_solver(256, "float32", "cuda", path, **opt)
         assert not s32.run()                     # warm-up
         fail, got = run_counted(s32, f"256^3 float32 {path}", path)
@@ -447,6 +517,43 @@ def main():
     del s512
     torch.cuda.empty_cache()
 
+    log("phase 4: hyperelastic bench, 256^3 SVK sphere at 2 % stretch, "
+        "tol 1e-5, residual inner / epsilon outer, check_every 8")
+    hyper = {}
+    for path, tangent in (("hyperelasticity", "exact"),
+                          ("hyperelasticity-collocated", "exact"),
+                          ("hyperelasticity", "frozen_iso")):
+        label = f"256^3 float32 {path} [{tangent}]"
+        s = path_solver(256, "float32", "cuda", path, newton_tangent=tangent,
+                        **HYPER_OPT)
+        if tangent == "exact":
+            assert not s.run()                   # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        fail, got = run_counted(s, label, path)
+        if tangent == "exact":
+            path_launches[path] = got
+        outer, inner = s.newton_iterations
+        P = s.calc_mean_stress()
+        detf = s.calc_min_det_f()
+        log(f"  {label}: {len(s.residuals)} entries ({outer} outer, {inner} "
+            f"inner iterations, {got[PATH_KERNELS[path][0]]} chain "
+            f"launches), solve_time {s.solve_time:.4f} s, "
+            f"{inner / s.solve_time:.2f} inner it/s, min det F {detf:.6f}, "
+            f"peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, mean PK1 "
+            f"{P.tolist()}")
+        assert not fail and len(s.residuals) < HYPER_OPT["maxiter"]
+        assert np.all(np.isfinite(P)) and np.isfinite(detf) and detf > 0
+        hyper[(path, tangent)] = P
+        del s
+        torch.cuda.empty_cache()
+    for key, P in hyper.items():
+        d = abs(P[0] - HYPER_P11) / HYPER_P11
+        log(f"  {key[0]} [{key[1]}] P11 {P[0]:.6f} vs the JAX package's "
+            f"{HYPER_P11} (rel {d:.3e})")
+    assert abs(hyper[("hyperelasticity", "exact")][0] - HYPER_P11) \
+        <= 5e-4 * HYPER_P11
+
     # ---- phase 5: analytic oracles
     shape = (64, 16, 16)
     x = (np.arange(shape[0]) + 0.5) / shape[0]
@@ -484,6 +591,22 @@ def main():
             f"exact {exact:.12f} (rel {abs(k - exact) / exact:.3e}, "
             f"{len(s.residuals)} its)")
         assert abs(k - exact) <= 1e-8 * exact
+    # SVK at a small strain h: P11 / h is the linear laminate's C11
+    h = 1e-5
+    mat = ft.convert.material_from_numpy(
+        [("a", mu1, lam1, phi), ("b", mu2, lam2, 1.0 - phi)], dim=9,
+        law="svk")
+    s = ft.LSSolver(ft.Grid(*shape), mat, ft.SolverOptions(
+        mode="hyperelasticity", tol=1e-8, error_estimator="residual",
+        outer_error_estimator="epsilon", check_every=4, maxiter=500))
+    s.set_strain([1.0 + h, 1, 1, 0, 0, 0, 0, 0, 0])
+    assert not run_counted(s, "SVK laminate", "hyperelasticity")[0]
+    c11 = float(s.calc_mean_stress()[0]) / h
+    exact = 1.0 / (0.5 / (lam1 + 2 * mu1) + 0.5 / (lam2 + 2 * mu2))
+    log(f"phase 5: SVK laminate at strain {h:g}: P11/h {c11:.9f} vs linear "
+        f"C11 {exact:.9f} (rel {abs(c11 - exact) / exact:.3e}, "
+        f"{s.newton_iterations} outer/inner)")
+    assert abs(c11 - exact) <= 1e-3 * exact
 
     # ---- phase 6: launches and per-kernel numbers.  The per-kernel list
     # takes the key "kernels"; the launch counts of each path's timed 256^3
@@ -512,7 +635,12 @@ def main():
              "heat-collocated", ch, "fibergen_tpu/ops/pallas_chain.py:385"),
             ("gamma_collocated_zt_chain", "gamma_collocated_zt_chain",
              "viscosity-collocated", ch,
-             "fibergen_tpu/ops/pallas_chain.py:430")]
+             "fibergen_tpu/ops/pallas_chain.py:430"),
+            ("gamma_collocated_chain[hyper]", "gamma_collocated_chain",
+             "hyperelasticity-collocated", ch,
+             "fibergen_tpu/ops/pallas_chain.py:385"),
+            ("g0_staggered_chain[hyper]", "g0_staggered_chain",
+             "hyperelasticity", ch, "fibergen_tpu/ops/pallas_chain.py:212")]
     kernels = []
     for name, counter, path, src, replaces in rows:
         m = main_nums[name]

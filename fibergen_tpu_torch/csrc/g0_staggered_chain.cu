@@ -14,6 +14,10 @@
 //   _zt_apply (K6, via gamma_collocated_zt_middle): the zero-trace collocated
 //     Gamma of the viscosity Delta scheme on components 1..5 of a traceless
 //     6-component field.
+// and, with the part function of fibergen_tpu/ops/green.py
+// gamma_collocated_hyper_fused, _gamma_collocated_apply (K5 at C = 9): the
+// finite-strain collocated Gamma on a 9-component deformation-gradient
+// field (hyperelasticity).
 // _middle runs four matmul-DFT c2c stages (y, x forward; x, y inverse) with
 // the apply between the x stages; the JAX package puts the z r2c/c2r stages
 // around it.  Here the whole chain is five kernels, launched one after
@@ -40,6 +44,10 @@
 //       (green.py:36-135, 260-299, 358-379).  The DC bin takes E, a device
 //       vector of C values, in its real part: the unnormalized inverse of a
 //       DC-only spectrum is that value at every voxel, so E is not scaled.
+//   K5 (C = 9, GammaCollocatedHyper): the full tensor in the order xx yy zz
+//       yz xz xy zy zx yx, t_i = tau_il xi_l, s = xi . t, eta_ij = A xi_j
+//       t_i / |xi|^2 + B xi_i xi_j s / |xi|^4 + beta tau_ij; not symmetric
+//       (yz and zy differ), so it has its own part (green.py:382-421).
 //   K6 (C = 5 transformed): component 0 is rebuilt as -(c1 + c2) in
 //       registers, the 6-component K5 apply runs, component 0 is dropped;
 //       the DC bin takes E[1..5] (green.py:302-355, pallas_chain.py:400-444).
@@ -504,6 +512,70 @@ struct GammaCollocated {
   }
 };
 
+// The finite-strain collocated Gamma (K5 at C = 9) on one bin of a
+// 9-component tile: eta = Gamma tau + beta tau, DC bin = E (9 values).  The
+// real and the imaginary parts go through the part one after the other,
+// each written back before the next is read, so nine values of a part are
+// in flight at a time.
+template <typename T>
+struct GammaCollocatedHyper {
+  static constexpr int C = 9;
+  const T *tx, *ty, *tz;
+  const T* E;          // device vector: 9 values
+  T A, B, beta;        // 1/N folded in
+  struct Row {
+    T x1;
+    bool dc;
+  };
+  __device__ __forceinline__ Row row(int y) const { return {ty[y], y == 0}; }
+  __device__ __forceinline__ void part(const T (&p)[9], T x0, T x1, T x2, T a,
+                                       T b4, T (&q)[9]) const {
+    // rows of tau: (xx, xy, xz), (yx, yy, yz), (zx, zy, zz)
+    const T t0 = p[0] * x0 + p[5] * x1 + p[4] * x2;
+    const T t1 = p[8] * x0 + p[1] * x1 + p[3] * x2;
+    const T t2 = p[7] * x0 + p[6] * x1 + p[2] * x2;
+    const T b = b4 * (x0 * t0 + x1 * t1 + x2 * t2);
+    q[0] = a * x0 * t0 + b * x0 * x0 + beta * p[0];
+    q[1] = a * x1 * t1 + b * x1 * x1 + beta * p[1];
+    q[2] = a * x2 * t2 + b * x2 * x2 + beta * p[2];
+    q[3] = a * x2 * t1 + b * x1 * x2 + beta * p[3];
+    q[4] = a * x2 * t0 + b * x0 * x2 + beta * p[4];
+    q[5] = a * x1 * t0 + b * x0 * x1 + beta * p[5];
+    q[6] = a * x1 * t2 + b * x2 * x1 + beta * p[6];
+    q[7] = a * x0 * t2 + b * x2 * x0 + beta * p[7];
+    q[8] = a * x0 * t1 + b * x1 * x0 + beta * p[8];
+  }
+  __device__ __forceinline__ void operator()(Cx<T>* v, int bs, const Row& r,
+                                             int i, int k) const {
+    if (r.dc && i == 0 && k == 0) {
+#pragma unroll
+      for (int c = 0; c < 9; ++c) v[c * bs] = Cx<T>{E[c], T(0)};
+      return;
+    }
+    const T x0 = tx[i], x1 = r.x1, x2 = tz[k];
+    const T k2 = x0 * x0 + x1 * x1 + x2 * x2;
+    const T a = A / k2, b4 = B / (k2 * k2);
+    T p[9], q[9];
+#pragma unroll
+    for (int c = 0; c < 9; ++c) p[c] = v[c * bs].r;
+    part(p, x0, x1, x2, a, b4, q);
+#pragma unroll
+    for (int c = 0; c < 9; ++c) v[c * bs].r = q[c];
+#pragma unroll
+    for (int c = 0; c < 9; ++c) p[c] = v[c * bs].i;
+    part(p, x0, x1, x2, a, b4, q);
+#pragma unroll
+    for (int c = 0; c < 9; ++c) v[c * bs].i = q[c];
+  }
+};
+
+template <typename T>
+using Gamma6 = GammaCollocated<T, 6>;
+template <typename T>
+using Gamma3 = GammaCollocated<T, 3>;
+template <typename T>
+using GammaZt = GammaCollocated<T, 5>;
+
 // Forward x transform, apply, inverse x transform, in place: block
 // (kz tile, y) holds all C components, tile layout
 // s[c * nx * TK + i * TK + t].  The forward pass leaves the x bins in
@@ -624,10 +696,11 @@ StaggeredK<T> staggered_tables(const void* tx, const void* ty, const void* tz,
           static_cast<const T*>(tz), nx, ny, nz / 2 + 1};
 }
 
-template <typename T, int NC>
-GammaCollocated<T, NC> collocated(const void* tx, const void* ty,
-                                  const void* tz, const void* E, double A,
-                                  double B, double beta, double n) {
+// A collocated apply functor G (GammaCollocated or GammaCollocatedHyper)
+// on the xi tables and E, with 1/N folded into A, B and beta.
+template <class G, typename T>
+G collocated(const void* tx, const void* ty, const void* tz, const void* E,
+             double A, double B, double beta, double n) {
   return {static_cast<const T*>(tx), static_cast<const T*>(ty),
           static_cast<const T*>(tz), static_cast<const T*>(E), T(A / n),
           T(B / n), T(beta / n)};
@@ -643,13 +716,13 @@ GammaCollocated<T, NC> collocated(const void* tx, const void* ty,
   const void *f, void *spec, void *out, const void *tx, const void *ty,      \
       const void *tz, const void *twx, const void *twy, const void *twz
 #define FG_CHAIN_PASS f, spec, out, twx, twy, twz
-#define FG_COLLOCATED_ENTRY(NAME, SUF, T, NC)                                \
+#define FG_COLLOCATED_ENTRY(NAME, SUF, T, G)                                 \
   extern "C" int NAME##_##SUF(FG_CHAIN_ARGS, const void* E, double A,       \
                               double B, double beta, int nx, int ny,         \
                               int nz, void* stream) {                        \
     const double n = static_cast<double>(nx) * ny * nz;                      \
     return launch<T>(FG_CHAIN_PASS,                                          \
-                     collocated<T, NC>(tx, ty, tz, E, A, B, beta, n), nx,    \
+                     collocated<G<T>, T>(tx, ty, tz, E, A, B, beta, n), nx,  \
                      ny, nz, stream);                                        \
   }
 
@@ -673,9 +746,11 @@ GammaCollocated<T, NC> collocated(const void* tx, const void* ty,
         G0Scalar<T>{staggered_tables<T>(tx, ty, tz, nx, ny, nz), T(c10 / n)},\
         nx, ny, nz, stream);                                                 \
   }                                                                          \
-  FG_COLLOCATED_ENTRY(gamma_collocated_chain, SUF, T, 6)                     \
-  FG_COLLOCATED_ENTRY(gamma_collocated_heat_chain, SUF, T, 3)                \
-  FG_COLLOCATED_ENTRY(gamma_collocated_zt_chain, SUF, T, 5)
+  FG_COLLOCATED_ENTRY(gamma_collocated_chain, SUF, T, Gamma6)                \
+  FG_COLLOCATED_ENTRY(gamma_collocated_heat_chain, SUF, T, Gamma3)           \
+  FG_COLLOCATED_ENTRY(gamma_collocated_zt_chain, SUF, T, GammaZt)            \
+  FG_COLLOCATED_ENTRY(gamma_collocated_hyper_chain, SUF, T,                  \
+                      GammaCollocatedHyper)
 
 FG_CHAIN_ENTRIES(f32, float)
 FG_CHAIN_ENTRIES(f64, double)

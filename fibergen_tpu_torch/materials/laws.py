@@ -1,8 +1,14 @@
-"""Linear constitutive laws: isotropic elasticity and the scalar law of
-heat conduction, porous flow and viscosity (fluidity).
+"""Constitutive laws: isotropic elasticity, the scalar law of heat
+conduction, porous flow and viscosity (fluidity), and the finite-strain
+hyperelastic laws.
 
 Laws act on whole Voigt fields ``(dim, nx, ny, nz)``; dim-6 strains store
-tensor shear components (core.voigt).
+tensor shear components, dim 9 the full deformation gradient
+[xx, yy, zz, yz, xz, xy, zy, zx, yx] (core.voigt).  A hyperelastic law
+defines its stored energy on the nine component fields; its first
+Piola-Kirchhoff stress and the stress's directional derivative come from
+``torch.func`` (grad, and jvp over grad), as the JAX package takes them
+from ``jax.grad`` and ``jax.jvp``.
 """
 from __future__ import annotations
 
@@ -81,3 +87,306 @@ class ScalarLinearIsotropic:
 
     def __str__(self):
         return f"scalar linear isotropic mu={self.mu:g}"
+
+
+# ------------------------------------------------------------------------
+# finite strain: component helpers on (9, ...) fields
+# ------------------------------------------------------------------------
+
+def _safe_log(x):
+    """log with a clamp against J <= 0 (the reference's MaterialLaw::log
+    guard)."""
+    return torch.log(torch.clamp_min(x, torch.finfo(x.dtype).tiny))
+
+
+def f_rows(F):
+    """(9, ...) -> the nine matrix entries in row-major order (f00, f01,
+    f02, f10, f11, f12, f20, f21, f22) of the dim-9 component order."""
+    return F[0], F[5], F[4], F[8], F[1], F[3], F[7], F[6], F[2]
+
+
+def det3_comp(F):
+    """det(F) from the (9, ...) components."""
+    f00, f01, f02, f10, f11, f12, f20, f21, f22 = f_rows(F)
+    return (f00 * (f11 * f22 - f12 * f21)
+            - f01 * (f10 * f22 - f12 * f20)
+            + f02 * (f10 * f21 - f11 * f20))
+
+
+def cauchy_green_comp(F):
+    """Unique entries (C00, C11, C22, C12, C02, C01) of C = F^T F."""
+    f00, f01, f02, f10, f11, f12, f20, f21, f22 = f_rows(F)
+    C00 = f00 * f00 + f10 * f10 + f20 * f20
+    C11 = f01 * f01 + f11 * f11 + f21 * f21
+    C22 = f02 * f02 + f12 * f12 + f22 * f22
+    C12 = f01 * f02 + f11 * f12 + f21 * f22
+    C02 = f00 * f02 + f10 * f12 + f20 * f22
+    C01 = f00 * f01 + f10 * f11 + f20 * f21
+    return C00, C11, C22, C12, C02, C01
+
+
+def cauchy_from_pk1_comp(P, F):
+    """sigma = P F^T / det(F) on (9, ...) components (MaterialLaw::Cauchy,
+    fibergen.cpp:10326): sigma_ij = P_ik F_jk / J."""
+    p00, p01, p02, p10, p11, p12, p20, p21, p22 = f_rows(P)
+    f00, f01, f02, f10, f11, f12, f20, f21, f22 = f_rows(F)
+    J = det3_comp(F)
+    return torch.stack([
+        (p00 * f00 + p01 * f01 + p02 * f02) / J,
+        (p10 * f10 + p11 * f11 + p12 * f12) / J,
+        (p20 * f20 + p21 * f21 + p22 * f22) / J,
+        (p10 * f20 + p11 * f21 + p12 * f22) / J,
+        (p00 * f20 + p01 * f21 + p02 * f22) / J,
+        (p00 * f10 + p01 * f11 + p02 * f12) / J,
+        (p20 * f10 + p21 * f11 + p22 * f12) / J,
+        (p20 * f00 + p21 * f01 + p22 * f02) / J,
+        (p10 * f00 + p11 * f01 + p12 * f02) / J])
+
+
+class HyperelasticLaw:
+    """Finite-strain law on (9, ...) deformation-gradient fields:
+    subclasses define the energy density ``energy(F)`` with the component
+    helpers above (no voxel-trailing (..., 3, 3) view); PK1 = dW/dF and
+    dPK1(F)[W] = d2W/dF2 : W come from ``torch.func``."""
+
+    dim = 9
+    is_linear = False
+
+    def energy(self, F):
+        raise NotImplementedError
+
+    def w(self, F):
+        return self.energy(F)
+
+    def pk1(self, F):
+        # gradient of sum(W) over the (9, ...) field == per-voxel dW/dF
+        return torch.func.grad(lambda x: self.energy(x).sum())(F)
+
+    def dpk1(self, F, W):
+        return torch.func.jvp(self.pk1, (F,), (W,))[1]
+
+    def cauchy(self, F):
+        return cauchy_from_pk1_comp(self.pk1(F), F)
+
+
+@dataclasses.dataclass
+class SaintVenantKirchhoff(HyperelasticLaw):
+    """W = lambda/2 tr(E)^2 + mu E:E with E = (F^T F - I)/2
+    (fibergen.cpp:11598-11724)."""
+
+    mu: float
+    lam: float
+
+    def energy(self, F):
+        C00, C11, C22, C12, C02, C01 = cauchy_green_comp(F)
+        E00, E11, E22 = 0.5 * (C00 - 1.0), 0.5 * (C11 - 1.0), 0.5 * (C22 - 1.0)
+        trE = E00 + E11 + E22
+        # E:E with the symmetric off-diagonals E_ij = C_ij / 2 counted twice
+        EE = (E00 * E00 + E11 * E11 + E22 * E22
+              + 0.5 * (C01 * C01 + C02 * C02 + C12 * C12))
+        return 0.5 * self.lam * trE * trE + self.mu * EE
+
+    def __str__(self):
+        return (f"hyperelastic Saint Venant-Kirchhoff lambda={self.lam:g} "
+                f"mu={self.mu:g}")
+
+
+@dataclasses.dataclass
+class NeoHooke(HyperelasticLaw):
+    """W = mu/2 (tr C - 3 - 2 ln J) + lambda/2 (ln J)^2
+    (fibergen.cpp:11729-11861)."""
+
+    mu: float
+    lam: float
+
+    def energy(self, F):
+        trC = (F * F).sum(0)
+        logJ = _safe_log(det3_comp(F))
+        return 0.5 * (self.mu * (trC - 3.0 - 2.0 * logJ)
+                      + self.lam * logJ * logJ)
+
+    def __str__(self):
+        return f"hyperelastic Neo-Hooke lambda={self.lam:g} mu={self.mu:g}"
+
+
+@dataclasses.dataclass
+class NeoHooke2(HyperelasticLaw):
+    """W = mu/2 (J^{-2/3} tr C - 3) + K/2 (J - 1)^2
+    (fibergen.cpp:11867-11998)."""
+
+    mu: float
+    K: float
+
+    def energy(self, F):
+        trC = (F * F).sum(0)
+        J = det3_comp(F)
+        Jm23 = torch.clamp_min(J, torch.finfo(F.dtype).tiny) ** (-2.0 / 3.0)
+        J1 = J - 1.0
+        return 0.5 * (self.mu * (Jm23 * trC - 3.0) + self.K * J1 * J1)
+
+    def __str__(self):
+        return f"hyperelastic Neo-Hooke-2 K={self.K:g} mu={self.mu:g}"
+
+
+class GoldbergLaw(HyperelasticLaw):
+    """Isochoric-invariant energies W(J1, J2, J3) with
+    J1 = J3^{-2/3} tr C, J2 = J3^{-4/3} (trC^2 - tr C^2)/2, J3 = det F
+    (GeneralGoldbergMaterialLaw, fibergen.cpp:10455-10665)."""
+
+    def w_inv(self, J1, J2, J3):
+        raise NotImplementedError
+
+    def energy(self, F):
+        C00, C11, C22, C12, C02, C01 = cauchy_green_comp(F)
+        trC = C00 + C11 + C22
+        # tr(C^2) for symmetric C: the sum of squared entries
+        trCC = (C00 * C00 + C11 * C11 + C22 * C22
+                + 2.0 * (C01 * C01 + C02 * C02 + C12 * C12))
+        J3 = torch.clamp_min(det3_comp(F), torch.finfo(F.dtype).tiny)
+        J1 = J3 ** (-2.0 / 3.0) * trC
+        J2 = 0.5 * J3 ** (-4.0 / 3.0) * (trC * trC - trCC)
+        return self.w_inv(J1, J2, J3)
+
+
+def _vol(J3):
+    return J3 + 1.0 / J3 - 2.0
+
+
+def _vol5(J3):
+    J5 = J3 ** 5
+    return J5 + 1.0 / J5 - 2.0
+
+
+@dataclasses.dataclass
+class GoldbergMatrix1(GoldbergLaw):
+    """W = m1 (J1-3) + m2 (J3 + 1/J3 - 2) (fibergen.cpp:10669-10717)."""
+    m1: float = 1.0
+    m2: float = 10.0
+
+    def w_inv(self, J1, J2, J3):
+        return self.m1 * (J1 - 3.0) + self.m2 * _vol(J3)
+
+
+@dataclasses.dataclass
+class GoldbergMatrix2(GoldbergLaw):
+    """Cubic in (J1-3) + volumetric (fibergen.cpp:10719-10770)."""
+    m1: float = 0.5
+    m2: float = 0.1
+    m3: float = 1.0
+    m4: float = 5.0
+
+    def w_inv(self, J1, J2, J3):
+        x = J1 - 3.0
+        return (self.m1 + (self.m2 + self.m3 * x) * x) * x + self.m4 * _vol(J3)
+
+
+@dataclasses.dataclass
+class GoldbergMatrix3(GoldbergLaw):
+    """W = m1 (J1-3) + m2/50 (J3^5 + J3^-5 - 2) (fibergen.cpp:10772-10820)."""
+    m1: float = 1.0
+    m2: float = 10.0
+
+    def w_inv(self, J1, J2, J3):
+        return self.m1 * (J1 - 3.0) + (self.m2 / 50.0) * _vol5(J3)
+
+
+@dataclasses.dataclass
+class GoldbergMatrix4(GoldbergLaw):
+    """Cubic isochoric + stiff J3^5 volumetric (fibergen.cpp:10822-10876)."""
+    m1: float = 0.5
+    m2: float = 1.0
+    m3: float = 3.0
+    m4: float = 50.0
+
+    def w_inv(self, J1, J2, J3):
+        x = J1 - 3.0
+        return self.m1 * x + self.m2 * x * x + self.m3 * x ** 3 \
+            + (self.m4 / 50.0) * _vol5(J3)
+
+
+@dataclasses.dataclass
+class GoldbergFiber1(GoldbergLaw):
+    """W = f1 (J1-3) + f2 (J3 + 1/J3 - 2) (fibergen.cpp:10878-10904)."""
+    f1: float = 10.0
+    f2: float = 100.0
+
+    def w_inv(self, J1, J2, J3):
+        return self.f1 * (J1 - 3.0) + self.f2 * _vol(J3)
+
+
+@dataclasses.dataclass
+class GoldbergFiber2(GoldbergLaw):
+    """Logarithmic locking law W = -f1 f2/2 ln((f1 + 3 - J1)/f1) + vol
+    (fibergen.cpp:10858-10904)."""
+    f1: float = 10.0
+    f2: float = 2.0
+    f3: float = 500.0
+
+    def w_inv(self, J1, J2, J3):
+        c = torch.clamp_min((self.f1 + (3.0 - J1)) / self.f1,
+                            torch.finfo(J1.dtype).tiny)
+        return -0.5 * self.f1 * self.f2 * torch.log(c) + self.f3 * _vol(J3)
+
+
+@dataclasses.dataclass
+class GoldbergFiber3(GoldbergLaw):
+    """W = f1 J1 + f2 J1^4 + f3 sqrt(J2) + f4 vol (fibergen.cpp:10906-10942)."""
+    f1: float = 1.0
+    f2: float = 0.02
+    f3: float = 100.0
+    f4: float = 500.0
+
+    def w_inv(self, J1, J2, J3):
+        return self.f1 * J1 + self.f2 * J1 ** 4 \
+            + self.f3 * torch.sqrt(torch.clamp_min(
+                J2, torch.finfo(J1.dtype).tiny)) \
+            + self.f4 * _vol(J3)
+
+
+@dataclasses.dataclass
+class GoldbergFiber4(GoldbergLaw):
+    """W = f1 (J1-3) + f2/50 (J3^5 + J3^-5 - 2) (fibergen.cpp:10944-10981)."""
+    f1: float = 20.0
+    f2: float = 200.0
+
+    def w_inv(self, J1, J2, J3):
+        return self.f1 * (J1 - 3.0) + (self.f2 / 50.0) * _vol5(J3)
+
+
+@dataclasses.dataclass
+class GoldbergFiber5(GoldbergLaw):
+    """Exponential stiffening W = f1 (e^{f2 (J1-3)} - 1) + f3 vol
+    (fibergen.cpp:10983-11018)."""
+    f1: float = 3.5
+    f2: float = 2.0
+    f3: float = 500.0
+
+    def w_inv(self, J1, J2, J3):
+        return self.f1 * (torch.exp(self.f2 * (J1 - 3.0)) - 1.0) \
+            + self.f3 * _vol(J3)
+
+
+@dataclasses.dataclass
+class GoldbergFiber6(GoldbergLaw):
+    """Exponential isochoric + J3^5 volumetric (fibergen.cpp:11020-11087)."""
+    f1: float = 3.5
+    f2: float = 4.0
+    f3: float = 500.0
+
+    def w_inv(self, J1, J2, J3):
+        return self.f1 * (torch.exp(self.f2 * (J1 - 3.0)) - 1.0) \
+            + (self.f3 / 50.0) * _vol5(J3)
+
+
+GOLDBERG_LAWS = {
+    "gb_matrix1": GoldbergMatrix1,
+    "gb_matrix2": GoldbergMatrix2,
+    "gb_matrix3": GoldbergMatrix3,
+    "gb_matrix4": GoldbergMatrix4,
+    "gb_fiber1": GoldbergFiber1,
+    "gb_fiber2": GoldbergFiber2,
+    "gb_fiber3": GoldbergFiber3,
+    "gb_fiber4": GoldbergFiber4,
+    "gb_fiber5": GoldbergFiber5,
+    "gb_fiber6": GoldbergFiber6,
+}

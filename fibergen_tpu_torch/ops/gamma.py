@@ -14,9 +14,16 @@ directly):
 * :func:`gamma_collocated`: the collocated branch of ``gamma_operator``
   for elasticity (K5, 6 components) and heat/porous flow (K5, 3);
 * :func:`delta_collocated`: the collocated branch of ``delta_operator``
-  (K6, the zero-trace chain with the dual constants).
+  (K6, the zero-trace chain with the dual constants);
+* :func:`gamma_hyper`: the hyperelasticity branch of ``gamma_operator``
+  (div_staggered_hyper -> K3 with the full-gradient constants ->
+  eps_staggered_hyper on the staggered grid; K5 at C = 9 on the
+  collocated grid).  K1 and K2 take no part: they assume per-voxel
+  isotropic linear moduli.
 """
 from __future__ import annotations
+
+import torch
 
 from . import green, staggered
 from .stencil_kernels import eps_from_u_dot, stress_div_beta
@@ -69,3 +76,24 @@ def delta_collocated(grid, E, mu_0, tau, alpha=-1.0):
     return green.gamma_collocated_zt_fused(
         grid, E, -1.0 / (4.0 * mu0v), float("inf"), tau, alpha,
         2.0 * alpha * mu0v)
+
+
+def gamma_hyper(grid, scheme, E, mu_0, lambda_0, tau, alpha=-1.0, beta=0.0):
+    """eta = alpha Gamma tau + beta tau with mean E on 9-component
+    (deformation-gradient) fields (gamma_operator, mode hyperelasticity,
+    bc=None, fibergen.cpp:19619-19774).  ``E`` may be a device tensor on
+    the collocated grid; the staggered grid adds it in PyTorch."""
+    if scheme == "collocated":
+        return green.gamma_collocated_hyper_fused(grid, E, mu_0, lambda_0,
+                                                  tau, alpha, beta)
+    if scheme != "staggered":
+        raise NotImplementedError(f"gamma scheme {scheme!r} is not ported "
+                                  f"in hyperelasticity")
+    f = staggered.div_staggered_hyper(grid, tau)
+    u = green.g0_staggered_hyper_fused(grid, mu_0, lambda_0, f, alpha)
+    del f
+    eta = staggered.eps_staggered_hyper(
+        grid, torch.as_tensor(E, dtype=tau.dtype, device=tau.device), u)
+    if beta != 0.0:
+        eta += beta * tau
+    return eta

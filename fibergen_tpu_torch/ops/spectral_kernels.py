@@ -16,7 +16,9 @@ with k+ = sin(xi)/h e^{i xi} per axis and the DC bin zeroed (tables from
 
 * K5 :func:`gamma_collocated_chain`, the collocated Gamma on a 6-component
   strain field (A/|xi|^2 and B/|xi|^4 terms) or a 3-component gradient
-  field (A/|xi|^2 term), plus beta tau, with the DC bin set to E;
+  field (A/|xi|^2 term), plus beta tau, with the DC bin set to E; and
+  :func:`gamma_collocated_hyper_chain`, its nonsymmetric finite-strain form
+  on a 9-component deformation-gradient field;
 * K6 :func:`gamma_collocated_zt_chain`, the zero-trace form on a traceless
   6-component field: components 1..5 are transformed, component 0 is
   -(c1 + c2) in the spectrum and in real space;
@@ -129,12 +131,24 @@ def g0_staggered_heat_apply_plain(f_hat, tables, c10):
 
 def _gamma_part(p, xis, k2, A, B):
     """Real-coefficient collocated Gamma on a list of 6 (Voigt xx yy zz yz xz
-    xy) or 3 spectrum components (green.py part functions)."""
+    xy), 3 or 9 (xx yy zz yz xz xy zy zx yx, the finite-strain form)
+    spectrum components (green.py part functions)."""
     x0, x1, x2 = xis
     a = A / k2
     if len(p) == 3:
         c = a * (p[0] * x0 + p[1] * x1 + p[2] * x2)
         return [c * x0, c * x1, c * x2]
+    if len(p) == 9:
+        # rows of tau: (xx, xy, xz), (yx, yy, yz), (zx, zy, zz)
+        t0 = p[0] * x0 + p[5] * x1 + p[4] * x2
+        t1 = p[8] * x0 + p[1] * x1 + p[3] * x2
+        t2 = p[7] * x0 + p[6] * x1 + p[2] * x2
+        b = (B / (k2 * k2)) * (x0 * t0 + x1 * t1 + x2 * t2)
+        return [a * x0 * t0 + b * x0 * x0, a * x1 * t1 + b * x1 * x1,
+                a * x2 * t2 + b * x2 * x2, a * x2 * t1 + b * x1 * x2,
+                a * x2 * t0 + b * x0 * x2, a * x1 * t0 + b * x0 * x1,
+                a * x1 * t2 + b * x2 * x1, a * x0 * t2 + b * x2 * x0,
+                a * x0 * t1 + b * x1 * x0]
     t0 = p[0] * x0 + p[5] * x1 + p[4] * x2
     t1 = p[5] * x0 + p[1] * x1 + p[3] * x2
     t2 = p[4] * x0 + p[3] * x1 + p[2] * x2
@@ -149,7 +163,7 @@ def _gamma_part(p, xis, k2, A, B):
 
 def gamma_collocated_apply_plain(tau_hat, tables, A, B, E, beta):
     """Plain PyTorch collocated Gamma on a (C, nx, ny, nz//2+1)
-    half-spectrum, C = 6 or 3 (out of place): eta = Gamma tau + beta tau
+    half-spectrum, C = 6, 3 or 9 (out of place): eta = Gamma tau + beta tau
     with the DC bin set to E (C values)."""
     tx, ty, tz = tables
     E = _vector(E, tx, tau_hat.shape[0])
@@ -182,6 +196,12 @@ def gamma_collocated_chain_plain(grid, tau, A, B, E, beta):
     tables = collocated_tables(grid, tau.dtype, tau.device)
     y = gamma_collocated_apply_plain(fft.fftn(tau), tables, A, B, E, beta)
     return fft.ifftn(_real_z_planes(y, grid.nz), grid.shape)
+
+
+def gamma_collocated_hyper_chain_plain(grid, tau, A, B, E, beta):
+    """Plain PyTorch K5 at C = 9: irfftn(finite-strain collocated Gamma
+    apply(rfftn tau))."""
+    return gamma_collocated_chain_plain(grid, tau, A, B, E, beta)
 
 
 def gamma_collocated_zt_chain_plain(grid, tau, A, B, E, beta):
@@ -288,6 +308,20 @@ def gamma_collocated_chain(grid, tau, A, B, E, beta):
     return _chain(name, "gamma_collocated_chain", grid, tau, ncomp,
                   collocated_tables(grid, tau.dtype, tau.device),
                   (A, B, beta), ptrs=(_vector(E, tau, ncomp),))
+
+
+def gamma_collocated_hyper_chain(grid, tau, A, B, E, beta):
+    """K5 at C = 9: eta = irfftn(Gamma rfftn tau + beta rfftn tau), DC bin =
+    E (9 values), for a real contiguous (9, nx, ny, nz) deformation-gradient
+    field with the finite-strain (nonsymmetric) collocated Gamma.  Counts
+    under K5's ``gamma_collocated_chain``.  Returns a new field."""
+    if tau.device.type == "cpu":
+        return gamma_collocated_hyper_chain_plain(grid, tau, A, B, E, beta)
+    if tau.shape[0] != 9:
+        raise ValueError(f"tau has {tau.shape[0]} components, expected 9")
+    return _chain("gamma_collocated_hyper_chain", "gamma_collocated_chain",
+                  grid, tau, 9, collocated_tables(grid, tau.dtype, tau.device),
+                  (A, B, beta), ptrs=(_vector(E, tau, 9),))
 
 
 def gamma_collocated_zt_chain(grid, tau, A, B, E, beta):

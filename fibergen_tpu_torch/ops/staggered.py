@@ -9,9 +9,10 @@ that the stencil kernels (ops/stencil_kernels.py) are checked against.
 
 eps uses D+ on the diagonal and D- on the shear terms; div uses D- on the
 diagonal and D+ on the shear terms (adjoint pair).  The scalar (heat and
-porous) pair uses D+ for the gradient and D- for the divergence; it stays
-plain PyTorch on every device, as the JAX package computes it outside any
-Pallas kernel.
+porous) pair uses D+ for the gradient and D- for the divergence, and the
+finite-strain pair (full gradient, divergence of a full tensor) mixes them
+as the symmetric pair does; both pairs stay plain PyTorch on every device,
+as the JAX package computes them outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -77,3 +78,33 @@ def div_staggered_heat(grid, tau):
     hx, hy, hz = hs(grid)
     return (_dm(tau[0], 0, hx) + _dm(tau[1], 1, hy)
             + _dm(tau[2], 2, hz))[None]
+
+
+def eps_staggered_hyper(grid, E, u):
+    """Full (unsymmetrized) staggered gradient of displacement + mean
+    deformation gradient E (fibergen.cpp:18763-18847).  u: (3,nx,ny,nz),
+    E: (9,), returns (9, ...) in the dim-9 component order."""
+    hx, hy, hz = hs(grid)
+    ux, uy, uz = u[0], u[1], u[2]
+    return torch.stack([
+        E[0] + _dp(ux, 0, hx),
+        E[1] + _dp(uy, 1, hy),
+        E[2] + _dp(uz, 2, hz),
+        E[3] + _dm(uy, 2, hz),   # F_yz = d_z u_y
+        E[4] + _dm(ux, 2, hz),   # F_xz
+        E[5] + _dm(ux, 1, hy),   # F_xy
+        E[6] + _dm(uz, 1, hy),   # F_zy
+        E[7] + _dm(uz, 0, hx),   # F_zx
+        E[8] + _dm(uy, 0, hx),   # F_yx
+    ])
+
+
+def div_staggered_hyper(grid, tau):
+    """Staggered divergence of a full (9-component) tensor field, row i
+    from tau[i, :] (fibergen.cpp:19016-19071).  Returns (3, nx, ny, nz)."""
+    hx, hy, hz = hs(grid)
+    return torch.stack([
+        _dm(tau[0], 0, hx) + _dp(tau[5], 1, hy) + _dp(tau[4], 2, hz),
+        _dp(tau[8], 0, hx) + _dm(tau[1], 1, hy) + _dp(tau[3], 2, hz),
+        _dp(tau[7], 0, hx) + _dp(tau[6], 1, hy) + _dm(tau[2], 2, hz),
+    ])

@@ -5,6 +5,8 @@ step (fibergen.cpp:14344-14642).  `metric_kind` tells the step which
 reduction to compute:
 
     epsilon  -> per-component RMS norms of the strain field
+    sigma    -> phase-weighted mean stress vector
+    energy   -> mean energy scalar
     residual -> CG gamma (residual norm^2), updated via update_cg
     none     -> nothing
 """
@@ -70,6 +72,69 @@ class EpsilonEstimator(ErrorEstimator):
         self._prev = n
 
 
+class SigmaEstimator(ErrorEstimator):
+    """Change in mean stress, two-step averaged (fibergen.cpp:14514-14587)."""
+
+    metric_kind = "sigma"
+
+    def __init__(self):
+        self._prev = None
+        self._prev_prev = None
+        self._iter = 0
+        self._abs = np.inf
+        self._rel = 1.0
+
+    @staticmethod
+    def _fix(v):
+        v = np.asarray(v, dtype=np.float64)
+        if v.size == 6:
+            v = np.concatenate([v, v[3:6]])
+        elif v.size == 3:
+            v = np.concatenate([v, np.zeros(6)])
+        return v
+
+    def start(self, metric):
+        m = self._fix(metric)
+        self._prev = m.copy()
+        self._prev_prev = m.copy()
+
+    def update(self, metric):
+        m = self._fix(metric)
+        tiny = np.finfo(np.float64).tiny
+        if self._iter > 1:
+            self._abs = 0.5 * (
+                float(np.linalg.norm(self._prev_prev - m))
+                + float(np.linalg.norm(self._prev - m)))
+        else:
+            self._abs = float(np.linalg.norm(self._prev - m))
+        self._rel = self._abs / (tiny + float(np.linalg.norm(m)))
+        self._prev_prev = self._prev
+        self._prev = m
+        self._iter += 1
+
+
+class EnergyEstimator(ErrorEstimator):
+    """Change in mean energy (fibergen.cpp:14410-14465)."""
+
+    metric_kind = "energy"
+
+    def __init__(self):
+        self._prev = None
+        self._abs = np.inf
+        self._rel = 1.0
+
+    def start(self, metric):
+        self._prev = float(metric)
+
+    def update(self, metric):
+        m = float(metric)
+        tiny = np.finfo(np.float64).tiny
+        self._abs = abs((self._prev if self._prev is not None else np.inf)
+                        - m)
+        self._rel = self._abs / (tiny + abs(m))
+        self._prev = m
+
+
 class ResidualEstimator(ErrorEstimator):
     """CG residual sqrt(gamma/gamma0) (fibergen.cpp:14385-14405)."""
 
@@ -95,11 +160,10 @@ def make_estimator(name: str) -> ErrorEstimator:
         # (fibergen.cpp:14470-14509); mirrored here
         "div_sigma": NoneEstimator,
         "epsilon": EpsilonEstimator,
+        "sigma": SigmaEstimator,
+        "energy": EnergyEstimator,
         "residual": ResidualEstimator,
     }
-    if name in ("sigma", "energy"):
-        raise NotImplementedError(
-            f"error estimator '{name}' is not ported yet")
     try:
         return table[name]()
     except KeyError:

@@ -1,8 +1,9 @@
-"""Lippmann-Schwinger solver: linear CG, basic and polarization schemes.
+"""Lippmann-Schwinger solver: linear CG, basic and polarization schemes,
+and Newton-Krylov for finite strain.
 
 Port of fibergen_tpu/solvers/ls.py (the reference's LSSolver,
 fibergen.cpp:14643-24741) for trivial (pure strain) boundary conditions
-and one device, in four modes, on the staggered and the collocated grid.
+and one device, in five modes, on the staggered and the collocated grid.
 On a card each step runs hand-written kernels, on the CPU their plain
 twins.  Staggered grid:
 
@@ -16,7 +17,10 @@ twins.  Staggered grid:
 Collocated grid: the plain stress difference, then the K5 collocated Gamma
 chain (elasticity, heat, porous flow) or the K6 zero-trace chain
 (viscosity).  ``method="polarization"`` (Eyre-Milton) runs on the
-collocated grid.
+collocated grid.  Hyperelasticity (``method="cg"``) is Newton-Krylov
+(solvers/newton.py) inside the loadstep loop with its divergence split;
+its Gamma is K3 with the full-gradient constants (staggered) or K5 at
+C = 9 (collocated).
 
 CG: the scalars gamma, gamma_prev and beta stay on the device; the host
 reads the residual history once per ``check_every`` iterations.  The basic
@@ -32,15 +36,18 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..core import fields
+from ..core import fields, voigt
 from ..core.device import resolve_device, resolve_dtype
+from ..materials import laws
 from ..ops import gamma as gammamod
 from ..ops import green
 from ..ops.stencil_kernels import eps_from_u_dot, stress_div_beta
 from ..utils.logging import LOG
+from . import newton
 from .estimators import make_estimator
 
-MODE_DIM = {"elasticity": 6, "heat": 3, "porous": 3, "viscosity": 6}
+MODE_DIM = {"elasticity": 6, "heat": 3, "porous": 3, "viscosity": 6,
+            "hyperelasticity": 9}
 
 
 class SolverError(RuntimeError):
@@ -123,17 +130,22 @@ class SolverOptions:
 # one path: no drain, no low-memory step, no 2-D pipeline)
 _FREE = {"tol", "tol_red", "abs_tol", "bc_tol", "maxiter", "update_ref",
          "ref_scale", "error_estimator", "check_every", "dtype", "refine",
-         "print_mean", "ref_mu", "ref_lambda"}
-_ALSO = {"mode": ("heat", "porous", "viscosity"),
+         "print_mean", "ref_mu", "ref_lambda", "newton_relax",
+         "outer_error_estimator"}
+# free in hyperelasticity only (the linear modes run one loadstep)
+_HYPER_FREE = {"loadsteps", "first_loadstep", "max_loadstep_splits"}
+_ALSO = {"mode": ("heat", "porous", "viscosity", "hyperelasticity"),
          "method": ("basic", "polarization"),
          "gamma_scheme": ("staggered", "collocated"),
+         "newton_tangent": ("frozen_iso",),
          "adaptive_drain": ("off",),
          "low_mem": ("off",), "use_dim2": ("off",)}
 
 
 def _check_options(opt: SolverOptions):
+    hyper = opt.mode == "hyperelasticity"
     for f in dataclasses.fields(opt):
-        if f.name in _FREE:
+        if f.name in _FREE or (hyper and f.name in _HYPER_FREE):
             continue
         v = getattr(opt, f.name)
         if v != f.default and v not in _ALSO.get(f.name, ()):
@@ -141,10 +153,19 @@ def _check_options(opt: SolverOptions):
                 f"SolverOptions.{f.name}={v!r} is not ported yet (the port "
                 f"implements CG, basic and polarization on the staggered "
                 f"and collocated grids in elasticity, heat, porous flow and "
-                f"viscosity)")
+                f"viscosity, and Newton-Krylov in hyperelasticity)")
+    if hyper and opt.method != "cg":
+        raise NotImplementedError(
+            f"method {opt.method!r} in hyperelasticity is not ported yet "
+            f"(Newton-Krylov, method='cg', is)")
+    if not hyper and opt.error_estimator in ("sigma", "energy"):
+        raise NotImplementedError(
+            f"error estimator {opt.error_estimator!r} is ported for "
+            f"hyperelasticity only")
     if opt.refine not in ("auto", "on", "off"):
         raise ValueError(f"refine must be auto/on/off, got {opt.refine!r}")
     make_estimator(opt.error_estimator)
+    make_estimator(opt.outer_error_estimator)
 
 
 class LSSolver:
@@ -180,6 +201,7 @@ class LSSolver:
         self.dtype = resolve_dtype(self.opt.dtype)
         self._tiny = float(np.finfo(np.float64 if self.dtype == torch.float64
                                     else np.float32).tiny)
+        self._id = voigt.identity_vec(self.dim)
         self.E = np.zeros(self.dim)
         self.mu_0 = (self.opt.ref_mu if self.opt.ref_mu is not None
                      else float("nan"))
@@ -189,6 +211,8 @@ class LSSolver:
         self.residuals: List[float] = []
         self.solve_time = 0.0
         self._canceled = False
+        self._diverged = False
+        self.newton_iterations = [0, 0]     # outer, inner (hyperelasticity)
         self._eig_memo = None
         self._estimator_kind = make_estimator(
             self.opt.error_estimator).metric_kind
@@ -213,7 +237,18 @@ class LSSolver:
         return fields.mean(self.eps).cpu().numpy()
 
     def calc_mean_stress(self):
+        """Mean stress; the mean first Piola-Kirchhoff stress in
+        hyperelasticity."""
         return self.mat.mean_pk1(self.eps).cpu().numpy()
+
+    def calc_mean_cauchy(self):
+        return self.mat.mean_cauchy(self.eps).cpu().numpy()
+
+    def calc_mean_energy(self):
+        return float(self.mat.mean_w(self.eps))
+
+    def calc_min_det_f(self):
+        return float(laws.det3_comp(self.eps).min())
 
     # --------------------------------------------------------- ref material
     def calc_ref_material(self):
@@ -221,15 +256,18 @@ class LSSolver:
         (calcRefMaterial, fibergen.cpp:22283-22313): mu_0 = 0.5 ref_scale
         0.5 (lmin + lmax), or 0.5 ref_scale sqrt(lmin lmax) for the
         polarization method; lambda_0 = 0.  Linear materials: memoized on
-        the identity of the mixed moduli."""
-        iso = self.mat._all_iso()
-        key = tuple(id(t) for t in iso)
-        if self._eig_memo is not None and self._eig_memo[0] == key:
-            lmin, lmax = self._eig_memo[1]
+        the identity of the mixed moduli.  Hyperelasticity: the bounds of
+        the tangent at the current ``eps``, recomputed at every call
+        (Newton calls it at the shifted F)."""
+        if self.mode == "hyperelasticity":
+            lmin, lmax = (float(x) for x in self.mat.eig_range(self.eps))
         else:
-            lmin, lmax = (float(x) for x in self.mat.eig_range(
-                zero_trace=self.mode == "viscosity"))
-            self._eig_memo = (key, (lmin, lmax))
+            key = tuple(id(t) for t in self.mat._all_iso())
+            if self._eig_memo is None or self._eig_memo[0] != key:
+                self._eig_memo = (key, tuple(
+                    float(x) for x in self.mat.eig_range(
+                        zero_trace=self.mode == "viscosity")))
+            lmin, lmax = self._eig_memo[1]
         if lmin < 0:
             LOG.warn(f"negative tangent eigenvalue ({lmin}); cutting off at 0")
             lmin = 0.0
@@ -247,6 +285,8 @@ class LSSolver:
         failure or cancel, False on success, like the reference."""
         self.residuals = []
         self._canceled = False
+        self._diverged = False
+        self.newton_iterations = [0, 0]
         g = self.grid
         LOG.info(f"RVE: dims={g.dx}x{g.dy}x{g.dz} voxels={g.nx}x{g.ny}x{g.nz}")
         LOG.info(f"mode: {self.opt.method} {self.scheme} {self.mode} "
@@ -257,25 +297,91 @@ class LSSolver:
             LOG.info(f" - {p.name}: {p.law}")
         self.eps = None
         t0 = time.perf_counter()
-        self._best_rel = float("inf")
-        self._stall = 0
-        if self.opt.update_ref != "never" or not np.isfinite(self.mu_0):
-            self.calc_ref_material()
-        if self.opt.method == "basic":
-            self._run_basic(self.E)
-        elif self.opt.method == "polarization":
-            self._run_polarization(self.E)
+        self._reset_stall()
+        if self.mode == "hyperelasticity":
+            self.eps = fields.const_field(self.grid, self._id, self.dtype,
+                                          self.device)
+            failed = self._run_loadstepping(self.E)
         else:
-            self._run_cg(self.E)
+            if self.opt.update_ref != "never" or not np.isfinite(self.mu_0):
+                self.calc_ref_material()
+            if self.opt.method == "basic":
+                self._run_basic(self.E)
+            elif self.opt.method == "polarization":
+                self._run_polarization(self.E)
+            else:
+                self._run_cg(self.E)
+            failed = self._canceled
+            if failed:
+                LOG.error("loadsteps canceled")
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.solve_time = time.perf_counter() - t0
         if self.opt.print_mean:
             LOG.info(f"mean elastic strain = {self.calc_mean_strain()}")
             LOG.info(f"average elastic stress = {self.calc_mean_stress()}")
-        if self._canceled:
-            LOG.error("loadsteps canceled")
-            return True
+        return failed
+
+    def _reset_stall(self):
+        """Reset the stagnation tracker: per solve phase (each loadstep and
+        each Newton inner solve), since relative errors restart near 1
+        there."""
+        self._best_rel = float("inf")
+        self._stall = 0
+
+    def _loadstep_params(self):
+        n = max(1, int(self.opt.loadsteps))
+        params = [i / n for i in range(n + 1)]
+        first = self.opt.first_loadstep
+        if first < 0:
+            first = 0 if len(params) > 2 else 1
+        return params, first
+
+    def _run_loadstepping(self, Emax) -> bool:
+        """Loadstep loop of the hyperelastic path (runLoadsteppingSolver,
+        fibergen.cpp:21584-21685) with the JAX package's divergence
+        recovery: on NaN or an indefinite operator the state at the last
+        converged loadstep is restored and the midpoint loadstep parameter
+        inserted, up to ``max_loadstep_splits`` times.  E(t) = t E +
+        (1 - t) Id.  Returns True when it gives up."""
+        params, first = self._loadstep_params()
+        splits = 0
+        istep = first
+        while istep < len(params):
+            t = params[istep]
+            E = t * np.asarray(Emax) + (1 - t) * self._id
+            if len(params) > 2:
+                LOG.info(f"*** loadstep {istep}/{len(params) - 1} parameter "
+                         f"{t} ***")
+            # at the first loadstep eps is the constant seed: keep the
+            # recipe (None), not a second field
+            eps_entry = None if istep == first else self.eps
+            self._diverged = False
+            self._reset_stall()
+            newton.run_newton_cg(self, E)
+            if self._diverged:
+                if not (self.opt.max_loadstep_splits > 0
+                        and splits < self.opt.max_loadstep_splits
+                        and istep >= 1):
+                    LOG.error("loadsteps canceled")
+                    return True
+                mid = 0.5 * (params[istep] + params[istep - 1])
+                LOG.warn(f"loadstep {t:g} diverged: restoring state at "
+                         f"{params[istep - 1]:g} and splitting at parameter "
+                         f"{mid:g} (split {splits + 1}/"
+                         f"{self.opt.max_loadstep_splits})")
+                params.insert(istep, mid)
+                splits += 1
+                self.eps = eps_entry if eps_entry is not None else \
+                    fields.const_field(self.grid, self._id, self.dtype,
+                                       self.device)
+                self._canceled = False
+                self._diverged = False
+                continue
+            if self._canceled:
+                LOG.error("loadsteps canceled")
+                return True
+            istep += 1
         return False
 
     def _refine_wanted(self) -> bool:
@@ -446,14 +552,18 @@ class LSSolver:
         self.eps = self.mat.polarization(mu0, self.eps, inv=True)
 
     # --------------------------------------------------------- convergence
-    def _converged(self, it, abs_err, rel_err, patience=50):
+    def _converged(self, it, abs_err, rel_err, check_bc=True, patience=50):
         """(converged, fibergen.cpp:21164-21244) with the stagnation guard
         of the JAX package.  Returns (next_it, done).  The boundary
-        condition error is identically zero for pure strain control."""
+        condition error is identically zero for pure strain control;
+        ``check_bc=False`` (the Newton inner CG) does not report it.  NaN
+        cancels the solve and marks it diverged, which the hyperelastic
+        loadstep loop answers with a split."""
         LOG.info(f"# Iteration {it}: {self.opt.error_estimator} error "
                  f"abs. = {abs_err:g} rel. = {rel_err:g}")
         if math.isnan(rel_err):
             self._canceled = True
+            self._diverged = True
             LOG.error("NaN detected in solution. Aborting.")
             return it, True
         self.residuals.append(rel_err)
@@ -473,7 +583,8 @@ class LSSolver:
             LOG.info("Maximum number of iterations reached.")
             return it, True
         if rel_err <= tol or abs_err <= self.opt.abs_tol:
-            LOG.info("Boundary condition error = 0")
+            if check_bc:
+                LOG.info("Boundary condition error = 0")
             LOG.info("Converged.")
             return it, True
         return it + 1, False

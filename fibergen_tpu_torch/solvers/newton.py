@@ -1,0 +1,240 @@
+"""Finite-strain Newton-Krylov (runCGHyper, fibergen.cpp:22699-23131).
+
+Port of fibergen_tpu/solvers/newton.py ``run_newton_cg`` for trivial (pure
+F) boundary conditions on one device: an outer Newton iteration on the
+nonlinear Lippmann-Schwinger equation, an inner linear CG on the
+linearized operator.  The tangent dP/dF(F)[Q] is torch.func's jvp of the
+autodiff PK1 (``newton_tangent="exact"``), or the per-voxel frozen
+isotropic form a Q + b tr(Q) I + c Q^T refreshed at each outer iteration
+(``"frozen_iso"``, modified Newton).  The Gamma operator is
+``ops.gamma.gamma_hyper``: K3 with the full-gradient constants on the
+staggered grid, K5 at C = 9 on the collocated grid.
+
+The inner CG runs ``check_every`` iterations on the device per host read:
+the host reads the chunk's (gamma, denominator, metric) stacks once and
+acts on them in order.  The JAX package reads each chunk one dispatch
+behind and keeps the newer chunk's field; this loop is not pipelined and
+stops at the end of the chunk that converged, so at ``check_every > 1``
+the two differ by at most one chunk of inner iterations per outer one.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core import fields
+from ..ops import gamma as gammamod
+from ..utils.logging import LOG
+from .estimators import make_estimator
+
+# component c of Q^T in the dim-9 order [xx, yy, zz, yz, xz, xy, zy, zx, yx]
+_T9 = [0, 1, 2, 6, 7, 8, 3, 4, 5]
+
+
+def _metric_for(mat, kind):
+    """Estimator metric of the given kind on a field (None for the
+    residual and none kinds, which read no field).  The inner and the outer
+    estimator each get the metric of their own kind."""
+    def metric(eps):
+        if kind == "epsilon":
+            return fields.component_norm(eps)
+        if kind == "sigma":
+            return mat.mean_pk1(eps)
+        if kind == "energy":
+            return mat.mean_w(eps)
+        return None
+    return metric
+
+
+def _host(x):
+    return None if x is None else x.cpu().numpy()
+
+
+def _iso_project(T):
+    """Least-squares projection of a 9x9 tangent matrix onto the frozen
+    isotropic form a I + b (tr outer) + c (transpose map); returns
+    (a, b, c).  Exact for isotropic laws at F = Id."""
+    I9 = np.eye(9)
+    Ptr = np.zeros((9, 9))
+    Ptr[:3, :3] = 1.0
+    PT = np.zeros((9, 9))
+    for i, j in enumerate(_T9):
+        PT[i, j] = 1.0
+    G = np.stack([I9.ravel(), Ptr.ravel(), PT.ravel()], axis=1)
+    coef, *_ = np.linalg.lstsq(G, np.asarray(T, np.float64).ravel(),
+                               rcond=None)
+    return tuple(float(x) for x in coef)
+
+
+def _frozen_abc(solver):
+    """Per-voxel (a, b, c) fields of the modified-Newton tangent: each
+    phase law's exact 9x9 tangent at the mean deformation, projected onto
+    the isotropic form, phi-mixed (VoigtMixed's dP/dF = sum phi_p
+    dP_p/dF)."""
+    mat = solver.mat
+    F0 = fields.mean(solver.eps).reshape(9, 1, 1, 1)
+    eye = torch.eye(9, dtype=F0.dtype, device=F0.device)
+    coefs = []
+    for p in mat.phases:
+        cols = [p.law.dpk1(F0, eye[j].reshape(9, 1, 1, 1)) for j in range(9)]
+        T = torch.stack([c.reshape(9) for c in cols], dim=1)
+        coefs.append(_iso_project(T.cpu().numpy()))
+    phis = [p.phi.to(dtype=F0.dtype, device=F0.device) for p in mat.phases]
+    return tuple(sum(ph * c[k] for ph, c in zip(phis, coefs))
+                 for k in range(3))
+
+
+class _Operator:
+    """The linearized operator of one outer iteration at F:
+    A(Q) = -Gamma0 (dP/dF(F) - C0) : Q (ApplyOperator, fibergen.cpp:23132),
+    with the exact or the frozen tangent."""
+
+    def __init__(self, solver, F, mu0, lam0, abc):
+        self.s, self.F, self.mu0, self.lam0, self.abc = (solver, F, mu0,
+                                                         lam0, abc)
+        self.zero = torch.zeros(9, dtype=F.dtype, device=F.device)
+
+    def stress_deriv(self, Q):
+        """(dP/dF(F) - C0) : Q (calcStressDeriv, fibergen.cpp:18425-18480);
+        frozen: (a - 2 mu0) Q + c Q^T + (b - lam0) tr(Q) I."""
+        mu0, lam0 = self.mu0, self.lam0
+        if self.abc is not None:
+            a, b, c = self.abc
+            W = (a - 2.0 * mu0) * Q + c * Q[_T9]
+            W[0:3] += (b - lam0) * (Q[0] + Q[1] + Q[2])
+            return W
+        W = self.s.mat.dpk1(self.F, Q) - 2.0 * mu0 * Q
+        if lam0 != 0.0:
+            W[0:3] -= lam0 * (Q[0] + Q[1] + Q[2])
+        return W
+
+    def gamma(self, E, tau):
+        s = self.s
+        return gammamod.gamma_hyper(s.grid, s.scheme, E, self.mu0, self.lam0,
+                                    tau)
+
+    def __call__(self, Q):
+        return self.gamma(self.zero, self.stress_deriv(Q))
+
+
+def _init(op, X0):
+    """X = -Gamma0 P(F) with mean X0; R = A(X) with the same operator A as
+    the steps (exact or frozen: a frozen step on an exact R solves another
+    system); gamma = <R, R>."""
+    X = op.gamma(X0, op.s.mat.pk1(op.F))
+    R = op(X)
+    return X, R, fields.inner_l2(R, R) + op.s._tiny
+
+
+def _step(op, X, R, Q, gamma):
+    """One inner CG step in the unshifted form; X, R and Q are updated in
+    place.  Returns (gamma of the next step, denominator <Q, Q - A Q>)."""
+    W = op(Q)
+    denom = fields.inner_l2_diff(Q, Q, W) + op.s._tiny
+    alpha = gamma / denom
+    X.addcmul_(Q, alpha)                 # X + alpha Q
+    R.addcmul_(W.sub_(Q), alpha)         # R - alpha (Q - W)
+    delta = fields.inner_l2(R, R) + op.s._tiny
+    Q.mul_(delta / gamma).add_(R)        # R + beta Q
+    return delta, denom
+
+
+def run_newton_cg(solver, E0):
+    """Newton-Krylov for finite strain at the prescribed mean deformation
+    gradient E0 (9 values).  Sets ``solver._canceled`` and
+    ``solver._diverged`` on NaN or an indefinite inner operator; counts
+    the outer and inner iterations in ``solver.newton_iterations``."""
+    opt = solver.opt
+    mat = solver.mat
+    relax = opt.newton_relax
+
+    # satisfy <eps> = E0 (fibergen.cpp:22744-22745)
+    dE = np.asarray(E0, np.float64) - fields.mean(solver.eps).cpu().numpy()
+    solver.eps = solver.eps + torch.as_tensor(
+        dE, dtype=solver.dtype, device=solver.device).reshape(-1, 1, 1, 1)
+
+    metric = _metric_for(mat, solver._estimator_kind)
+    per_step = solver._estimator_kind in ("epsilon", "sigma", "energy")
+    outer_kind = make_estimator(opt.outer_error_estimator).metric_kind
+    metric_outer = _metric_for(mat, outer_kind)
+    ee_outer = make_estimator(opt.outer_error_estimator)
+    ee_outer.start(_host(metric_outer(solver.eps)))
+    iter_outer = 0
+    gamma0 = -1.0
+    best_outer = float("inf")
+    stall_outer = 0
+    K = max(1, int(opt.check_every))
+    X0 = torch.zeros(9, dtype=solver.dtype, device=solver.device)
+    stats = solver.newton_iterations
+
+    while True:
+        if gamma0 < 0 or opt.update_ref == "always":
+            solver.calc_ref_material()
+        F = solver.eps
+        abc = (_frozen_abc(solver) if opt.newton_tangent == "frozen_iso"
+               else None)
+        op = _Operator(solver, F, solver.mu_0, solver.lambda_0, abc)
+        X, R, gamma = _init(op, X0)
+        if gamma0 < 0:
+            gamma0 = float(gamma)
+        Q = R.clone()
+        stats[0] += 1
+
+        ee = make_estimator(opt.error_estimator)
+        ee.start(_host(metric(solver.eps)))
+        solver._reset_stall()        # the inner CG restarts its errors
+        it = 0
+        done = False
+        while not done:
+            eps_checkpoint = solver.eps
+            gs, ds, ms = [], [], []
+            for _ in range(K):
+                gs.append(gamma)
+                gamma, denom = _step(op, X, R, Q, gamma)
+                ds.append(denom)
+                if per_step:
+                    ms.append(metric(F + relax * X))
+            solver.eps = F + relax * X
+            gs = torch.stack(gs).cpu().numpy()
+            ds = torch.stack(ds).cpu().numpy()
+            ms = torch.stack(ms).cpu().numpy() if ms else None
+            for k in range(K):
+                if ds[k] <= 0:
+                    solver._canceled = True
+                    solver._diverged = True
+                    LOG.error(f"indefinite operator (alpha={ds[k]:g}) "
+                              "canceling CG!")
+                    solver.eps = eps_checkpoint
+                    return
+                if ee.metric_kind == "residual":
+                    ee.update_cg(float(gs[k]), gamma0)
+                else:
+                    ee.update(None if ms is None else ms[k])
+                stats[1] += 1
+                it, done = solver._converged(it, ee.abs_error(),
+                                             ee.rel_error(), check_bc=False)
+                if done:
+                    break
+        del op, X, R, Q
+        if solver._canceled:
+            return
+
+        ee_outer.update(_host(metric_outer(solver.eps)))
+        # outer stagnation, apart from the inner CG's (each outer iteration
+        # costs a whole inner solve, so the patience is short)
+        outer_rel = ee_outer.rel_error()
+        if outer_rel < best_outer * (1.0 - opt.tol_red):
+            best_outer = outer_rel
+            stall_outer = 0
+        else:
+            stall_outer += 1
+            if stall_outer >= 5:
+                LOG.warn(f"Newton made no progress for {stall_outer} outer "
+                         f"iterations at rel. error {outer_rel:g}: stopping "
+                         "at the precision floor.")
+                break
+        solver._reset_stall()
+        iter_outer, done = solver._converged(
+            iter_outer, ee_outer.abs_error(), outer_rel)
+        if done:
+            break

@@ -2,20 +2,28 @@
 """Where a CG solve of the PyTorch/CUDA port spends its time on one card.
 
     python3 scripts/torch_profile_solve.py [n] [mode] [scheme] [method]
+    python3 scripts/torch_profile_solve.py [n] hyperelasticity [scheme] cg
+        [exact|frozen_iso]
 
 Solves the bench's sphere RVE (n^3, default 256, float32, residual tol
 1e-6, check_every 8; chip_smoke.RVE) in ``mode`` (elasticity, the default,
 heat or viscosity) on the ``scheme`` grid (staggered, the default, or
 collocated) with ``method`` (cg, the default, basic or polarization; the
-latter two stop on the epsilon estimator) twice without the profiler and
+latter two stop on the epsilon estimator); in hyperelasticity the
+hyperelastic bench (the SVK sphere at 2 % stretch with
+chip_smoke.HYPER_OPT, Newton-Krylov with the exact tangent or the frozen
+one) twice without the profiler and
 reports the second run's wall time, then once under torch.profiler and
 reports the device time by kernel, by kind (the port's kernels, the
-chains' passes included, cuFFT, PyTorch elementwise and reduction
-kernels) and the device's idle share of the unprofiled wall time.  Prints
+chains' passes included, cuFFT, cuSOLVER's batched eigensolver, PyTorch
+elementwise and reduction kernels) and the device's idle share of the
+unprofiled wall time; in hyperelasticity also the wall time of one
+reference-material pass (the tangent eigenvalue bounds at 256^3).  Prints
 one JSON line last.
 """
 import json
 import sys
+import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
@@ -29,6 +37,9 @@ def kind_of(name):
             return "port kernels"
     if "fft" in n:
         return "cuFFT"
+    if any(k in n for k in ("sytrd", "stedc", "laed", "lansy", "lascl",
+                            "steqr", "syev")):
+        return "cuSOLVER eigvalsh"
     if "reduce" in n:
         return "torch reductions"
     if "elementwise" in n or "copy" in n or "fill" in n:
@@ -40,7 +51,7 @@ def main():
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import sphere_solver
+    from chip_smoke import HYPER_OPT, sphere_solver
     from fibergen_tpu_torch.utils.logging import LOG
 
     if not torch.cuda.is_available():
@@ -51,14 +62,25 @@ def main():
     mode = sys.argv[2] if len(sys.argv) > 2 else "elasticity"
     scheme = sys.argv[3] if len(sys.argv) > 3 else "staggered"
     method = sys.argv[4] if len(sys.argv) > 4 else "cg"
-    est = "residual" if method == "cg" else "epsilon"
-    s = sphere_solver(n, "float32", "cuda", mode, scheme, method,
-                      error_estimator=est, tol=1e-6, check_every=8,
-                      maxiter=4000)
+    if mode == "hyperelasticity":
+        tangent = sys.argv[5] if len(sys.argv) > 5 else "exact"
+        opt = dict(HYPER_OPT, newton_tangent=tangent)
+    else:
+        est = "residual" if method == "cg" else "epsilon"
+        opt = dict(error_estimator=est, tol=1e-6, check_every=8,
+                   maxiter=4000)
+    s = sphere_solver(n, "float32", "cuda", mode, scheme, method, **opt)
     assert not s.run()
     assert not s.run()
     wall = s.solve_time
     its = len(s.residuals)
+    ref_ms = None
+    if mode == "hyperelasticity":
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s.calc_ref_material()
+        torch.cuda.synchronize()
+        ref_ms = 1e3 * (time.perf_counter() - t0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
         assert not s.run()
@@ -77,15 +99,21 @@ def main():
         kinds[kind_of(name)] = kinds.get(kind_of(name), 0.0) + us / 1e3
     card = torch.cuda.get_device_name(0)
     print(f"{card}: {n}^3 float32 {mode} {scheme} {method}, {its} "
-          f"iterations, unprofiled wall "
+          f"iterations (Newton outer, inner: {s.newton_iterations}), "
+          f"unprofiled wall "
           f"{1e3 * wall:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
           f"{1 - busy_ms / (1e3 * wall):.3f}")
+    if ref_ms is not None:
+        print(f"  one reference-material pass (tangent eigenvalue bounds): "
+              f"{ref_ms:.3f} ms wall")
     for us, count, name in rows[:16]:
         print(f"  {us / 1e3:9.3f} ms {count:6d}x  {name[:90]}")
     for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
         print(f"  {k:18s} {ms:9.3f} ms  {ms / busy_ms:6.1%} of busy")
     print(json.dumps({"n": n, "mode": mode, "scheme": scheme,
                       "method": method, "iterations": its,
+                      "newton_iterations": s.newton_iterations,
+                      "ref_material_ms": ref_ms,
                       "wall_ms": 1e3 * wall,
                       "device_busy_ms": busy_ms,
                       "idle_share": 1 - busy_ms / (1e3 * wall),

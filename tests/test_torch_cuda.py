@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import fibergen_tpu_torch as ft
 from fibergen_tpu_torch.core.grid import Grid
 from fibergen_tpu_torch.ops import green, spectral_kernels, stencil_kernels
 
@@ -156,6 +157,74 @@ def test_cuda_collocated_chains_match_twins(cuda, shape, dtype, tol):
         "gamma_collocated_zt_chain": 1}
 
 
+@pytest.mark.parametrize("shape,dtype,tol", [
+    ((33, 17, 29), torch.float64, 1e-12),
+    ((16, 12, 10), torch.float64, 1e-12),
+    ((32, 64, 1), torch.float32, 1e-5),
+    ((256, 256, 256), torch.float32, 1e-5)])
+def test_cuda_hyper_chains_match_twins(cuda, shape, dtype, tol):
+    """K5 at C = 9 (the finite-strain collocated Gamma, lambda_0 = 0 and
+    finite, device E, beta != 0) and K3 with the full-gradient constants
+    against their twins; all K5 launches count as gamma_collocated_chain."""
+    g = Grid(*shape, dx=1.2, dy=0.8, dz=1.0)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=cuda, dtype=dtype)
+    tau, E, f = rnd(9, *shape), rnd(9), rnd(3, *shape)
+    before = dict(stencil_kernels.launches, **spectral_kernels.launches)
+    for lam0, beta in ((0.0, 0.0), (0.3, 0.37)):
+        A, B = green.hyper_constants(1.7, lam0)
+        out = spectral_kernels.gamma_collocated_hyper_chain(g, tau, A, B, E,
+                                                            beta)
+        ref = spectral_kernels.gamma_collocated_hyper_chain_plain(g, tau, A,
+                                                                  B, E, beta)
+        torch.cuda.synchronize()
+        assert out.shape == tau.shape and _rel(out, ref) <= tol
+    A, B = green.hyper_constants(1.7, 0.0)
+    u = green.g0_staggered_hyper_fused(g, 1.7, 0.0, f)
+    u_ref = spectral_kernels.g0_staggered_chain_plain(g, f, -A, B)
+    torch.cuda.synchronize()
+    assert _rel(u, u_ref) <= tol
+    after = dict(stencil_kernels.launches, **spectral_kernels.launches)
+    assert {k: after[k] - before[k] for k in after} == {
+        "stress_div_beta": 0, "eps_from_u_dot": 0, "g0_staggered_chain": 1,
+        "g0_staggered_heat_chain": 0, "gamma_collocated_chain": 2,
+        "gamma_collocated_zt_chain": 0}
+
+
+@pytest.mark.parametrize("scheme,chain", [
+    ("staggered", "g0_staggered_chain"),
+    ("collocated", "gamma_collocated_chain")])
+def test_cuda_hyper_solve_matches_cpu(cuda, scheme, chain):
+    """A float64 Newton-Krylov solve (two-phase SVK sphere, 2 % stretch) on
+    the card against the CPU: the same residual history within 1e-9 and
+    mean PK1 within 1e-10; the card's run launches only its chain."""
+    n = 16
+    a = ((np.arange(n) + 0.5) / n - 0.5) ** 2
+    phi = ((a[:, None, None] + a[None, :, None] + a[None, None, :])
+           < 0.09).astype(np.float64)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        mat = ft.convert.material_from_numpy(
+            [("fiber", 10.0, 5.0, phi), ("matrix", 1.0, 1.0, 1.0 - phi)],
+            dim=9, law="svk", device=dev)
+        s = ft.LSSolver(Grid(n, n, n), mat, ft.SolverOptions(
+            mode="hyperelasticity", gamma_scheme=scheme, tol=1e-6,
+            error_estimator="residual", outer_error_estimator="epsilon",
+            check_every=4), device=dev)
+        s.set_strain([1.02, 1, 1, 0, 0, 0, 0, 0, 0])
+        before = dict(stencil_kernels.launches, **spectral_kernels.launches)
+        assert not s.run()
+        after = dict(stencil_kernels.launches, **spectral_kernels.launches)
+        res[dev] = (np.asarray(s.residuals), s.calc_mean_stress(),
+                    {k for k in after if after[k] > before[k]})
+    (rc, Sc, kc), (rg, Sg, kg) = res["cpu"], res["cuda"]
+    assert kc == set() and kg == {chain}
+    assert len(rg) == len(rc)
+    np.testing.assert_allclose(rg, rc, rtol=1e-9, atol=1e-14)
+    np.testing.assert_allclose(Sg, Sc, rtol=0,
+                               atol=1e-10 * np.max(np.abs(Sc)))
+
+
 def test_cuda_wrappers_reject_bad_input(cuda):
     g = Grid(4, 4, 4)
     r = torch.zeros((6, 4, 4, 4), device=cuda)
@@ -185,3 +254,10 @@ def test_cuda_wrappers_reject_bad_input(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         spectral_kernels.gamma_collocated_zt_chain(
             g, r.transpose(1, 2), 1.0, 1.0, E6, 0.0)
+    r9 = torch.zeros((9, 4, 4, 4), device=cuda)
+    with pytest.raises(ValueError, match="components"):
+        spectral_kernels.gamma_collocated_hyper_chain(
+            g, r, 1.0, 1.0, E6, 0.0)
+    with pytest.raises(ValueError, match="E has"):
+        spectral_kernels.gamma_collocated_hyper_chain(
+            g, r9, 1.0, 1.0, E6, 0.0)

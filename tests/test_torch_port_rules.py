@@ -61,12 +61,23 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         ft.LSSolver(ft.Grid(4, 4, 4), mat)
     assert ft.LSSolver(ft.Grid(4, 4, 4), mat, device="cpu").device.type \
         == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ft.convert.material_from_numpy([("a", 1.0, 1.0, phi)], dim=9,
+                                       law="svk")
+    hyp = ft.convert.material_from_numpy([("a", 1.0, 1.0, phi)], dim=9,
+                                         law="svk", device="cpu")
+    opt = ft.SolverOptions(mode="hyperelasticity")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ft.LSSolver(ft.Grid(4, 4, 4), hyp, opt)
+    assert ft.LSSolver(ft.Grid(4, 4, 4), hyp, opt, device="cpu").device.type \
+        == "cpu"
 
 
 def test_unported_options_raise():
     mat = ft.convert.material_from_numpy([("a", 1.0, 1.0, np.ones((4, 4, 4)))],
                                          device="cpu")
-    for kw in ({"method": "nesterov"}, {"mode": "hyperelasticity"},
+    for kw in ({"method": "nesterov"},
+               {"mode": "hyperelasticity", "method": "nl_cg"},
                {"gamma_scheme": "full_staggered"}, {"gamma_scheme": "willot"},
                {"freq_hack": True}, {"loadsteps": 3}, {"use_pallas": "on"},
                {"error_estimator": "energy"}):
