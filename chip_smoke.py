@@ -29,7 +29,17 @@ constants) and collocated (K5 at C = 9).  Phases, each failing loudly:
 5. the x-laminates' analytic C11 and conductivity on the card, on the
    staggered and the collocated grid, and the SVK laminate at a small
    strain against the linear C11;
-6. the launch counts and one JSON line per kernel and mode with its
+6. sharded: the x-slab solve on four slabs of one card
+   (``make_mesh(["cuda:0"] * 4)``): each slab kernel (K1, K2 in halo mode;
+   the kz-slab K3, K4, K5 and K6 chains) against its twin at 256^3 float32
+   with times and the time of the two spectrum exchanges, K1/K2 halo mode
+   bitwise against the periodic kernels on one slab; a 48^3 float64
+   sharded solve of each sharded path (SHARDED_PATHS) with kernels against
+   the plain twins on CPU slabs; the 256^3 float32 sharded solve of each
+   against phase 4's unsharded solve (launches counted: a path launches its
+   slab kernels and no other); with two or more cards, the staggered
+   elasticity solve over min(4, count) cards;
+7. the launch counts and one JSON line per kernel and mode with its
    numbers.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
@@ -74,6 +84,13 @@ def rel_err(out, ref):
         out, ref = torch.view_as_real(out), torch.view_as_real(ref)
     err = float((out.double() - ref.double()).abs().max())
     return err / float(ref.double().abs().max()), err
+
+
+def dot_err(dot, ref):
+    """A dot product's error relative to the reference, and its absolute
+    error."""
+    err = abs(float(dot) - float(ref))
+    return err / abs(float(ref)), err
 
 
 def sphere_phi(n, dtype):
@@ -135,20 +152,38 @@ PATH_KERNELS = {
     "hyperelasticity-collocated": ("gamma_collocated_chain",),
 }
 
+# the paths of the x-slab sharded solve and the slab kernels each launches
+SHARDED_PATHS = ("elasticity", "heat", "elasticity-collocated",
+                 "heat-collocated", "viscosity-collocated")
+SHARDED_KERNELS = {
+    "elasticity": ("stress_div_beta_halo", "eps_from_u_dot_halo",
+                   "g0_staggered_chain_slab"),
+    "heat": ("g0_staggered_heat_chain_slab",),
+    "elasticity-collocated": ("gamma_collocated_chain_slab",),
+    "heat-collocated": ("gamma_collocated_chain_slab",),
+    "viscosity-collocated": ("gamma_collocated_zt_chain_slab",),
+}
+SLABS = 4
+
 
 def sphere_solver(n, dtype, device, mode="elasticity", scheme="staggered",
-                  method="cg", **opt):
+                  method="cg", mesh=None, **opt):
     """The bench's RVE in ``mode`` (RVE) on an n^3 grid, solved with
-    ``method`` on the ``scheme`` grid."""
+    ``method`` on the ``scheme`` grid; with ``mesh`` (a list of devices)
+    sharded into x-slabs over it."""
     import fibergen_tpu_torch as ft
+    from fibergen_tpu_torch import parallel
     c = RVE[mode]
     phi = sphere_phi(n, "float32" if dtype == "float32" else "float64")
     mat = ft.convert.material_from_numpy(
         [("fiber", *c["fiber"], phi), ("matrix", *c["matrix"], 1.0 - phi)],
-        dim=c["dim"], device=device, law=c["law"])
+        dim=c["dim"], device=device if mesh is None else mesh[0],
+        law=c["law"])
+    sharding = None if mesh is None else parallel.field_sharding(
+        parallel.make_mesh(mesh))
     s = ft.LSSolver(ft.Grid(n, n, n), mat, ft.SolverOptions(
         mode=mode, method=method, gamma_scheme=scheme, dtype=dtype, **opt),
-        device=device)
+        device=None if mesh is not None else device, sharding=sharding)
     s.set_strain(c["load"])
     return s
 
@@ -192,6 +227,19 @@ WORK = {
     "g0_staggered_chain[hyper]": dict(values=3 + 3, flops=None, comps=3,
                                       apply=56),
 }
+# a slab kernel does the same work as its whole-field kernel (the halo
+# planes and the exchanged spectrum are the decomposition's own traffic)
+WORK.update({
+    "stress_div_beta[halo]": WORK["stress_div_beta"],
+    "stress_div_beta[halo,init]": WORK["stress_div_beta[init]"],
+    "eps_from_u_dot[halo]": WORK["eps_from_u_dot"],
+    "eps_from_u_dot[halo,nodot]": WORK["eps_from_u_dot[nodot]"],
+    "g0_staggered_chain_slab": WORK["g0_staggered_chain"],
+    "g0_staggered_heat_chain_slab": WORK["g0_staggered_heat_chain"],
+    "gamma_collocated_chain_slab": WORK["gamma_collocated_chain"],
+    "gamma_collocated_chain_slab[heat]": WORK["gamma_collocated_chain[heat]"],
+    "gamma_collocated_zt_chain_slab": WORK["gamma_collocated_zt_chain"],
+})
 
 
 def bound_ms(name, count, itemsize):
@@ -264,8 +312,7 @@ def check_kernels(shape, dtype, timed):
     k2 = lambda: sk.eps_from_u_dot(g, E, u, pp)
     p2 = lambda: sk.eps_from_u_dot_plain(g, E, u, pp)
     (w, d), (wr, dr) = k2(), p2()
-    dot_rel = abs(float(d) - float(dr)) / abs(float(dr))
-    report("eps_from_u_dot", [rel_err(w, wr), (dot_rel, dot_rel)], k2, p2, n)
+    report("eps_from_u_dot", [rel_err(w, wr), dot_err(d, dr)], k2, p2, n)
     k2n = lambda: sk.eps_from_u_dot(g, E, u)
     p2n = lambda: sk.eps_from_u_dot_plain(g, E, u)
     report("eps_from_u_dot[nodot]", [rel_err(k2n()[0], p2n()[0])], k2n, p2n,
@@ -293,8 +340,7 @@ def check_kernels(shape, dtype, timed):
     p2d = lambda: sk.eps_from_u_dot_plain(g, E, u, pp, mu_x=mu, tau2c=tau2c,
                                           mu0=mu0)
     (w, d), (wr, dr) = k2d(), p2d()
-    dot_rel = abs(float(d) - float(dr)) / abs(float(dr))
-    report("eps_from_u_dot[delta]", [rel_err(w, wr), (dot_rel, dot_rel)], k2d,
+    report("eps_from_u_dot[delta]", [rel_err(w, wr), dot_err(d, dr)], k2d,
            p2d, n)
 
     # K3: the whole chain against rfftn -> plain G0 apply -> irfftn
@@ -356,6 +402,201 @@ def check_kernels(shape, dtype, timed):
     return out
 
 
+def check_slab_kernels(shape, dtype, devices, timed):
+    """Phase 6 on one grid: each slab kernel on x-slabs over ``devices``
+    against its plain twin on the same slabs; with ``timed`` also kernel,
+    twin and library (the same per-slab cuFFT stages around the exchange)
+    times and the two exchanges' time.  On one slab, K1 and K2 in halo mode
+    must equal the periodic kernels bitwise.  Returns {name: numbers}."""
+    import torch
+    import fibergen_tpu_torch as ft
+    from fibergen_tpu_torch import parallel
+    from fibergen_tpu_torch.parallel import comm
+    from fibergen_tpu_torch.ops import green
+    from fibergen_tpu_torch.ops import spectral_kernels as spk
+    from fibergen_tpu_torch.ops import stencil_kernels as sk
+
+    dev = torch.device(devices[0])
+    d = len(devices)
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    g = ft.Grid(*shape, dx=1.0, dy=0.9, dz=1.1)
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev, dtype=dtype)
+    mesh = parallel.make_mesh(devices)
+    par = parallel.SlabPar(mesh)
+    sh = lambda a: parallel.shard_field(a, mesh)
+    G = parallel.gather_field
+    r, pp, u = rnd(6, *shape), rnd(6, *shape), rnd(3, *shape)
+    mu, lam = 1.0 + rnd(*shape).abs(), 0.5 + rnd(*shape).abs()
+    E = rnd(6)
+    gam = torch.tensor(0.83, dtype=dtype, device=dev)
+    gam_prev = torch.tensor(1.7, dtype=dtype, device=dev)
+    mu0, lam0 = 2.75, 0.0
+    rs, ps, us, ms, ls = sh(r), sh(pp), sh(u), sh(mu), sh(lam)
+    mh = (comm.halo_x(ms), comm.halo_x(ls))
+    beta = list(zip(comm.replicate(gam, par.devices),
+                    comm.replicate(gam_prev, par.devices)))
+    Es = comm.replicate(E, par.devices)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    n = g.nxyz
+    out = {}
+
+    def report(name, errs, kern, plain, library=None, call=None):
+        """``kern``: the kernel's launches on every slab (the halo planes
+        ready); ``call``: the slab-level call with its exchanges, where
+        they are apart from the launches."""
+        worst = max(e[0] for e in errs)
+        rec = {"max_rel_err": worst, "max_abs_err": max(e[1] for e in errs)}
+        line = f"  {name:34s} {tuple(shape)} {str(dtype)[6:]} x{d}: " \
+               f"max rel err {worst:.3e}"
+        if timed:
+            rec["ms"], rec["plain_ms"] = cuda_ms(kern), cuda_ms(plain)
+            rec["bound_ms"], rec["bound_by"] = bound_ms(name, n, itemsize)
+            rec["library_ms"] = None if library is None else cuda_ms(library)
+            line += (f", kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}"
+                     f" ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+            if library is not None:
+                line += f", cuFFT stages {rec['library_ms']:.4f} ms"
+            if call is not None:
+                rec["call_ms"] = cuda_ms(call)
+                line += f", with its halo exchange {rec['call_ms']:.4f} ms"
+        log(line)
+        if not worst <= tol:
+            raise AssertionError(f"{name}: error {worst:.3e} > {tol:g}")
+        out[name] = rec
+
+    # K1 halo mode, step and init; twin: the plain K1 on each slab with its
+    # halo planes attached
+    rh, ph = comm.halo_x(rs), comm.halo_x(ps)
+    h1 = [((rh[0][i], ph[0][i], mh[0][0][i], mh[1][0][i]),
+           (rh[1][i], ph[1][i], mh[0][1][i], mh[1][1][i])) for i in range(d)]
+    h1i = [((a[0], None) + a[2:], (b[0], None) + b[2:]) for a, b in h1]
+    k1 = lambda: [sk.stress_div_beta(g, rs[i], ps[i], beta[i], ms[i], ls[i],
+                                     mu0, lam0, halo=h1[i])
+                  for i in range(d)]
+    c1 = lambda: sk.stress_div_beta_slabs(g, rs, ps, beta, ms, ls, mu0, lam0,
+                                          mh)
+    p1 = lambda: [sk.stress_div_beta_plain(g, rs[i], ps[i], gam / gam_prev,
+                                           ms[i], ls[i], mu0, lam0,
+                                           halo=h1[i]) for i in range(d)]
+    (f, p), ref = c1(), p1()
+    report("stress_div_beta[halo]",
+           [rel_err(G(f), G([x[0] for x in ref])),
+            rel_err(G(p), G([x[1] for x in ref]))], k1, p1, call=c1)
+    k1i = lambda: [sk.stress_div_beta(g, rs[i], None, None, ms[i], ls[i],
+                                      mu0, lam0, halo=h1i[i])
+                   for i in range(d)]
+    c1i = lambda: sk.stress_div_beta_slabs(g, rs, None, None, ms, ls, mu0,
+                                           lam0, mh)
+    p1i = lambda: [sk.stress_div_beta_plain(g, rs[i], None, None, ms[i],
+                                            ls[i], mu0, lam0,
+                                            halo=h1i[i])[0]
+                   for i in range(d)]
+    fi = c1i()[0]
+    report("stress_div_beta[halo,init]", [rel_err(G(fi), G(p1i()))], k1i,
+           p1i, call=c1i)
+
+    # K2 halo mode, dot and no-dot; the dot is the slabs' sums in order
+    uh = comm.halo_x(us)
+    h2 = [(uh[0][i], uh[1][i]) for i in range(d)]
+    k2 = lambda: [sk.eps_from_u_dot(g, Es[i], us[i], ps[i], halo=h2[i])
+                  for i in range(d)]
+    c2 = lambda: sk.eps_from_u_dot_slabs(g, Es, us, ps)
+    p2 = lambda: [sk.eps_from_u_dot_plain(g, E, us[i], ps[i], halo=h2[i])
+                  for i in range(d)]
+    (w, dot), ref = c2(), p2()
+    dr = sum(float(x[1]) for x in ref)
+    report("eps_from_u_dot[halo]",
+           [rel_err(G(w), G([x[0] for x in ref])), dot_err(dot[0], dr)], k2,
+           p2, call=c2)
+    k2n = lambda: [sk.eps_from_u_dot(g, Es[i], us[i], halo=h2[i])
+                   for i in range(d)]
+    c2n = lambda: sk.eps_from_u_dot_slabs(g, Es, us)
+    p2n = lambda: [sk.eps_from_u_dot_plain(g, E, us[i], halo=h2[i])[0]
+                   for i in range(d)]
+    wn = c2n()[0]
+    report("eps_from_u_dot[halo,nodot]", [rel_err(G(wn), G(p2n()))], k2n,
+           p2n, call=c2n)
+
+    if d == 1:
+        # one slab wraps its own halo: bitwise the periodic kernels
+        f0, p0 = sk.stress_div_beta(g, r, pp, (gam, gam_prev), mu, lam, mu0,
+                                    lam0)
+        fi0, _ = sk.stress_div_beta(g, r, None, None, mu, lam, mu0, lam0)
+        w0, dot0 = sk.eps_from_u_dot(g, E, u, pp)
+        wn0, _ = sk.eps_from_u_dot(g, E, u)
+        same = all(torch.equal(a, b) for a, b in (
+            (f[0], f0), (p[0], p0), (fi[0], fi0), (w[0], w0), (wn[0], wn0),
+            (dot[0], dot0)))
+        log(f"  K1/K2 halo mode on one slab bitwise equal to the periodic "
+            f"kernels: {same}")
+        assert same, "K1/K2 halo mode differs from the periodic kernels"
+
+    # the kz-slab chains; library: the per-slab cuFFT stages around the same
+    # exchanges, with no apply
+    c10, c20 = green.g0_constants(mu0, lam0)
+    fs = sh(rnd(3, *shape))
+    f1 = sh(rnd(1, *shape))
+    A, B = green.collocated_constants(mu0, 0.4)
+    Az, Bz = green.collocated_constants(-mu0, float("inf"))
+    r3 = sh(r[:3].contiguous())
+    ident = lambda y, j, off, w: y
+    stages = lambda x: (lambda: spk._slab_chain_plain(par, g, x, ident))
+    for name, kern, plain, lib in (
+            ("g0_staggered_chain_slab",
+             lambda: spk.g0_staggered_chain_slab(par, g, fs, c10, c20),
+             lambda: spk.g0_staggered_chain_slab_plain(par, g, fs, c10, c20),
+             stages(fs)),
+            ("g0_staggered_heat_chain_slab",
+             lambda: spk.g0_staggered_heat_chain_slab(par, g, f1, 0.18),
+             lambda: spk.g0_staggered_heat_chain_slab_plain(par, g, f1, 0.18),
+             stages(f1)),
+            ("gamma_collocated_chain_slab",
+             lambda: spk.gamma_collocated_chain_slab(par, g, rs, A, B, Es,
+                                                     0.37),
+             lambda: spk.gamma_collocated_chain_slab_plain(par, g, rs, A, B,
+                                                           Es, 0.37),
+             stages(rs)),
+            ("gamma_collocated_chain_slab[heat]",
+             lambda: spk.gamma_collocated_chain_slab(par, g, r3, A, 0.0,
+                                                     E[:3], 0.37),
+             lambda: spk.gamma_collocated_chain_slab_plain(par, g, r3, A, 0.0,
+                                                           E[:3], 0.37),
+             stages(r3)),
+            ("gamma_collocated_zt_chain_slab",
+             lambda: spk.gamma_collocated_zt_chain_slab(par, g, rs, Az, Bz,
+                                                        Es, -0.2),
+             lambda: spk.gamma_collocated_zt_chain_slab_plain(
+                 par, g, rs, Az, Bz, Es, -0.2),
+             stages([x[1:] for x in rs]))):
+        report(name, [rel_err(G(kern()), G(plain()))], kern, plain, lib)
+    if timed:
+        # the two exchanges of a step's chain (C = 3, K3): x-slab spectrum
+        # to kz-slabs and back
+        cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
+        spec = [torch.zeros((3, g.nx // d, g.ny, g.nzc), dtype=cdt,
+                            device=x) for x in par.devices]
+        split = par.kz_split(g.nzc)
+        kzs = comm.to_kz(spec, split, par.devices)
+        out["exchange_ms"] = cuda_ms(
+            lambda: comm.from_kz(comm.to_kz(spec, split, par.devices),
+                                 g.nx // d, par.devices))
+        nbytes = sum(t.numel() for t in spec) * spec[0].element_size()
+        out["exchange_bound_ms"] = 1e3 * 4 * nbytes / H100_BYTES_PER_S
+        log(f"  exchanges x-slabs -> kz-slabs -> x-slabs, 3 components: "
+            f"{out['exchange_ms']:.4f} ms for 2 x {nbytes / 1e6:.1f} MB, "
+            f"each read and written once: bound "
+            f"{out['exchange_bound_ms']:.4f} ms")
+        del spec, kzs
+    return out
+
+
+def sync_all():
+    import torch
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -397,11 +638,12 @@ def main():
             for name in table:
                 table[name] = 0
         fail = solver.run()
-        torch.cuda.synchronize()
+        sync_all()
         got = dict(sk.launches, **spk.launches)
         log(f"  {label} launches: {json.dumps(got)}")
-        assert all((got[k] > 0) == (k in PATH_KERNELS[path]) for k in got), \
-            (label, got)
+        want = PATH_KERNELS[path] if solver.par is None else \
+            SHARDED_KERNELS[path]
+        assert all((got[k] > 0) == (k in want) for k in got), (label, got)
         return fail, got
 
     # ---- phase 2: kernels against their twins
@@ -608,7 +850,68 @@ def main():
         f"{s.newton_iterations} outer/inner)")
     assert abs(c11 - exact) <= 1e-3 * exact
 
-    # ---- phase 6: launches and per-kernel numbers.  The per-kernel list
+    # ---- phase 6: the x-slab sharded solve on four slabs of one card
+    mesh = ["cuda:0"] * SLABS
+    log(f"phase 6: sharded x-slab solve, mesh {mesh}")
+    slab_nums = check_slab_kernels((256, 256, 256), torch.float32, mesh,
+                                   timed=True)
+    check_slab_kernels((48, 48, 48), torch.float64, mesh, timed=False)
+    check_slab_kernels((33, 16, 29), torch.float64, ["cuda:0"], timed=False)
+    torch.cuda.empty_cache()
+    opt = dict(error_estimator="residual", tol=1e-8, check_every=4,
+               maxiter=1000)
+    for path in SHARDED_PATHS:
+        s_cpu = sphere_solver(48, "float64", "cpu", *PATHS[path],
+                              mesh=["cpu"] * SLABS, **opt)
+        s_gpu = sphere_solver(48, "float64", "cuda", *PATHS[path], mesh=mesh,
+                              **opt)
+        assert not s_cpu.run()
+        assert not run_counted(s_gpu, f"48^3 float64 {path} [sharded]",
+                               path)[0]
+        rc, rg = np.asarray(s_cpu.residuals), np.asarray(s_gpu.residuals)
+        res_rel = float(np.max(np.abs(rg - rc) / np.abs(rc))) \
+            if len(rc) == len(rg) else float("inf")
+        Sc, Sg = s_cpu.calc_mean_stress(), s_gpu.calc_mean_stress()
+        s_rel = float(np.max(np.abs(Sg - Sc)) / np.max(np.abs(Sc)))
+        log(f"  {path} [sharded]: iterations cpu {len(rc)} cuda {len(rg)}, "
+            f"residual history max rel diff {res_rel:.3e}, mean stress max "
+            f"rel diff {s_rel:.3e}")
+        assert len(rc) == len(rg), f"{path}: iteration counts differ"
+        assert res_rel <= 1e-9 and s_rel <= 1e-10, path
+        del s_cpu, s_gpu
+    opt = dict(error_estimator="residual", tol=1e-6, check_every=8,
+               maxiter=4000)
+    meshes = [mesh]
+    ncards = torch.cuda.device_count()
+    if ncards >= 2:
+        meshes.append([f"cuda:{i}" for i in range(min(4, ncards))])
+    for m in meshes:
+        log(f"  256^3 float32 sharded solves on the mesh {m} "
+            f"({len(set(m))} card(s), {len(m)} slabs)")
+        for path in SHARDED_PATHS if m is mesh else ("elasticity",):
+            s = sphere_solver(256, "float32", "cuda", *PATHS[path], mesh=m,
+                              **opt)
+            assert not s.run()                   # warm-up
+            torch.cuda.reset_peak_memory_stats()
+            label = f"256^3 float32 {path} [sharded x{len(m)}]"
+            fail, got = run_counted(s, label, path)
+            if m is mesh:
+                path_launches[f"{path} [sharded]"] = got
+            its, S = len(s.residuals), s.calc_mean_stress()
+            its0, S0 = res32[path]
+            d = float(np.max(np.abs(S - S0)) / np.max(np.abs(S0)))
+            log(f"  {label}: {its} iterations (unsharded {its0}), solve_time "
+                f"{s.solve_time:.4f} s, {its / s.solve_time:.2f} iter/s, "
+                f"final_rel {s.residuals[-1]:.3e}, peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, mean "
+                f"stress rel diff to unsharded {d:.3e}")
+            assert not fail and s.residuals[-1] <= 1e-6
+            assert abs(its - its0) <= 1
+            assert d <= (1e-5 if its == its0 else 5e-4), (path, d)
+            del s
+            torch.cuda.empty_cache()
+
+    # ---- phase 7: launches and per-kernel numbers.  The per-kernel list
     # takes the key "kernels"; the launch counts of each path's timed 256^3
     # float32 solve print on their own line as "kernel_launches".  A mode's
     # row takes its launches from the path that runs that mode.
@@ -641,6 +944,34 @@ def main():
              "fibergen_tpu/ops/pallas_chain.py:385"),
             ("g0_staggered_chain[hyper]", "g0_staggered_chain",
              "hyperelasticity", ch, "fibergen_tpu/ops/pallas_chain.py:212")]
+    pk_, pc_ = ("fibergen_tpu/ops/pallas_kernels.py",
+                "fibergen_tpu/ops/pallas_chain.py")
+    slab_rows = [
+        ("stress_div_beta[halo]", "stress_div_beta_halo", k1, f"{pk_}:268"),
+        ("stress_div_beta[halo,init]", "stress_div_beta_halo", k1,
+         f"{pk_}:191"),
+        ("eps_from_u_dot[halo]", "eps_from_u_dot_halo", k2, f"{pk_}:392"),
+        ("eps_from_u_dot[halo,nodot]", "eps_from_u_dot_halo", k2,
+         f"{pk_}:331"),
+        ("g0_staggered_chain_slab", "g0_staggered_chain_slab", ch,
+         f"{pc_}:470"),
+        ("g0_staggered_heat_chain_slab", "g0_staggered_heat_chain_slab", ch,
+         f"{pc_}:470"),
+        ("gamma_collocated_chain_slab", "gamma_collocated_chain_slab", ch,
+         f"{pc_}:470"),
+        ("gamma_collocated_chain_slab[heat]", "gamma_collocated_chain_slab",
+         ch, f"{pc_}:470"),
+        ("gamma_collocated_zt_chain_slab", "gamma_collocated_zt_chain_slab",
+         ch, f"{pc_}:470")]
+    slab_path = {"stress_div_beta_halo": "elasticity",
+                 "eps_from_u_dot_halo": "elasticity",
+                 "g0_staggered_chain_slab": "elasticity",
+                 "g0_staggered_heat_chain_slab": "heat",
+                 "gamma_collocated_chain_slab": "elasticity-collocated",
+                 "gamma_collocated_zt_chain_slab": "viscosity-collocated"}
+    rows += [(name, counter, f"{slab_path[counter]} [sharded]", src, rep)
+             for name, counter, src, rep in slab_rows]
+    main_nums = dict(main_nums, **slab_nums)
     kernels = []
     for name, counter, path, src, replaces in rows:
         m = main_nums[name]

@@ -2,6 +2,10 @@
 
 Shear components carry a weight of 2 in double contractions for dim-6
 fields (fibergen.cpp:20897-20919).
+
+On the x-slabs of a mesh (``parallel/slabs.py``) each reduction is the
+mean of the slabs' means added in slab order, a list with the value on
+every slab's device, as ``psum`` leaves it on every device of a mesh.
 """
 from __future__ import annotations
 
@@ -9,6 +13,7 @@ import math
 
 import torch
 
+from ..parallel import slabs
 from . import voigt
 
 _SPACE = (-3, -2, -1)
@@ -16,12 +21,13 @@ _SPACE = (-3, -2, -1)
 
 def mean(field):
     """Per-component spatial mean; TensorField::average (fibergen.cpp:10171)."""
-    return field.mean(dim=_SPACE)
+    return slabs.vmean(lambda f: f.mean(dim=_SPACE), field)
 
 
 def component_norm(field):
     """Per-component sqrt(mean(f^2)) (fibergen.cpp:10088-10138)."""
-    return torch.sqrt((field * field).mean(dim=_SPACE))
+    return slabs.smap(torch.sqrt, slabs.vmean(
+        lambda f: (f * f).mean(dim=_SPACE), field))
 
 
 def _w(dim, like):
@@ -32,15 +38,19 @@ def _w(dim, like):
 def inner_l2(a, b):
     """Voigt-weighted mean inner product sum(a : b)/nxyz
     (innerProductL2, fibergen.cpp:20955-21036)."""
-    return (a * _w(a.shape[0], a) * b).sum() / math.prod(a.shape[1:])
+    return slabs.vmean(lambda a, b: (a * _w(a.shape[0], a) * b).sum()
+                       / math.prod(a.shape[1:]), a, b)
 
 
 def inner_l2_diff(a, b, c):
     """sum(a : (b - c))/nxyz (fibergen.cpp:20871-20952)."""
-    return (a * _w(a.shape[0], a) * (b - c)).sum() / math.prod(a.shape[1:])
+    return slabs.vmean(lambda a, b, c: (a * _w(a.shape[0], a) * (b - c)).sum()
+                       / math.prod(a.shape[1:]), a, b, c)
 
 
-def const_field(grid, values, dtype, device):
-    """Constant field of shape (len(values), nx, ny, nz), contiguous."""
+def const_field(grid, values, dtype, device, nx=None):
+    """Constant field of shape (len(values), nx, ny, nz), contiguous; ``nx``
+    the x extent of an x-slab, the grid's by default."""
     v = torch.as_tensor(values, dtype=dtype, device=device).reshape(-1, 1, 1, 1)
-    return v.expand((v.shape[0],) + grid.shape).contiguous()
+    shape = grid.shape if nx is None else (nx, grid.ny, grid.nz)
+    return v.expand((v.shape[0],) + shape).contiguous()

@@ -3,6 +3,9 @@
 // Fields are (ncomp, nx, ny, nz) contiguous, z fastest; one thread owns one
 // voxel, so neighbouring threads of a warp touch neighbouring z addresses.
 // Periodic neighbours come from index arithmetic, never from padded copies.
+// On an x-slab of a sharded field (halo mode) the x neighbours of the first
+// and the last plane lie in the neighbouring slabs' planes, which the caller
+// passes as (ncomp, 1, ny, nz) halo planes.
 #pragma once
 
 #include <cstdint>
@@ -10,13 +13,16 @@
 
 namespace fg {
 
-// Linear offsets of the six periodic face neighbours of voxel v = (i, j, k).
+// Linear offsets of the six face neighbours of voxel v = (i, j, k).  In halo
+// mode hxm (i == 0) and hxp (i == nx - 1) say that xm / xp is an offset in
+// the minus / plus halo plane instead; otherwise x wraps periodically.
 struct Nbr {
   int64_t xm, xp, ym, yp, zm, zp;
+  bool hxm, hxp;
 };
 
 __device__ __forceinline__ Nbr neighbours(int64_t v, int nx, int ny, int nz,
-                                          int* ii = nullptr) {
+                                          bool halo = false) {
   const int k = static_cast<int>(v % nz);
   const int64_t q = v / nz;
   const int j = static_cast<int>(q % ny);
@@ -24,13 +30,16 @@ __device__ __forceinline__ Nbr neighbours(int64_t v, int nx, int ny, int nz,
   const int64_t sx = static_cast<int64_t>(ny) * nz;
   const int64_t sy = nz;
   Nbr n;
-  n.xm = v + (i == 0 ? (nx - 1) * sx : -sx);
-  n.xp = v + (i == nx - 1 ? -(nx - 1) * sx : sx);
+  n.hxm = halo && i == 0;
+  n.hxp = halo && i == nx - 1;
+  // a halo plane is read at the voxel's in-plane offset v - i sx, which
+  // for i == nx - 1 is also where the periodic wrap lands in plane 0
+  n.xm = i == 0 ? (halo ? v : v + (nx - 1) * sx) : v - sx;
+  n.xp = i == nx - 1 ? v - (nx - 1) * sx : v + sx;
   n.ym = v + (j == 0 ? (ny - 1) * sy : -sy);
   n.yp = v + (j == ny - 1 ? -(ny - 1) * sy : sy);
   n.zm = v + (k == 0 ? nz - 1 : -1);
   n.zp = v + (k == nz - 1 ? -(nz - 1) : 1);
-  if (ii) { ii[0] = i; ii[1] = j; ii[2] = k; }
   return n;
 }
 

@@ -337,17 +337,18 @@ __global__ void z_inv(const Cx<T>* __restrict__ spec, T* __restrict__ out,
 }
 
 // c2c along y in place: block (kz tile, c * nx + x) transforms ny-long lines
-// of 2^log2TK consecutive kz bins; tile layout s[j * TK + t].
+// of 2^log2TK consecutive kz bins of rows nzl long (the whole half-spectrum,
+// or a kz-slab's columns); tile layout s[j * TK + t].
 template <typename T>
 __global__ void y_line(Cx<T>* __restrict__ spec, const Cx<T>* __restrict__ tw,
-                       int ny, int log2ny, int nzh, int log2TK, bool inv) {
+                       int ny, int log2ny, int nzl, int log2TK, bool inv) {
   const int TK = 1 << log2TK;
   Cx<T>* s = smem_base<T>();
   const int kz0 = blockIdx.x * TK;
-  Cx<T>* base = spec + static_cast<int64_t>(blockIdx.y) * ny * nzh + kz0;
+  Cx<T>* base = spec + static_cast<int64_t>(blockIdx.y) * ny * nzl + kz0;
   for (int e = threadIdx.x; e < ny * TK; e += blockDim.x) {
     const int j = e >> log2TK, q = e & (TK - 1);
-    s[e] = kz0 + q < nzh ? base[static_cast<int64_t>(j) * nzh + q]
+    s[e] = kz0 + q < nzl ? base[static_cast<int64_t>(j) * nzl + q]
                          : Cx<T>{T(0), T(0)};
   }
   __syncthreads();
@@ -355,12 +356,14 @@ __global__ void y_line(Cx<T>* __restrict__ spec, const Cx<T>* __restrict__ tw,
   line_dft(s, s + ny * TK, t, tw, inv, true);
   for (int e = threadIdx.x; e < ny * TK; e += blockDim.x) {
     const int j = e >> log2TK, q = e & (TK - 1);
-    if (kz0 + q < nzh)
-      base[static_cast<int64_t>(j) * nzh + q] = s[(rev(j, log2ny) << log2TK) + q];
+    if (kz0 + q < nzl)
+      base[static_cast<int64_t>(j) * nzl + q] = s[(rev(j, log2ny) << log2TK) + q];
   }
 }
 
-// Staggered tables: per axis, rows (Re k+, Im k+, |k+|^2) of n_a bins.
+// Staggered tables: per axis, rows (Re k+, Im k+, |k+|^2) of n_a bins (the
+// z rows nzh = nz/2 + 1 long whatever the columns a block holds; k is the
+// global kz bin).
 template <typename T>
 struct StaggeredK {
   const T *tx, *ty, *tz;
@@ -579,36 +582,38 @@ using GammaZt = GammaCollocated<T, 5>;
 // Forward x transform, apply, inverse x transform, in place: block
 // (kz tile, y) holds all C components, tile layout
 // s[c * nx * TK + i * TK + t].  The forward pass leaves the x bins in
-// bit-reversed order and the inverse pass takes them so.
+// bit-reversed order and the inverse pass takes them so.  Rows are nzl
+// long; column q of the rows is the global kz bin koff + q, which the apply
+// reads its z tables and tests the DC bin by.
 template <typename T, class A>
 __global__ void x_apply(Cx<T>* __restrict__ spec, const Cx<T>* __restrict__ tw,
-                        A apply, int nx, int log2nx, int ny, int nzh,
-                        int log2TK) {
+                        A apply, int nx, int log2nx, int ny, int nzl,
+                        int koff, int log2TK) {
   constexpr int C = A::C;
   const int TK = 1 << log2TK;
   const int bs = nx * TK;
   Cx<T>* s = smem_base<T>();
   const int kz0 = blockIdx.x * TK, y = blockIdx.y;
-  const int64_t sc = static_cast<int64_t>(nx) * ny * nzh;  // component
-  const int64_t sx = static_cast<int64_t>(ny) * nzh;       // x
-  Cx<T>* base = spec + static_cast<int64_t>(y) * nzh + kz0;
+  const int64_t sc = static_cast<int64_t>(nx) * ny * nzl;  // component
+  const int64_t sx = static_cast<int64_t>(ny) * nzl;       // x
+  Cx<T>* base = spec + static_cast<int64_t>(y) * nzl + kz0;
   for (int e = threadIdx.x; e < C * bs; e += blockDim.x) {
     const int c = e / bs, i = (e - c * bs) >> log2TK, q = e & (TK - 1);
-    s[e] = kz0 + q < nzh ? base[c * sc + i * sx + q] : Cx<T>{T(0), T(0)};
+    s[e] = kz0 + q < nzl ? base[c * sc + i * sx + q] : Cx<T>{T(0), T(0)};
   }
   __syncthreads();
   const Tile t{nx, log2nx, log2TK, C, TK, 1, bs};
   line_dft(s, s + C * bs, t, tw, false, true);
   const typename A::Row row = apply.row(y);
   for (int e = threadIdx.x; e < bs; e += blockDim.x) {
-    const int p = e >> log2TK, q = e & (TK - 1), k = kz0 + q;
-    if (k < nzh) apply(s + e, bs, row, rev(p, log2nx), k);
+    const int p = e >> log2TK, q = e & (TK - 1);
+    if (kz0 + q < nzl) apply(s + e, bs, row, rev(p, log2nx), koff + kz0 + q);
   }
   __syncthreads();
   line_dft(s, s + C * bs, t, tw, true, false);
   for (int e = threadIdx.x; e < C * bs; e += blockDim.x) {
     const int c = e / bs, i = (e - c * bs) >> log2TK, q = e & (TK - 1);
-    if (kz0 + q < nzh) base[c * sc + i * sx + q] = s[e];
+    if (kz0 + q < nzl) base[c * sc + i * sx + q] = s[e];
   }
 }
 
@@ -640,53 +645,83 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// The z pass on nlines real lines of length nz (C * nx * ny of a field, or
+// of an x-slab): forward (real in -> half-spectrum rows out) or inverse.
+template <typename T>
+int launch_z(const void* in, void* out, const void* twz, int64_t nlines,
+             int nz, bool inv, void* stream) {
+  using Cp = Cx<T>;
+  const int nzh = nz / 2 + 1, lz = log2_or_neg(nz);
+  // 2^lP complex lines (twice as many real lines) per block
+  const size_t zunit = (lz >= 0 ? 1 : 2) * nz * sizeof(Cp);
+  const int lP = pick_log2(zunit, nz >= 2048 ? 1 : 2048 / nz, 1 << 30);
+  const int64_t zper = 2LL << lP;
+  const unsigned zblocks = static_cast<unsigned>((nlines + zper - 1) / zper);
+  const size_t zb = zunit << lP;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (inv) {
+    if ((err = allow_smem(z_inv<T>, zb))) return static_cast<int>(err);
+    z_inv<T><<<zblocks, kThreads, zb, st>>>(
+        static_cast<const Cp*>(in), static_cast<T*>(out),
+        static_cast<const Cp*>(twz), nz, lz, nzh, nlines, lP);
+  } else {
+    if ((err = allow_smem(z_fwd<T>, zb))) return static_cast<int>(err);
+    z_fwd<T><<<zblocks, kThreads, zb, st>>>(
+        static_cast<const T*>(in), static_cast<Cp*>(out),
+        static_cast<const Cp*>(twz), nz, lz, nzh, nlines, lP);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The middle on a (C, nx, ny, nzl) spectrum whose column q is global kz bin
+// koff + q: y forward, x forward + apply + x inverse, y inverse, in place.
+template <typename T, class A>
+int launch_middle(void* spec, const void* twx, const void* twy,
+                  const A& apply, int nx, int ny, int nzl, int koff,
+                  void* stream) {
+  using Cp = Cx<T>;
+  constexpr int C = A::C;
+  if (nzl <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int lx = log2_or_neg(nx), ly = log2_or_neg(ny);
+  const size_t cs = sizeof(Cp);
+  Cp* sp = static_cast<Cp*>(spec);
+  // y: TK kz columns of all ny rows; x: TK columns of C components x nx rows
+  const int want = sizeof(T) == 4 ? 16 : 8;
+  const size_t yunit = (ly >= 0 ? 1 : 2) * ny * cs;
+  const int lTy = pick_log2(yunit, want, nzl);
+  const size_t xunit = (lx >= 0 ? 1 : 2) * C * nx * cs;
+  const int lTx = pick_log2(xunit, want, nzl);
+  const size_t yb = yunit << lTy, xb = xunit << lTx;
+  cudaError_t err;
+  if ((err = allow_smem(y_line<T>, yb)) ||
+      (err = allow_smem(x_apply<T, A>, xb)))
+    return static_cast<int>(err);
+  const dim3 yg((nzl + (1 << lTy) - 1) >> lTy, C * nx);
+  y_line<T><<<yg, kThreads, yb, st>>>(sp, static_cast<const Cp*>(twy), ny,
+                                      ly, nzl, lTy, false);
+  const dim3 xg((nzl + (1 << lTx) - 1) >> lTx, ny);
+  x_apply<T, A><<<xg, kThreads, xb, st>>>(sp, static_cast<const Cp*>(twx),
+                                          apply, nx, lx, ny, nzl, koff, lTx);
+  y_line<T><<<yg, kThreads, yb, st>>>(sp, static_cast<const Cp*>(twy), ny,
+                                      ly, nzl, lTy, true);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The whole chain on one device: z forward, the middle on every kz bin,
+// z inverse.
 template <typename T, class A>
 int launch(const void* f, void* spec, void* out, const void* twx,
            const void* twy, const void* twz, const A& apply, int nx, int ny,
            int nz, void* stream) {
-  using Cp = Cx<T>;
-  constexpr int C = A::C;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int nzh = nz / 2 + 1;
-  const int lx = log2_or_neg(nx), ly = log2_or_neg(ny), lz = log2_or_neg(nz);
-  const size_t cs = sizeof(Cp);
-  Cp* sp = static_cast<Cp*>(spec);
-  cudaError_t err;
-
-  // z: 2^lP complex lines (twice as many real lines) per block
-  const int64_t zlines = static_cast<int64_t>(C) * nx * ny;
-  const size_t zunit = (lz >= 0 ? 1 : 2) * nz * cs;
-  const int lP = pick_log2(zunit, nz >= 2048 ? 1 : 2048 / nz, 1 << 30);
-  const int64_t zper = 2LL << lP;
-  const unsigned zblocks = static_cast<unsigned>((zlines + zper - 1) / zper);
-  // y: TK kz columns of all ny rows; x: TK columns of C components x nx rows
-  const int want = sizeof(T) == 4 ? 16 : 8;
-  const size_t yunit = (ly >= 0 ? 1 : 2) * ny * cs;
-  const int lTy = pick_log2(yunit, want, nzh);
-  const size_t xunit = (lx >= 0 ? 1 : 2) * C * nx * cs;
-  const int lTx = pick_log2(xunit, want, nzh);
-  const size_t zb = zunit << lP, yb = yunit << lTy, xb = xunit << lTx;
-
-  if ((err = allow_smem(z_fwd<T>, zb)) || (err = allow_smem(z_inv<T>, zb)) ||
-      (err = allow_smem(y_line<T>, yb)) ||
-      (err = allow_smem(x_apply<T, A>, xb)))
-    return static_cast<int>(err);
-
-  z_fwd<T><<<zblocks, kThreads, zb, st>>>(
-      static_cast<const T*>(f), sp, static_cast<const Cp*>(twz), nz, lz, nzh,
-      zlines, lP);
-  const dim3 yg((nzh + (1 << lTy) - 1) >> lTy, C * nx);
-  y_line<T><<<yg, kThreads, yb, st>>>(sp, static_cast<const Cp*>(twy), ny,
-                                      ly, nzh, lTy, false);
-  const dim3 xg((nzh + (1 << lTx) - 1) >> lTx, ny);
-  x_apply<T, A><<<xg, kThreads, xb, st>>>(sp, static_cast<const Cp*>(twx),
-                                          apply, nx, lx, ny, nzh, lTx);
-  y_line<T><<<yg, kThreads, yb, st>>>(sp, static_cast<const Cp*>(twy), ny,
-                                      ly, nzh, lTy, true);
-  z_inv<T><<<zblocks, kThreads, zb, st>>>(
-      sp, static_cast<T*>(out), static_cast<const Cp*>(twz), nz, lz, nzh,
-      zlines, lP);
-  return static_cast<int>(cudaGetLastError());
+  const int64_t zlines = static_cast<int64_t>(A::C) * nx * ny;
+  int err = launch_z<T>(f, spec, twz, zlines, nz, false, stream);
+  if (!err)
+    err = launch_middle<T, A>(spec, twx, twy, apply, nx, ny, nz / 2 + 1, 0,
+                              stream);
+  if (!err) err = launch_z<T>(spec, out, twz, zlines, nz, true, stream);
+  return err;
 }
 
 template <typename T>
@@ -712,10 +747,21 @@ G collocated(const void* tx, const void* ty, const void* tz, const void* E,
 // scaled.  tx, ty, tz: the staggered tables (K3, K4) or the xi tables (K5,
 // K6).  K6 reads components 1..5 of its input and writes components 1..5 of
 // its output: f and out point at component 1.
+//
+// Each chain has a whole-field entry <chain>_<T> (one device) and, for the
+// sharded x-slab solve (the kz-slab chain, replacing
+// pallas_chain._run_middle_slab), a middle entry <chain>_middle_<T> on a
+// kz-slab (C, nx, ny, nzl) of global offset koff (nx, ny, nz the whole
+// grid's), between chain_z_fwd_<T> / chain_z_inv_<T> on the x-slabs'
+// nlines = C * nx/D * ny lines; the caller moves the spectrum between the
+// two layouts.
 #define FG_CHAIN_ARGS                                                        \
   const void *f, void *spec, void *out, const void *tx, const void *ty,      \
       const void *tz, const void *twx, const void *twy, const void *twz
 #define FG_CHAIN_PASS f, spec, out, twx, twy, twz
+#define FG_MIDDLE_ARGS                                                       \
+  void *spec, const void *tx, const void *ty, const void *tz,                \
+      const void *twx, const void *twy
 #define FG_COLLOCATED_ENTRY(NAME, SUF, T, G)                                 \
   extern "C" int NAME##_##SUF(FG_CHAIN_ARGS, const void* E, double A,       \
                               double B, double beta, int nx, int ny,         \
@@ -724,6 +770,16 @@ G collocated(const void* tx, const void* ty, const void* tz, const void* E,
     return launch<T>(FG_CHAIN_PASS,                                          \
                      collocated<G<T>, T>(tx, ty, tz, E, A, B, beta, n), nx,  \
                      ny, nz, stream);                                        \
+  }
+#define FG_COLLOCATED_MIDDLE(NAME, SUF, T, G)                                \
+  extern "C" int NAME##_middle_##SUF(FG_MIDDLE_ARGS, const void* E,         \
+                                     double A, double B, double beta,        \
+                                     int nx, int ny, int nz, int nzl,        \
+                                     int koff, void* stream) {               \
+    const double n = static_cast<double>(nx) * ny * nz;                      \
+    return launch_middle<T>(                                                 \
+        spec, twx, twy, collocated<G<T>, T>(tx, ty, tz, E, A, B, beta, n),   \
+        nx, ny, nzl, koff, stream);                                          \
   }
 
 #define FG_CHAIN_ENTRIES(SUF, T)                                             \
@@ -746,11 +802,43 @@ G collocated(const void* tx, const void* ty, const void* tz, const void* E,
         G0Scalar<T>{staggered_tables<T>(tx, ty, tz, nx, ny, nz), T(c10 / n)},\
         nx, ny, nz, stream);                                                 \
   }                                                                          \
+  extern "C" int g0_staggered_chain_middle_##SUF(                           \
+      FG_MIDDLE_ARGS, double c10, double c20, int nx, int ny, int nz,        \
+      int nzl, int koff, void* stream) {                                     \
+    const double n = static_cast<double>(nx) * ny * nz;                      \
+    return launch_middle<T>(                                                 \
+        spec, twx, twy,                                                      \
+        G0Vector<T>{staggered_tables<T>(tx, ty, tz, nx, ny, nz), T(c10 / n), \
+                    T(c20 / n)},                                             \
+        nx, ny, nzl, koff, stream);                                          \
+  }                                                                          \
+  extern "C" int g0_staggered_heat_chain_middle_##SUF(                      \
+      FG_MIDDLE_ARGS, double c10, int nx, int ny, int nz, int nzl, int koff, \
+      void* stream) {                                                        \
+    const double n = static_cast<double>(nx) * ny * nz;                      \
+    return launch_middle<T>(                                                 \
+        spec, twx, twy,                                                      \
+        G0Scalar<T>{staggered_tables<T>(tx, ty, tz, nx, ny, nz), T(c10 / n)},\
+        nx, ny, nzl, koff, stream);                                          \
+  }                                                                          \
+  extern "C" int chain_z_fwd_##SUF(const void* f, void* spec,               \
+                                   const void* twz, long long nlines, int nz,\
+                                   void* stream) {                           \
+    return launch_z<T>(f, spec, twz, nlines, nz, false, stream);             \
+  }                                                                          \
+  extern "C" int chain_z_inv_##SUF(const void* spec, void* out,             \
+                                   const void* twz, long long nlines, int nz,\
+                                   void* stream) {                           \
+    return launch_z<T>(spec, out, twz, nlines, nz, true, stream);            \
+  }                                                                          \
   FG_COLLOCATED_ENTRY(gamma_collocated_chain, SUF, T, Gamma6)                \
   FG_COLLOCATED_ENTRY(gamma_collocated_heat_chain, SUF, T, Gamma3)           \
   FG_COLLOCATED_ENTRY(gamma_collocated_zt_chain, SUF, T, GammaZt)            \
   FG_COLLOCATED_ENTRY(gamma_collocated_hyper_chain, SUF, T,                  \
-                      GammaCollocatedHyper)
+                      GammaCollocatedHyper)                                  \
+  FG_COLLOCATED_MIDDLE(gamma_collocated_chain, SUF, T, Gamma6)               \
+  FG_COLLOCATED_MIDDLE(gamma_collocated_heat_chain, SUF, T, Gamma3)          \
+  FG_COLLOCATED_MIDDLE(gamma_collocated_zt_chain, SUF, T, GammaZt)
 
 FG_CHAIN_ENTRIES(f32, float)
 FG_CHAIN_ENTRIES(f64, double)

@@ -20,18 +20,32 @@ directly):
   eps_staggered_hyper on the staggered grid; K5 at C = 9 on the
   collocated grid).  K1 and K2 take no part: they assume per-voxel
   isotropic linear moduli.
+
+With ``par`` (a parallel.fft.SlabPar) :func:`gamma_heat_staggered`,
+:func:`gamma_collocated` and :func:`delta_collocated` take lists of
+x-slabs and run the slab chains; the heat stencils then run per slab on
+the neighbours' halo planes, and ``E`` is a list with one value per slab.
 """
 from __future__ import annotations
 
 import torch
 
+from ..parallel import comm, slabs
 from . import green, staggered
 from .stencil_kernels import eps_from_u_dot, stress_div_beta
 
 
-def gamma_heat_staggered(grid, E, mu_0, tau):
+def gamma_heat_staggered(grid, E, mu_0, tau, par=None):
     """eta = -Gamma tau with mean E on (3, nx, ny, nz) fields
     (gamma_operator, mode heat/porous, staggered scheme, alpha = -1)."""
+    if par is not None:
+        tm, tq = comm.halo_x(tau)
+        f = [staggered.div_staggered_heat(grid, t, halo=h)
+             for t, h in zip(tau, zip(tm, tq))]
+        u = green.g0_staggered_heat_fused(grid, mu_0, 0.0, f, par=par)
+        um, uq = comm.halo_x(u)
+        return [staggered.eps_staggered_heat(grid, e, x, halo=h)
+                for e, x, h in zip(E, u, zip(um, uq))]
     f = staggered.div_staggered_heat(grid, tau)
     u = green.g0_staggered_heat_fused(grid, mu_0, 0.0, f)
     return staggered.eps_staggered_heat(grid, E, u)
@@ -55,18 +69,19 @@ def fused_visc(grid, r, p_prev, beta, E, mu_x, lam_x, mu0, lam0):
     return w, p, dot_raw
 
 
-def gamma_collocated(grid, E, mu_0, lambda_0, tau, alpha=-1.0, beta=0.0):
+def gamma_collocated(grid, E, mu_0, lambda_0, tau, alpha=-1.0, beta=0.0,
+                     par=None):
     """eta = alpha Gamma : tau + beta tau with mean E on the collocated grid
     (gamma_operator, scheme "collocated", bc=None): a 6-component ``tau``
     takes the elasticity Gamma, a 3-component one the heat/porous Gamma."""
-    if tau.shape[0] == 6:
+    if slabs.local(tau).shape[0] == 6:
         return green.gamma_collocated_fused(grid, E, mu_0, lambda_0, tau,
-                                            alpha, beta)
+                                            alpha, beta, par=par)
     return green.gamma_collocated_heat_fused(grid, E, mu_0, lambda_0, tau,
-                                             alpha, beta)
+                                             alpha, beta, par=par)
 
 
-def delta_collocated(grid, E, mu_0, tau, alpha=-1.0):
+def delta_collocated(grid, E, mu_0, tau, alpha=-1.0, par=None):
     """Viscosity dual operator on the collocated grid (delta_operator,
     scheme "collocated", bc=None, fibergen.cpp:19075-19080,
     20464-20471): eta = 2 alpha mu0v (tau - mu0v Gamma^0 : tau) with mean E,
@@ -75,7 +90,7 @@ def delta_collocated(grid, E, mu_0, tau, alpha=-1.0):
     mu0v = 1.0 / (4.0 * mu_0)
     return green.gamma_collocated_zt_fused(
         grid, E, -1.0 / (4.0 * mu0v), float("inf"), tau, alpha,
-        2.0 * alpha * mu0v)
+        2.0 * alpha * mu0v, par=par)
 
 
 def gamma_hyper(grid, scheme, E, mu_0, lambda_0, tau, alpha=-1.0, beta=0.0):

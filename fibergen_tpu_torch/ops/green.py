@@ -8,7 +8,10 @@ wavenumbers xi.
 
 The hat-space operators are plain PyTorch; the ``*_fused`` entry points
 take real-space fields and dispatch to the chain kernels of
-``spectral_kernels`` (their plain twins on the CPU)."""
+``spectral_kernels`` (their plain twins on the CPU).  With ``par`` (a
+parallel.fft.SlabPar) the field is a list of x-slabs and the chain runs on
+them (``*_chain_slab``; green.py:217-236, :336-345, :499-590 of the JAX
+package pass ``par`` the same way)."""
 from __future__ import annotations
 
 import numpy as np
@@ -37,10 +40,13 @@ def g0_staggered(grid, mu_0, lambda_0, tau_hat, alpha=-1.0):
     return spectral_kernels.g0_staggered_apply_plain(tau_hat, tables, c10, c20)
 
 
-def g0_staggered_fused(grid, mu_0, lambda_0, f, alpha=-1.0):
+def g0_staggered_fused(grid, mu_0, lambda_0, f, alpha=-1.0, par=None):
     """u = ifftn(G0_staggered(fftn(f))) in one dispatch: the K3 chain on the
     card, its plain twin on the CPU."""
     c10, c20 = g0_constants(mu_0, lambda_0, alpha)
+    if par is not None:
+        return spectral_kernels.g0_staggered_chain_slab(par, grid, f, c10,
+                                                        c20)
     return spectral_kernels.g0_staggered_chain(grid, f, c10, c20)
 
 
@@ -54,9 +60,12 @@ def g0_staggered_heat(grid, mu_0, lambda_0, tau_hat, alpha=-1.0):
         tau_hat, tables, -alpha / (2.0 * mu_0))
 
 
-def g0_staggered_heat_fused(grid, mu_0, lambda_0, f, alpha=-1.0):
+def g0_staggered_heat_fused(grid, mu_0, lambda_0, f, alpha=-1.0, par=None):
     """u = ifftn(G0_staggered_heat(fftn(f))) in one dispatch: the K4 chain
     on the card, its plain twin on the CPU."""
+    if par is not None:
+        return spectral_kernels.g0_staggered_heat_chain_slab(
+            par, grid, f, -alpha / (2.0 * mu_0))
     return spectral_kernels.g0_staggered_heat_chain(grid, f,
                                                     -alpha / (2.0 * mu_0))
 
@@ -135,32 +144,42 @@ def gamma_collocated_heat(grid, E, mu_0, lambda_0, tau_hat, alpha=-1.0,
 
 
 def gamma_collocated_fused(grid, E, mu_0, lambda_0, tau, alpha=-1.0,
-                           beta=0.0, freq_hack=False):
+                           beta=0.0, freq_hack=False, par=None):
     """eta = ifftn(gamma_collocated(fftn(tau))) on a real 6-component
     ``tau`` in one dispatch: the K5 chain on the card, its plain twin on the
-    CPU.  ``E`` may be a device tensor (it is not read on the host)."""
+    CPU.  ``E`` may be a device tensor (it is not read on the host), on
+    x-slabs a list of them, one per slab."""
     if freq_hack:
         raise NotImplementedError(_FREQ_HACK)
     A, B = collocated_constants(mu_0, lambda_0, alpha)
+    if par is not None:
+        return spectral_kernels.gamma_collocated_chain_slab(par, grid, tau, A,
+                                                            B, E, beta)
     return spectral_kernels.gamma_collocated_chain(grid, tau, A, B, E, beta)
 
 
 def gamma_collocated_heat_fused(grid, E, mu_0, lambda_0, tau, alpha=-1.0,
-                                beta=0.0):
+                                beta=0.0, par=None):
     """eta = ifftn(gamma_collocated_heat(fftn(tau))) on a real 3-component
     ``tau``: the K5 chain (C = 3) on the card, its plain twin on the CPU."""
+    if par is not None:
+        return spectral_kernels.gamma_collocated_chain_slab(
+            par, grid, tau, alpha / (2.0 * mu_0), 0.0, E, beta)
     return spectral_kernels.gamma_collocated_chain(
         grid, tau, alpha / (2.0 * mu_0), 0.0, E, beta)
 
 
 def gamma_collocated_zt_fused(grid, E, mu_0, lambda_0, tau, alpha=-1.0,
-                              beta=0.0):
+                              beta=0.0, par=None):
     """Zero-trace collocated Gamma (the viscosity Delta scheme's spectral
     core, fibergen.cpp:19075-19080 + 20464-20471) on a traceless real
     6-component ``tau``: components 1.. are transformed, component 0 is
     -(c1 + c2) in the spectrum and in real space; DC bin = E (6 values).
     The K6 chain on the card, its plain twin on the CPU."""
     A, B = collocated_constants(mu_0, lambda_0, alpha)
+    if par is not None:
+        return spectral_kernels.gamma_collocated_zt_chain_slab(par, grid, tau,
+                                                               A, B, E, beta)
     return spectral_kernels.gamma_collocated_zt_chain(grid, tau, A, B, E,
                                                       beta)
 

@@ -27,10 +27,20 @@ with real xi = f/d per axis (tables from :func:`collocated_tables`).
 Tables are in natural rfft bin order; transforms are norm="forward" like
 ``ops/fft.py``.
 
+The ``*_chain_slab`` forms run a chain on the x-slabs of a sharded field
+(``parallel/``; the kz-slab chain of pallas_chain._run_middle_slab): each
+x-slab's lines are z-transformed, the spectrum moves to kz-slabs
+(``comm.to_kz``), the y and x passes and the apply run there on whole (x, y)
+planes (the apply reads the global kz bin, so only the slab holding kz = 0
+sets the DC bin), the spectrum moves back (``comm.from_kz``) and each
+x-slab's lines are z-inverted.
+
 A wrapper given CPU tensors computes the plain twin (``torch.fft`` around
 the plain apply, ``*_apply_plain``); given CUDA tensors it launches the
-kernel or raises.  ``launches`` counts kernel launches only; K5 counts both
-of its component counts under one name.
+kernel or raises, with the tensors' device current.  ``launches`` counts
+kernel launches only (a slab chain counts each of its per-slab z, middle
+and z-inverse launches); K5 counts both of its component counts under one
+name.
 """
 from __future__ import annotations
 
@@ -39,10 +49,14 @@ import ctypes
 import numpy as np
 import torch
 
+from ..parallel import comm, slabs
 from . import _build, fft
 
 launches = {"g0_staggered_chain": 0, "g0_staggered_heat_chain": 0,
-            "gamma_collocated_chain": 0, "gamma_collocated_zt_chain": 0}
+            "gamma_collocated_chain": 0, "gamma_collocated_zt_chain": 0,
+            "g0_staggered_chain_slab": 0, "g0_staggered_heat_chain_slab": 0,
+            "gamma_collocated_chain_slab": 0,
+            "gamma_collocated_zt_chain_slab": 0}
 
 _COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -97,24 +111,28 @@ def _twiddle(n, dtype, device):
     return t
 
 
-def _n2_dc(tables):
-    """|k+|^2 on the half-spectrum and the DC-bin indicator."""
+def _n2_dc(tables, dc=True):
+    """|k+|^2 on the half-spectrum and the DC-bin indicator (zero where the
+    columns do not hold kz = 0: ``dc=False``)."""
     tx, ty, tz = tables
     n2 = tx[2].reshape(-1, 1, 1) + ty[2].reshape(-1, 1) + tz[2]
-    dc = torch.zeros_like(n2)
-    dc[0, 0, 0] = 1.0
-    return n2, dc
+    ind = torch.zeros_like(n2)
+    if dc:
+        ind[0, 0, 0] = 1.0
+    return n2, ind
 
 
-def g0_staggered_apply_plain(f_hat, tables, c10, c20):
-    """Plain PyTorch G0 apply on the half-spectrum (out of place)."""
+def g0_staggered_apply_plain(f_hat, tables, c10, c20, dc=True):
+    """Plain PyTorch G0 apply on the half-spectrum (out of place); on a
+    kz-slab the z table holds its columns and ``dc`` says whether kz = 0 is
+    among them."""
     tx, ty, tz = tables
     kp = (torch.complex(tx[0], tx[1]).reshape(-1, 1, 1),
           torch.complex(ty[0], ty[1]).reshape(-1, 1),
           torch.complex(tz[0], tz[1]))
-    n2, dc = _n2_dc(tables)
-    n2s = n2 + dc          # regularizes the n2 = 0 DC bin
-    ndc = 1.0 - dc         # zeroes the output there
+    n2, ind = _n2_dc(tables, dc)
+    n2s = n2 + ind         # regularizes the n2 = 0 DC bin
+    ndc = 1.0 - ind        # zeroes the output there
     c1 = c10 * ndc / n2s
     c2 = c20 * ndc / (n2s * n2s)
     c2_fkp = c2 * (f_hat[0] * kp[0] + f_hat[1] * kp[1] + f_hat[2] * kp[2])
@@ -122,11 +140,12 @@ def g0_staggered_apply_plain(f_hat, tables, c10, c20):
                         for j in range(3)])
 
 
-def g0_staggered_heat_apply_plain(f_hat, tables, c10):
+def g0_staggered_heat_apply_plain(f_hat, tables, c10, dc=True):
     """Plain PyTorch scalar G0 apply c10 f / |k+|^2, DC zeroed, on a
-    (1, nx, ny, nz//2+1) half-spectrum (out of place)."""
-    n2, dc = _n2_dc(tables)
-    return (c10 * (1.0 - dc) / (n2 + dc)) * f_hat
+    (1, nx, ny, nz//2+1) half-spectrum (out of place); ``dc`` as
+    :func:`g0_staggered_apply_plain`."""
+    n2, ind = _n2_dc(tables, dc)
+    return (c10 * (1.0 - ind) / (n2 + ind)) * f_hat
 
 
 def _gamma_part(p, xis, k2, A, B):
@@ -161,29 +180,35 @@ def _gamma_part(p, xis, k2, A, B):
             a * (x0 * t1 + x1 * t0) + b * (x0 * x1)]
 
 
-def gamma_collocated_apply_plain(tau_hat, tables, A, B, E, beta):
+def gamma_collocated_apply_plain(tau_hat, tables, A, B, E, beta, dc=True):
     """Plain PyTorch collocated Gamma on a (C, nx, ny, nz//2+1)
     half-spectrum, C = 6, 3 or 9 (out of place): eta = Gamma tau + beta tau
-    with the DC bin set to E (C values)."""
+    with the DC bin set to E (C values); ``dc`` as
+    :func:`g0_staggered_apply_plain`."""
     tx, ty, tz = tables
     E = _vector(E, tx, tau_hat.shape[0])
     xis = (tx.reshape(-1, 1, 1), ty.reshape(-1, 1), tz)
-    dc = torch.zeros(tau_hat.shape[1:], dtype=tx.dtype, device=tx.device)
-    dc[0, 0, 0] = 1.0
-    k2 = xis[0] * xis[0] + xis[1] * xis[1] + xis[2] * xis[2] + dc
+    ind = torch.zeros(tau_hat.shape[1:], dtype=tx.dtype, device=tx.device)
+    if dc:
+        ind[0, 0, 0] = 1.0
+    k2 = xis[0] * xis[0] + xis[1] * xis[1] + xis[2] * xis[2] + ind
     eta = torch.stack(_gamma_part(list(tau_hat), xis, k2, A, B))
     eta = eta + beta * tau_hat
-    return eta * (1.0 - dc) + E.reshape(-1, 1, 1, 1) * dc
+    return eta * (1.0 - ind) + E.reshape(-1, 1, 1, 1) * ind
 
 
-def _real_z_planes(y, nz):
+def _real_z_planes(y, nz, koff=0):
     """The kz = 0 plane (and the kz = nz/2 plane of an even nz) made
     Hermitian in (kx, ky): the part of it that a c2r transform keeps when it
     drops the imaginary parts of those z bins.  A spectrum that is not
     Hermitian there (the collocated Gamma at Nyquist bins) then inverts the
-    same whatever library transforms it."""
+    same whatever library transforms it.  On a kz-slab (columns koff..)
+    only the planes it holds."""
     y = y.clone()
     for k in (0, nz // 2) if nz % 2 == 0 else (0,):
+        if not 0 <= k - koff < y.shape[-1]:
+            continue
+        k -= koff
         p = y[..., k]
         q = torch.roll(torch.flip(p, dims=(-2, -1)), shifts=(1, 1),
                        dims=(-2, -1))
@@ -238,6 +263,10 @@ def g0_staggered_heat_chain_plain(grid, f, c10):
                      grid.shape)
 
 
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def _chain(fn_name, counter, grid, f, ncomp, tables, consts, ptrs=(),
            out=None):
     """Launch the CUDA chain entry ``fn_name`` on a real (ncomp, nx, ny, nz)
@@ -264,11 +293,12 @@ def _chain(fn_name, counter, grid, f, ncomp, tables, consts, ptrs=(),
         "g0_staggered_chain", f"{fn_name}_{_SUFFIX[f.dtype]}", ctypes.c_int,
         [vp] * (9 + len(ptrs)) + [ctypes.c_double] * len(consts)
         + [ctypes.c_int] * 3 + [vp])
-    err = fn(f.data_ptr(), spec.data_ptr(), out.data_ptr(), tx.data_ptr(),
-             ty.data_ptr(), tz.data_ptr(), twx.data_ptr(), twy.data_ptr(),
-             twz.data_ptr(), *(p.data_ptr() for p in ptrs),
-             *(float(c) for c in consts), grid.nx, grid.ny, grid.nz,
-             torch.cuda.current_stream(f.device).cuda_stream)
+    with torch.cuda.device(f.device):
+        err = fn(f.data_ptr(), spec.data_ptr(), out.data_ptr(),
+                 tx.data_ptr(), ty.data_ptr(), tz.data_ptr(), twx.data_ptr(),
+                 twy.data_ptr(), twz.data_ptr(),
+                 *(p.data_ptr() for p in ptrs), *(float(c) for c in consts),
+                 grid.nx, grid.ny, grid.nz, _stream(f.device))
     _build.check(err, "g0_staggered_chain")
     launches[counter] += 1
     return out
@@ -340,4 +370,228 @@ def gamma_collocated_zt_chain(grid, tau, A, B, E, beta):
            tau[1:], 5, collocated_tables(grid, tau.dtype, tau.device),
            (A, B, beta), ptrs=(_vector(E, tau, 6),), out=out[1:])
     torch.add(out[1], out[2], out=out[0]).neg_()
+    return out
+
+
+# ------------------------------------------------ chains on x-slabs (#11)
+
+def _kz_cols(tables, off, w):
+    """The tables with the z table cut to the kz columns off..off+w-1."""
+    tx, ty, tz = tables
+    return tx, ty, tz[..., off:off + w]
+
+
+def _slab_chain_plain(par, grid, f, apply, real_planes=False):
+    """Plain twin of a slab chain: ``rfft`` along z on each x-slab, the
+    exchange to kz-slabs, ``fft`` along y and x, ``apply(y, j, off, w)`` on
+    kz-slab j of columns off..off+w-1 (and
+    the Hermitian kz planes with ``real_planes``), the inverses, the
+    exchange back, ``irfft`` along z (all norm="forward")."""
+    split = par.kz_split(grid.nzc)
+    spec = [torch.fft.rfft(x, dim=-1, norm="forward") for x in f]
+    kzs = comm.to_kz(spec, split, par.devices)
+    for j, (y, (off, w)) in enumerate(zip(kzs, split)):
+        if y is None:
+            continue
+        y = torch.fft.fft(torch.fft.fft(y, dim=-2, norm="forward"), dim=-3,
+                          norm="forward")
+        y = apply(y, j, off, w)
+        if real_planes:
+            y = _real_z_planes(y, grid.nz, off)
+        kzs[j] = torch.fft.ifft(torch.fft.ifft(y, dim=-3, norm="forward"),
+                                dim=-2, norm="forward")
+    spec = comm.from_kz(kzs, grid.nx // par.n_devices, par.devices)
+    return [torch.fft.irfft(y, n=grid.nz, dim=-1, norm="forward")
+            for y in spec]
+
+
+def _slab_vector(E, j, like, n):
+    """Slab j's copy of E (a list replicated over the slabs, or one
+    value), as :func:`_vector` on ``like``'s device."""
+    return _vector(slabs.part(E, j), like, n)
+
+
+def g0_staggered_chain_slab_plain(par, grid, f, c10, c20):
+    """Plain twin of :func:`g0_staggered_chain_slab`."""
+    def apply(y, j, off, w):
+        t = _kz_cols(staggered_tables(grid, y.real.dtype, y.device), off, w)
+        return g0_staggered_apply_plain(y, t, c10, c20, dc=off == 0)
+    return _slab_chain_plain(par, grid, f, apply)
+
+
+def g0_staggered_heat_chain_slab_plain(par, grid, f, c10):
+    """Plain twin of :func:`g0_staggered_heat_chain_slab`."""
+    def apply(y, j, off, w):
+        t = _kz_cols(staggered_tables(grid, y.real.dtype, y.device), off, w)
+        return g0_staggered_heat_apply_plain(y, t, c10, dc=off == 0)
+    return _slab_chain_plain(par, grid, f, apply)
+
+
+def gamma_collocated_chain_slab_plain(par, grid, tau, A, B, E, beta):
+    """Plain twin of :func:`gamma_collocated_chain_slab`."""
+    def apply(y, j, off, w):
+        t = _kz_cols(collocated_tables(grid, y.real.dtype, y.device), off, w)
+        return gamma_collocated_apply_plain(
+            y, t, A, B, _slab_vector(E, j, t[0], y.shape[0]), beta,
+            dc=off == 0)
+    return _slab_chain_plain(par, grid, tau, apply, real_planes=True)
+
+
+def gamma_collocated_zt_chain_slab_plain(par, grid, tau, A, B, E, beta):
+    """Plain twin of :func:`gamma_collocated_zt_chain_slab`: components
+    1..5 go through the slab chain, component 0 is -(c1 + c2) in the
+    spectrum and in real space."""
+    def apply(y, j, off, w):
+        t = _kz_cols(collocated_tables(grid, y.real.dtype, y.device), off, w)
+        y6 = torch.cat([-(y[0] + y[1])[None], y])
+        return gamma_collocated_apply_plain(
+            y6, t, A, B, _slab_vector(E, j, t[0], 6), beta,
+            dc=off == 0)[1:]
+    rest = _slab_chain_plain(par, grid, [t[1:] for t in tau], apply,
+                             real_planes=True)
+    return [torch.cat([-(r[0] + r[1])[None], r]) for r in rest]
+
+
+def _chain_slab(fn_name, counter, par, grid, f, ncomp, tables_on, consts,
+                vector=None, out=None):
+    """Launch a chain on x-slabs ``f`` (each a contiguous (ncomp, nx/D, ny,
+    nz) tensor on its mesh device): ``chain_z_fwd`` per x-slab, the
+    exchange, ``<fn_name>_middle`` per kz-slab with ``tables_on(device)``,
+    the constants and, with ``vector``, slab j's E (``vector(j, like)``),
+    the exchange back, ``chain_z_inv`` per x-slab into ``out`` (new slabs if
+    None).  Returns the output slabs."""
+    dt = f[0].dtype
+    if dt not in _SUFFIX:
+        raise TypeError(f"{fn_name} takes float32/float64, got {dt}")
+    d = par.n_devices
+    nxl = grid.nx // d
+    shape = (ncomp, nxl, grid.ny, grid.nz)
+    if len(f) != d:
+        raise ValueError(f"{len(f)} slabs for a {d}-device mesh")
+    for x, dev in zip(f, par.devices):
+        if x.device != dev or x.dtype != dt:
+            raise ValueError(f"a slab is {x.dtype} on {x.device}, expected "
+                             f"{dt} on {dev}")
+        if tuple(x.shape) != shape or not x.is_contiguous():
+            raise ValueError(f"a slab has shape {tuple(x.shape)} (contiguous:"
+                             f" {x.is_contiguous()}), expected a contiguous "
+                             f"{shape}")
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+    cdt, suf, vp = _COMPLEX[dt], _SUFFIX[dt], ctypes.c_void_p
+    zsig = [vp, vp, vp, ctypes.c_longlong, ctypes.c_int, vp]
+    zfwd = _build.function("g0_staggered_chain", f"chain_z_fwd_{suf}",
+                           ctypes.c_int, zsig)
+    zinv = _build.function("g0_staggered_chain", f"chain_z_inv_{suf}",
+                           ctypes.c_int, zsig)
+    mid = _build.function(
+        "g0_staggered_chain", f"{fn_name}_middle_{suf}", ctypes.c_int,
+        [vp] * (6 + (vector is not None)) + [ctypes.c_double] * len(consts)
+        + [ctypes.c_int] * 5 + [vp])
+    nlines = ncomp * nxl * grid.ny
+
+    spec = []
+    for x, dev in zip(f, par.devices):
+        y = torch.empty((ncomp, nxl, grid.ny, grid.nzc), dtype=cdt,
+                        device=dev)
+        with torch.cuda.device(dev):
+            err = zfwd(x.data_ptr(), y.data_ptr(),
+                       _twiddle(grid.nz, cdt, dev).data_ptr(), nlines,
+                       grid.nz, _stream(dev))
+        _build.check(err, "g0_staggered_chain")
+        launches[counter] += 1
+        spec.append(y)
+    split = par.kz_split(grid.nzc)
+    kzs = comm.to_kz(spec, split, par.devices)
+    del spec
+    for j, (y, (off, w), dev) in enumerate(zip(kzs, split, par.devices)):
+        if y is None:
+            continue
+        tx, ty, tz = tables_on(dev)
+        ptrs = () if vector is None else (vector(j, tx).data_ptr(),)
+        with torch.cuda.device(dev):
+            err = mid(y.data_ptr(), tx.data_ptr(), ty.data_ptr(),
+                      tz.data_ptr(), _twiddle(grid.nx, cdt, dev).data_ptr(),
+                      _twiddle(grid.ny, cdt, dev).data_ptr(), *ptrs,
+                      *(float(c) for c in consts), grid.nx, grid.ny, grid.nz,
+                      w, off, _stream(dev))
+        _build.check(err, "g0_staggered_chain")
+        launches[counter] += 1
+    spec = comm.from_kz(kzs, nxl, par.devices)
+    del kzs
+    outs = []
+    for i, (y, dev) in enumerate(zip(spec, par.devices)):
+        o = torch.empty(shape, dtype=dt, device=dev) if out is None \
+            else out[i]
+        with torch.cuda.device(dev):
+            err = zinv(y.data_ptr(), o.data_ptr(),
+                       _twiddle(grid.nz, cdt, dev).data_ptr(), nlines,
+                       grid.nz, _stream(dev))
+        _build.check(err, "g0_staggered_chain")
+        launches[counter] += 1
+        outs.append(o)
+    return outs
+
+
+def _on_cpu(f):
+    return f[0].device.type == "cpu"
+
+
+def g0_staggered_chain_slab(par, grid, f, c10, c20):
+    """K3 on the x-slabs of a sharded 3-component force field (parallel.
+    fft.SlabPar ``par``); returns new slabs."""
+    if _on_cpu(f):
+        return g0_staggered_chain_slab_plain(par, grid, f, c10, c20)
+    return _chain_slab("g0_staggered_chain", "g0_staggered_chain_slab", par,
+                       grid, f, 3,
+                       lambda dev: staggered_tables(grid, f[0].dtype, dev),
+                       (c10, c20))
+
+
+def g0_staggered_heat_chain_slab(par, grid, f, c10):
+    """K4 on the x-slabs of a sharded 1-component source field."""
+    if _on_cpu(f):
+        return g0_staggered_heat_chain_slab_plain(par, grid, f, c10)
+    return _chain_slab("g0_staggered_heat_chain",
+                       "g0_staggered_heat_chain_slab", par, grid, f, 1,
+                       lambda dev: staggered_tables(grid, f[0].dtype, dev),
+                       (c10,))
+
+
+def gamma_collocated_chain_slab(par, grid, tau, A, B, E, beta):
+    """K5 (C = 6 or 3) on the x-slabs of a sharded field; ``E`` is C values
+    or a list of them replicated over the slabs (each on its device)."""
+    if _on_cpu(tau):
+        return gamma_collocated_chain_slab_plain(par, grid, tau, A, B, E,
+                                                 beta)
+    ncomp = tau[0].shape[0]
+    if ncomp not in (6, 3):
+        raise ValueError(f"tau has {ncomp} components, expected 6 or 3")
+    name = "gamma_collocated_chain" if ncomp == 6 else \
+        "gamma_collocated_heat_chain"
+    return _chain_slab(name, "gamma_collocated_chain_slab", par, grid, tau,
+                       ncomp,
+                       lambda dev: collocated_tables(grid, tau[0].dtype, dev),
+                       (A, B, beta),
+                       vector=lambda j, like: _slab_vector(E, j, like, ncomp))
+
+
+def gamma_collocated_zt_chain_slab(par, grid, tau, A, B, E, beta):
+    """K6 on the x-slabs of a sharded traceless 6-component field: each
+    slab's components 1..5 go through the slab chain, then out[0] =
+    -(out[1] + out[2]) per slab."""
+    if _on_cpu(tau):
+        return gamma_collocated_zt_chain_slab_plain(par, grid, tau, A, B, E,
+                                                    beta)
+    if tau[0].shape[0] != 6:
+        raise ValueError(f"tau has {tau[0].shape[0]} components, expected 6")
+    out = [torch.empty_like(t) for t in tau]
+    _chain_slab("gamma_collocated_zt_chain", "gamma_collocated_zt_chain_slab",
+                par, grid, [t[1:] for t in tau], 5,
+                lambda dev: collocated_tables(grid, tau[0].dtype, dev),
+                (A, B, beta),
+                vector=lambda j, like: _slab_vector(E, j, like, 6),
+                out=[o[1:] for o in out])
+    for o in out:
+        torch.add(o[1], o[2], out=o[0]).neg_()
     return out

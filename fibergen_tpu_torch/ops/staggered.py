@@ -13,6 +13,12 @@ porous) pair uses D+ for the gradient and D- for the divergence, and the
 finite-strain pair (full gradient, divergence of a full tensor) mixes them
 as the symmetric pair does; both pairs stay plain PyTorch on every device,
 as the JAX package computes them outside any Pallas kernel.
+
+On an x-slab of a sharded field (``parallel/``) the symmetric and the
+scalar pairs take ``halo=(minus, plus)``, the neighbouring slabs' x-planes
+(``comm.halo_x``): the stencil runs on the slab with its halo planes
+attached, and the two outer planes are dropped.  ``grid`` is the whole
+grid (its n/d per axis).
 """
 from __future__ import annotations
 
@@ -31,14 +37,23 @@ def _dm(f, axis, h):
     return (f - torch.roll(f, 1, dims=_AX[axis])) * h
 
 
+def with_halo(fn, field, halo):
+    """``fn`` of the slab ``field`` (x at axis -3) with its ``halo=(minus,
+    plus)`` planes attached, minus those two planes."""
+    ext = torch.cat([halo[0], field, halo[1]], dim=-3)
+    return fn(ext).narrow(-3, 1, field.shape[-3]).contiguous()
+
+
 def hs(grid):
     """Inverse voxel sizes n/d per axis."""
     return (grid.nx / grid.dx, grid.ny / grid.dy, grid.nz / grid.dz)
 
 
-def eps_staggered(grid, E, u):
+def eps_staggered(grid, E, u, halo=None):
     """Symmetrized staggered gradient of displacement + mean strain E
     (fibergen.cpp:18614-18692).  u: (3,nx,ny,nz), E: (6,), returns (6,...)."""
+    if halo is not None:
+        return with_halo(lambda x: eps_staggered(grid, E, x), u, halo)
     hx, hy, hz = hs(grid)
     ux, uy, uz = u[0], u[1], u[2]
     return torch.stack([
@@ -51,10 +66,12 @@ def eps_staggered(grid, E, u):
     ])
 
 
-def div_staggered(grid, tau):
+def div_staggered(grid, tau, halo=None):
     """Staggered divergence of a symmetric tensor field (6 comps), backward
     differences on the diagonal, forward on the shear terms
     (fibergen.cpp:18853-18908).  Returns (3, nx, ny, nz)."""
+    if halo is not None:
+        return with_halo(lambda x: div_staggered(grid, x), tau, halo)
     hx, hy, hz = hs(grid)
     return torch.stack([
         _dm(tau[0], 0, hx) + _dp(tau[5], 1, hy) + _dp(tau[4], 2, hz),
@@ -63,18 +80,22 @@ def div_staggered(grid, tau):
     ])
 
 
-def eps_staggered_heat(grid, E, u):
+def eps_staggered_heat(grid, E, u, halo=None):
     """Staggered gradient of a scalar potential + mean gradient E
     (fibergen.cpp:18697-18758).  u: (1,nx,ny,nz), E: (3,), returns (3,...)."""
+    if halo is not None:
+        return with_halo(lambda x: eps_staggered_heat(grid, E, x), u, halo)
     hx, hy, hz = hs(grid)
     p = u[0]
     return torch.stack([E[0] + _dp(p, 0, hx), E[1] + _dp(p, 1, hy),
                         E[2] + _dp(p, 2, hz)])
 
 
-def div_staggered_heat(grid, tau):
+def div_staggered_heat(grid, tau, halo=None):
     """Staggered divergence of a vector field into a scalar, backward
     differences (fibergen.cpp:18914-18968).  Returns (1, nx, ny, nz)."""
+    if halo is not None:
+        return with_halo(lambda x: div_staggered_heat(grid, x), tau, halo)
     hx, hy, hz = hs(grid)
     return (_dm(tau[0], 0, hx) + _dm(tau[1], 1, hy)
             + _dm(tau[2], 2, hz))[None]

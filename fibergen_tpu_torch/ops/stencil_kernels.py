@@ -12,9 +12,16 @@ Counterpart of fibergen_tpu/ops/pallas_kernels.py and pallas_sweep.py:
   sum ``sum p : (p - w)`` (the CG denominator times nxyz).  With ``mu_x``
   (Delta mode) ``w += 2 tau2c (mu(x) - mu0) p`` before the sum.
 
+Halo mode (``halo=``): the kernel runs on one x-slab of a sharded field
+(``parallel/``; the JAX package's ``axis_name`` variants) and reads the x
+neighbours of its first and last plane from the neighbouring slabs' planes
+(``comm.halo_x``); ``grid`` stays the whole grid.  K1 takes
+``halo=((r, p_prev, mu, lam) minus planes, (...) plus planes)`` (p_prev
+planes None in init mode), K2 ``halo=(u minus plane, u plus plane)``.
+
 A wrapper given CPU tensors computes the plain twin (``*_plain``); given
-CUDA tensors it launches the kernel or raises.  ``launches`` counts kernel
-launches only.
+CUDA tensors it launches the kernel or raises, with the tensors' device
+current.  ``launches`` counts kernel launches only.
 """
 from __future__ import annotations
 
@@ -24,9 +31,11 @@ import torch
 
 from ..core import voigt
 from ..materials.mixing import stress_diff_iso
+from ..parallel import comm
 from . import _build, staggered
 
-launches = {"stress_div_beta": 0, "eps_from_u_dot": 0}
+launches = {"stress_div_beta": 0, "eps_from_u_dot": 0,
+            "stress_div_beta_halo": 0, "eps_from_u_dot_halo": 0}
 
 _VP = ctypes.c_void_p
 _D = ctypes.c_double
@@ -44,21 +53,34 @@ def _beta_value(beta):
 # ----------------------------------------------------------- plain twins
 
 def stress_div_beta_plain(grid, r, p_prev, beta, mu_x, lam_x, mu0, lam0,
-                          want_tau_sum=False):
+                          want_tau_sum=False, halo=None):
     """Plain PyTorch K1.  Returns (f, p), plus the (6,) tau sum (added in
-    float64) with ``want_tau_sum``; p is None in init mode."""
+    float64) with ``want_tau_sum``; p is None in init mode.  With ``halo``
+    the stencil runs on the slab with its halo planes attached."""
+    if halo is not None:
+        (rm, pm, mum, lm), (rq, pq, muq, lq) = halo
+        cat = lambda m, a, q: torch.cat([m, a, q], dim=-3)
+        nxl = r.shape[-3]
+        r, mu_x, lam_x = cat(rm, r, rq), cat(mum, mu_x, muq), cat(lm, lam_x, lq)
+        if p_prev is not None:
+            p_prev = cat(pm, p_prev, pq)
     p = r if p_prev is None else r + _beta_value(beta) * p_prev
     tau = stress_diff_iso(p, mu_x, lam_x, mu0, lam0)
-    out = (staggered.div_staggered(grid, tau),
-           None if p_prev is None else p)
+    f = staggered.div_staggered(grid, tau)
+    if halo is not None:
+        f, p, tau = (t.narrow(-3, 1, nxl).contiguous() for t in (f, p, tau))
+    out = (f, None if p_prev is None else p)
     if want_tau_sum:
         out += (tau.sum(dim=(-3, -2, -1), dtype=torch.float64).to(r.dtype),)
     return out
 
 
-def eps_from_u_dot_plain(grid, E, u, p=None, mu_x=None, tau2c=0.0, mu0=0.0):
-    """Plain PyTorch K2.  Returns (w, dot_raw); dot_raw is None without p."""
-    w = staggered.eps_staggered(grid, E, u)
+def eps_from_u_dot_plain(grid, E, u, p=None, mu_x=None, tau2c=0.0, mu0=0.0,
+                         halo=None):
+    """Plain PyTorch K2.  Returns (w, dot_raw); dot_raw is None without p.
+    With ``halo`` the gradient runs on the slab with its halo planes
+    attached."""
+    w = staggered.eps_staggered(grid, E, u, halo=halo)
     if mu_x is not None:
         if p is None:
             raise ValueError("the Delta term reads p: pass p with mu_x")
@@ -92,25 +114,58 @@ def _hs(grid):
     return tuple(float(h) for h in staggered.hs(grid))
 
 
+def _slab_shape(grid, t, halo):
+    """(nx, ny, nz) of the voxels a kernel runs on: the grid's, or an
+    x-slab's (any number of planes) in halo mode."""
+    nx = t.shape[-3] if halo is not None else grid.nx
+    return (nx, grid.ny, grid.nz)
+
+
+def _halo_ptrs(planes, shapes, dt, dev):
+    """A host array of the halo planes' device pointers, each checked
+    against its shape; a shape of None takes no plane (a null pointer)."""
+    ptrs = []
+    half = len(planes) // 2
+    for name, t, shape in zip(["minus"] * half + ["plus"] * half, planes,
+                              shapes):
+        if shape is None:
+            ptrs.append(None)
+            continue
+        if t is None:
+            raise ValueError(f"halo mode needs the {name} halo plane of "
+                             f"shape {shape}")
+        _check(f"{name} halo plane", t, shape, dt, dev)
+        ptrs.append(t.data_ptr())
+    return (_VP * len(ptrs))(*ptrs)
+
+
 def stress_div_beta(grid, r, p_prev, beta, mu_x, lam_x, mu0, lam0,
-                    want_tau_sum=False):
+                    want_tau_sum=False, halo=None):
     """K1.  ``beta`` is a 0-d tensor or a ``(gamma, gamma_prev)`` pair of
     0-d tensors on the fields' device; ``mu0``/``lam0`` are numbers.
     Returns (f, p) with p None in init mode (``p_prev=None``), plus the (6,)
-    grid sum of tau with ``want_tau_sum``."""
+    grid sum of tau with ``want_tau_sum``.  ``halo``: see the module."""
     if r.device.type == "cpu":
         return stress_div_beta_plain(grid, r, p_prev, beta, mu_x, lam_x,
-                                     mu0, lam0, want_tau_sum)
+                                     mu0, lam0, want_tau_sum, halo)
     if r.device.type != "cuda":
         raise ValueError(f"unsupported device {r.device}")
     dt, dev = r.dtype, r.device
     if dt not in _SUFFIX:
         raise TypeError(f"stress_div_beta takes float32/float64, got {dt}")
-    shape = (6,) + grid.shape
+    vox = _slab_shape(grid, r, halo)
+    shape = (6,) + vox
     _check("r", r, shape, dt, dev)
-    _check("mu_x", mu_x, grid.shape, dt, dev)
-    _check("lam_x", lam_x, grid.shape, dt, dev)
-    f = torch.empty((3,) + grid.shape, dtype=dt, device=dev)
+    _check("mu_x", mu_x, vox, dt, dev)
+    _check("lam_x", lam_x, vox, dt, dev)
+    hptr = None
+    if halo is not None:
+        (rm, pm, mum, lm), (rq, pq, muq, lq) = halo
+        plane6, plane1 = (6, 1) + vox[1:], (1,) + vox[1:]
+        pshape = None if p_prev is None else plane6
+        hptr = _halo_ptrs((rm, pm, mum, lm, rq, pq, muq, lq),
+                          (plane6, pshape, plane1, plane1) * 2, dt, dev)
+    f = torch.empty((3,) + vox, dtype=dt, device=dev)
     if p_prev is None:
         p = None
         ptrs = (None, None, None, None)
@@ -129,63 +184,113 @@ def stress_div_beta(grid, r, p_prev, beta, mu_x, lam_x, mu0, lam0,
     part = ts = None
     if want_tau_sum:
         npart = _build.function("stress_div_beta", "stress_div_beta_partials",
-                                ctypes.c_longlong, [_I, _I, _I])(
-            grid.nx, grid.ny, grid.nz)
+                                ctypes.c_longlong, [_I, _I, _I])(*vox)
         part = torch.empty(6 * npart, dtype=torch.float64, device=dev)
         ts = torch.empty(6, dtype=dt, device=dev)
     fn = _build.function("stress_div_beta", "stress_div_beta_" + _SUFFIX[dt],
                          ctypes.c_int,
-                         [_VP, _VP, _VP, _VP, _VP, _VP, _D, _D, _D, _D, _D,
-                          _I, _I, _I, _VP, _VP, _VP, _VP, _VP])
+                         [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _D, _D, _D, _D,
+                          _D, _I, _I, _I, _VP, _VP, _VP, _VP, _VP])
     hx, hy, hz = _hs(grid)
-    err = fn(r.data_ptr(), ptrs[0], ptrs[1], ptrs[2], mu_x.data_ptr(),
-             lam_x.data_ptr(), float(mu0), float(lam0), hx, hy, hz,
-             grid.nx, grid.ny, grid.nz, f.data_ptr(), ptrs[3],
-             None if part is None else part.data_ptr(),
-             None if ts is None else ts.data_ptr(), _stream(dev))
+    with torch.cuda.device(dev):
+        err = fn(r.data_ptr(), ptrs[0], ptrs[1], ptrs[2], mu_x.data_ptr(),
+                 lam_x.data_ptr(), hptr, float(mu0), float(lam0), hx, hy, hz,
+                 *vox, f.data_ptr(), ptrs[3],
+                 None if part is None else part.data_ptr(),
+                 None if ts is None else ts.data_ptr(), _stream(dev))
     _build.check(err, "stress_div_beta")
-    launches["stress_div_beta"] += 1
+    launches["stress_div_beta" if halo is None else "stress_div_beta_halo"] \
+        += 1
     return (f, p, ts) if want_tau_sum else (f, p)
 
 
-def eps_from_u_dot(grid, E, u, p=None, mu_x=None, tau2c=0.0, mu0=0.0):
+def eps_from_u_dot(grid, E, u, p=None, mu_x=None, tau2c=0.0, mu0=0.0,
+                   halo=None):
     """K2.  ``E`` is a (6,) tensor on the fields' device.  Returns
     (w, dot_raw) with dot_raw a 0-d tensor, or None without ``p``.  With
     ``mu_x`` (Delta mode; ``p`` required) ``w`` gains
-    ``2 tau2c (mu_x - mu0) p``; ``tau2c``/``mu0`` are numbers."""
+    ``2 tau2c (mu_x - mu0) p``; ``tau2c``/``mu0`` are numbers.  ``halo``:
+    see the module (the dot is then this slab's sum)."""
     if u.device.type == "cpu":
-        return eps_from_u_dot_plain(grid, E, u, p, mu_x, tau2c, mu0)
+        return eps_from_u_dot_plain(grid, E, u, p, mu_x, tau2c, mu0, halo)
     if u.device.type != "cuda":
         raise ValueError(f"unsupported device {u.device}")
     dt, dev = u.dtype, u.device
     if dt not in _SUFFIX:
         raise TypeError(f"eps_from_u_dot takes float32/float64, got {dt}")
-    _check("u", u, (3,) + grid.shape, dt, dev)
+    vox = _slab_shape(grid, u, halo)
+    _check("u", u, (3,) + vox, dt, dev)
     _check("E", E, (6,), dt, dev)
-    w = torch.empty((6,) + grid.shape, dtype=dt, device=dev)
+    hptr = None
+    if halo is not None:
+        plane3 = (3, 1) + vox[1:]
+        hptr = _halo_ptrs(tuple(halo), (plane3, plane3), dt, dev)
+    w = torch.empty((6,) + vox, dtype=dt, device=dev)
     if mu_x is not None:
         if p is None:
             raise ValueError("the Delta term reads p: pass p with mu_x")
-        _check("mu_x", mu_x, grid.shape, dt, dev)
+        _check("mu_x", mu_x, vox, dt, dev)
     if p is None:
         pp = part = dot = None
     else:
-        _check("p", p, (6,) + grid.shape, dt, dev)
+        _check("p", p, (6,) + vox, dt, dev)
         npart = _build.function("eps_from_u_dot", "eps_from_u_dot_partials",
-                                ctypes.c_longlong, [_I, _I, _I])(
-            grid.nx, grid.ny, grid.nz)
+                                ctypes.c_longlong, [_I, _I, _I])(*vox)
         part = torch.empty(npart, dtype=torch.float64, device=dev)
         dot = torch.empty((), dtype=dt, device=dev)
         pp = p.data_ptr()
     fn = _build.function("eps_from_u_dot", "eps_from_u_dot_" + _SUFFIX[dt],
-                         ctypes.c_int, [_VP, _VP, _VP, _VP, _D, _D, _D, _D, _D,
-                                        _I, _I, _I, _VP, _VP, _VP, _VP])
+                         ctypes.c_int, [_VP, _VP, _VP, _VP, _VP, _D, _D, _D,
+                                        _D, _D, _I, _I, _I, _VP, _VP, _VP,
+                                        _VP])
     hx, hy, hz = _hs(grid)
-    err = fn(u.data_ptr(), E.data_ptr(), pp,
-             None if mu_x is None else mu_x.data_ptr(), float(tau2c),
-             float(mu0), hx, hy, hz, grid.nx, grid.ny, grid.nz, w.data_ptr(),
-             None if part is None else part.data_ptr(),
-             None if dot is None else dot.data_ptr(), _stream(dev))
+    with torch.cuda.device(dev):
+        err = fn(u.data_ptr(), E.data_ptr(), pp,
+                 None if mu_x is None else mu_x.data_ptr(), hptr,
+                 float(tau2c), float(mu0), hx, hy, hz, *vox, w.data_ptr(),
+                 None if part is None else part.data_ptr(),
+                 None if dot is None else dot.data_ptr(), _stream(dev))
     _build.check(err, "eps_from_u_dot")
-    launches["eps_from_u_dot"] += 1
+    launches["eps_from_u_dot" if halo is None else "eps_from_u_dot_halo"] \
+        += 1
     return w, dot
+
+
+# ------------------------------------------------- on the x-slabs (#11)
+
+def stress_div_beta_slabs(grid, r, p_prev, beta, mu_x, lam_x, mu0, lam0,
+                          mod_halo=None):
+    """K1 in halo mode on every x-slab of a sharded field (lists of slabs;
+    the JAX package's stress_div_beta_staggered / stress_div_staggered with
+    ``axis_name``).  The halo planes of r and p_prev are exchanged here;
+    ``mod_halo`` holds those of mu_x and lam_x (``comm.halo_x`` of each,
+    exchanged once per solve; here when None).  ``beta``: one entry per slab
+    (a 0-d tensor or a (gamma, gamma_prev) pair), None in init mode.
+    Returns (f slabs, p slabs or None)."""
+    d = len(r)
+    rm, rq = comm.halo_x(r)
+    pm, pq = ([None] * d, [None] * d) if p_prev is None else \
+        comm.halo_x(p_prev)
+    (mum, muq), (lm, lq) = mod_halo or (comm.halo_x(mu_x),
+                                        comm.halo_x(lam_x))
+    out = [stress_div_beta(grid, r[i], None if p_prev is None else p_prev[i],
+                           None if beta is None else beta[i], mu_x[i],
+                           lam_x[i], mu0, lam0,
+                           halo=((rm[i], pm[i], mum[i], lm[i]),
+                                 (rq[i], pq[i], muq[i], lq[i])))
+           for i in range(d)]
+    return [o[0] for o in out], \
+        None if p_prev is None else [o[1] for o in out]
+
+
+def eps_from_u_dot_slabs(grid, E, u, p=None):
+    """K2 in halo mode on every x-slab of a sharded field (the JAX package's
+    eps_from_u_staggered / eps_from_u_dot_staggered with ``axis_name``):
+    the halo planes of u are exchanged here; ``E`` is a list with one (6,)
+    tensor per slab.  Returns (w slabs, the dot as ``comm.psum`` of the
+    slabs' sums, or None without ``p``)."""
+    um, uq = comm.halo_x(u)
+    out = [eps_from_u_dot(grid, E[i], u[i], None if p is None else p[i],
+                          halo=(um[i], uq[i])) for i in range(len(u))]
+    w = [o[0] for o in out]
+    return w, None if p is None else comm.psum([o[1] for o in out])

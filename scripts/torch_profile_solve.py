@@ -2,6 +2,7 @@
 """Where a CG solve of the PyTorch/CUDA port spends its time on one card.
 
     python3 scripts/torch_profile_solve.py [n] [mode] [scheme] [method]
+        [--slabs=D]
     python3 scripts/torch_profile_solve.py [n] hyperelasticity [scheme] cg
         [exact|frozen_iso]
 
@@ -18,8 +19,11 @@ reports the device time by kernel, by kind (the port's kernels, the
 chains' passes included, cuFFT, cuSOLVER's batched eigensolver, PyTorch
 elementwise and reduction kernels) and the device's idle share of the
 unprofiled wall time; in hyperelasticity also the wall time of one
-reference-material pass (the tangent eigenvalue bounds at 256^3).  Prints
-one JSON line last.
+reference-material pass (the tangent eigenvalue bounds at 256^3).
+``--slabs=D`` solves sharded into D x-slabs of one card (the mesh
+["cuda:0"] * D); the spectrum exchanges then show as ``torch.cat`` (a kind
+of its own, with ``torch.stack``) and the halo planes as copy kernels.
+Prints one JSON line last.
 """
 import json
 import sys
@@ -40,6 +44,8 @@ def kind_of(name):
     if any(k in n for k in ("sytrd", "stedc", "laed", "lansy", "lascl",
                             "steqr", "syev")):
         return "cuSOLVER eigvalsh"
+    if "catarray" in n:
+        return "torch.cat/stack"
     if "reduce" in n:
         return "torch reductions"
     if "elementwise" in n or "copy" in n or "fill" in n:
@@ -58,6 +64,10 @@ def main():
         print("needs a CUDA card", file=sys.stderr)
         return 2
     LOG.enabled = False
+    slabs = [int(a.split("=", 1)[1]) for a in sys.argv
+             if a.startswith("--slabs=")]
+    slabs = slabs[0] if slabs else None
+    sys.argv = [a for a in sys.argv if not a.startswith("--slabs=")]
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 256
     mode = sys.argv[2] if len(sys.argv) > 2 else "elasticity"
     scheme = sys.argv[3] if len(sys.argv) > 3 else "staggered"
@@ -69,7 +79,9 @@ def main():
         est = "residual" if method == "cg" else "epsilon"
         opt = dict(error_estimator=est, tol=1e-6, check_every=8,
                    maxiter=4000)
-    s = sphere_solver(n, "float32", "cuda", mode, scheme, method, **opt)
+    s = sphere_solver(n, "float32", "cuda", mode, scheme, method,
+                      mesh=None if slabs is None else ["cuda:0"] * slabs,
+                      **opt)
     assert not s.run()
     assert not s.run()
     wall = s.solve_time
@@ -98,7 +110,8 @@ def main():
     for us, _, name in rows:
         kinds[kind_of(name)] = kinds.get(kind_of(name), 0.0) + us / 1e3
     card = torch.cuda.get_device_name(0)
-    print(f"{card}: {n}^3 float32 {mode} {scheme} {method}, {its} "
+    print(f"{card}: {n}^3 float32 {mode} {scheme} {method}"
+          f"{'' if slabs is None else f' on {slabs} slabs'}, {its} "
           f"iterations (Newton outer, inner: {s.newton_iterations}), "
           f"unprofiled wall "
           f"{1e3 * wall:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
@@ -111,7 +124,7 @@ def main():
     for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
         print(f"  {k:18s} {ms:9.3f} ms  {ms / busy_ms:6.1%} of busy")
     print(json.dumps({"n": n, "mode": mode, "scheme": scheme,
-                      "method": method, "iterations": its,
+                      "method": method, "slabs": slabs, "iterations": its,
                       "newton_iterations": s.newton_iterations,
                       "ref_material_ms": ref_ms,
                       "wall_ms": 1e3 * wall,
