@@ -31,14 +31,18 @@ constants) and collocated (K5 at C = 9).  Phases, each failing loudly:
    strain against the linear C11;
 6. sharded: the x-slab solve on four slabs of one card
    (``make_mesh(["cuda:0"] * 4)``): each slab kernel (K1, K2 in halo mode;
-   the kz-slab K3, K4, K5 and K6 chains) against its twin at 256^3 float32
-   with times and the time of the two spectrum exchanges, K1/K2 halo mode
-   bitwise against the periodic kernels on one slab; a 48^3 float64
-   sharded solve of each sharded path (SHARDED_PATHS) with kernels against
-   the plain twins on CPU slabs; the 256^3 float32 sharded solve of each
-   against phase 4's unsharded solve (launches counted: a path launches its
-   slab kernels and no other); with two or more cards, the staggered
-   elasticity solve over min(4, count) cards;
+   the kz-slab K3, K4, K5 and K6 chains, and the finite-strain K5 at C = 9
+   and K3 with the full-gradient constants, these two also against their
+   whole-field chains) against its twin at 256^3 float32 with times and
+   the time of the two spectrum exchanges, K1/K2 halo mode bitwise against
+   the periodic kernels on one slab; a 48^3 float64 sharded solve of each
+   linear sharded path (SHARDED_PATHS, polarization included) and a 24^3
+   float64 sharded Newton solve of each hyperelastic path with kernels
+   against the plain twins on CPU slabs; the 256^3 float32 sharded solve
+   of each linear path and the hyperelastic bench on both grids against
+   phase 4's unsharded solves (launches counted: a path launches its slab
+   kernels and no other); with two or more cards, the staggered
+   elasticity and hyperelastic solves over min(4, count) cards;
 7. the launch counts and one JSON line per kernel and mode with its
    numbers.
 
@@ -154,7 +158,8 @@ PATH_KERNELS = {
 
 # the paths of the x-slab sharded solve and the slab kernels each launches
 SHARDED_PATHS = ("elasticity", "heat", "elasticity-collocated",
-                 "heat-collocated", "viscosity-collocated")
+                 "heat-collocated", "viscosity-collocated",
+                 "elasticity-polarization")
 SHARDED_KERNELS = {
     "elasticity": ("stress_div_beta_halo", "eps_from_u_dot_halo",
                    "g0_staggered_chain_slab"),
@@ -162,6 +167,9 @@ SHARDED_KERNELS = {
     "elasticity-collocated": ("gamma_collocated_chain_slab",),
     "heat-collocated": ("gamma_collocated_chain_slab",),
     "viscosity-collocated": ("gamma_collocated_zt_chain_slab",),
+    "elasticity-polarization": ("gamma_collocated_chain_slab",),
+    "hyperelasticity": ("g0_staggered_chain_slab",),
+    "hyperelasticity-collocated": ("gamma_collocated_chain_slab",),
 }
 SLABS = 4
 
@@ -239,6 +247,9 @@ WORK.update({
     "gamma_collocated_chain_slab": WORK["gamma_collocated_chain"],
     "gamma_collocated_chain_slab[heat]": WORK["gamma_collocated_chain[heat]"],
     "gamma_collocated_zt_chain_slab": WORK["gamma_collocated_zt_chain"],
+    "gamma_collocated_chain_slab[hyper]":
+        WORK["gamma_collocated_chain[hyper]"],
+    "g0_staggered_chain_slab[hyper]": WORK["g0_staggered_chain[hyper]"],
 })
 
 
@@ -570,6 +581,33 @@ def check_slab_kernels(shape, dtype, devices, timed):
                  par, g, rs, Az, Bz, Es, -0.2),
              stages([x[1:] for x in rs]))):
         report(name, [rel_err(G(kern()), G(plain()))], kern, plain, lib)
+
+    # the finite-strain slab chains with the sharded Newton path's
+    # constants (lambda_0 = 0: B = 0, beta = 0), K5 at C = 9 once more with
+    # B and beta set; each also against its whole-field chain on the same
+    # input
+    tau9, E9 = rnd(9, *shape), rnd(9)
+    t9s, E9s = sh(tau9), comm.replicate(E9, par.devices)
+    Ah, Bh = green.hyper_constants(mu0, 0.0)
+    A4, B4 = green.hyper_constants(mu0, 0.4)
+    k9 = lambda: spk.gamma_collocated_hyper_chain_slab(par, g, t9s, Ah, Bh,
+                                                       E9s, 0.0)
+    p9 = lambda: spk.gamma_collocated_hyper_chain_slab_plain(par, g, t9s, Ah,
+                                                             Bh, E9s, 0.0)
+    errs = [rel_err(G(k9()), G(p9())),
+            rel_err(G(k9()), spk.gamma_collocated_hyper_chain(
+                g, tau9, Ah, Bh, E9, 0.0)),
+            rel_err(G(spk.gamma_collocated_hyper_chain_slab(
+                par, g, t9s, A4, B4, E9s, 0.37)),
+                G(spk.gamma_collocated_hyper_chain_slab_plain(
+                    par, g, t9s, A4, B4, E9s, 0.37)))]
+    report("gamma_collocated_chain_slab[hyper]", errs, k9, p9, stages(t9s))
+    del tau9
+    k3h = lambda: spk.g0_staggered_chain_slab(par, g, fs, -Ah, Bh)
+    p3h = lambda: spk.g0_staggered_chain_slab_plain(par, g, fs, -Ah, Bh)
+    errs = [rel_err(G(k3h()), G(p3h())),
+            rel_err(G(k3h()), spk.g0_staggered_chain(g, G(fs), -Ah, Bh))]
+    report("g0_staggered_chain_slab[hyper]", errs, k3h, p3h, stages(fs))
     if timed:
         # the two exchanges of a step's chain (C = 3, K3): x-slab spectrum
         # to kz-slabs and back
@@ -610,6 +648,7 @@ def main():
     from fibergen_tpu_torch.ops import stencil_kernels as sk
     from fibergen_tpu_torch.utils.logging import LOG
 
+    t_start = time.perf_counter()
     LOG.enabled = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -676,28 +715,42 @@ def main():
         assert len(rc) == len(rg), f"{path}: iteration counts differ"
         assert res_rel <= 1e-9 and s_rel <= 1e-10, path
         del s_cpu, s_gpu
-    # Newton: the history holds the inner residual and the outer epsilon
-    # entries; an epsilon entry, a difference of two norms, compares within
-    # 1e-9 relative or 1e-14 absolute
-    for path in HYPER_PATHS:
+
+    def newton_cuda_vs_cpu(path, slabs=None):
+        """A 24^3 float64 Newton solve of ``path`` on the card against the
+        same solve on the CPU (with ``slabs``, on that many slabs of
+        cuda:0 against as many CPU slabs): the same outer and inner
+        iterations; the history holds the inner residual and the outer
+        epsilon entries, and an epsilon entry, a difference of two norms,
+        compares within 1e-9 relative or 1e-14 absolute; mean PK1 within
+        1e-10."""
         hopt = dict(HYPER_OPT, tol=1e-6, check_every=4)
-        s_cpu = path_solver(24, "float64", "cpu", path, **hopt)
-        s_gpu = path_solver(24, "float64", "cuda", path, **hopt)
+        tag = "" if slabs is None else " [sharded]"
+        mesh = lambda d: None if slabs is None else [d] * slabs
+        s_cpu = path_solver(24, "float64", "cpu", path, mesh=mesh("cpu"),
+                            **hopt)
+        s_gpu = path_solver(24, "float64", "cuda", path,
+                            mesh=mesh("cuda:0"), **hopt)
         assert not s_cpu.run()
-        assert not run_counted(s_gpu, f"24^3 float64 {path}", path)[0]
+        assert not run_counted(s_gpu, f"24^3 float64 {path}{tag}", path)[0]
         rc, rg = np.asarray(s_cpu.residuals), np.asarray(s_gpu.residuals)
-        same = len(rc) == len(rg)
+        same = len(rc) == len(rg) and \
+            s_cpu.newton_iterations == s_gpu.newton_iterations
         res_rel = float(np.max(np.abs(rg - rc) / np.abs(rc))) if same \
             else float("inf")
         Sc, Sg = s_cpu.calc_mean_stress(), s_gpu.calc_mean_stress()
         s_rel = float(np.max(np.abs(Sg - Sc)) / np.max(np.abs(Sc)))
-        log(f"  {path}: iterations cpu {len(rc)} cuda {len(rg)} (outer, "
-            f"inner {s_gpu.newton_iterations}), residual history max rel "
-            f"diff {res_rel:.3e}, mean PK1 max rel diff {s_rel:.3e}")
-        assert same, f"{path}: iteration counts differ"
+        log(f"  {path}{tag}: iterations cpu {len(rc)} "
+            f"{s_cpu.newton_iterations} cuda {len(rg)} "
+            f"{s_gpu.newton_iterations} (outer, inner), residual history "
+            f"max rel diff {res_rel:.3e}, mean PK1 max rel diff "
+            f"{s_rel:.3e}")
+        assert same, f"{path}{tag}: iteration counts differ"
         assert np.all(np.abs(rg - rc) <= 1e-9 * np.abs(rc) + 1e-14), path
         assert s_rel <= 1e-10, path
-        del s_cpu, s_gpu
+
+    for path in HYPER_PATHS:
+        newton_cuda_vs_cpu(path)
 
     # ---- phase 4: the paths at full size
     log("phase 4: bench sphere RVE, residual tol 1e-6, check_every 8")
@@ -786,14 +839,14 @@ def main():
             f"{P.tolist()}")
         assert not fail and len(s.residuals) < HYPER_OPT["maxiter"]
         assert np.all(np.isfinite(P)) and np.isfinite(detf) and detf > 0
-        hyper[(path, tangent)] = P
+        hyper[(path, tangent)] = (outer, inner, P)
         del s
         torch.cuda.empty_cache()
-    for key, P in hyper.items():
+    for key, (_, _, P) in hyper.items():
         d = abs(P[0] - HYPER_P11) / HYPER_P11
         log(f"  {key[0]} [{key[1]}] P11 {P[0]:.6f} vs the JAX package's "
             f"{HYPER_P11} (rel {d:.3e})")
-    assert abs(hyper[("hyperelasticity", "exact")][0] - HYPER_P11) \
+    assert abs(hyper[("hyperelasticity", "exact")][2][0] - HYPER_P11) \
         <= 5e-4 * HYPER_P11
 
     # ---- phase 5: analytic oracles
@@ -861,10 +914,11 @@ def main():
     opt = dict(error_estimator="residual", tol=1e-8, check_every=4,
                maxiter=1000)
     for path in SHARDED_PATHS:
-        s_cpu = sphere_solver(48, "float64", "cpu", *PATHS[path],
-                              mesh=["cpu"] * SLABS, **opt)
-        s_gpu = sphere_solver(48, "float64", "cuda", *PATHS[path], mesh=mesh,
-                              **opt)
+        popt = dict(opt, tol=1e-6) if PATHS[path][2] == "polarization" \
+            else opt
+        s_cpu = path_solver(48, "float64", "cpu", path, mesh=["cpu"] * SLABS,
+                            **popt)
+        s_gpu = path_solver(48, "float64", "cuda", path, mesh=mesh, **popt)
         assert not s_cpu.run()
         assert not run_counted(s_gpu, f"48^3 float64 {path} [sharded]",
                                path)[0]
@@ -879,6 +933,8 @@ def main():
         assert len(rc) == len(rg), f"{path}: iteration counts differ"
         assert res_rel <= 1e-9 and s_rel <= 1e-10, path
         del s_cpu, s_gpu
+    for path in HYPER_PATHS:
+        newton_cuda_vs_cpu(path, SLABS)
     opt = dict(error_estimator="residual", tol=1e-6, check_every=8,
                maxiter=4000)
     meshes = [mesh]
@@ -889,8 +945,7 @@ def main():
         log(f"  256^3 float32 sharded solves on the mesh {m} "
             f"({len(set(m))} card(s), {len(m)} slabs)")
         for path in SHARDED_PATHS if m is mesh else ("elasticity",):
-            s = sphere_solver(256, "float32", "cuda", *PATHS[path], mesh=m,
-                              **opt)
+            s = path_solver(256, "float32", "cuda", path, mesh=m, **opt)
             assert not s.run()                   # warm-up
             torch.cuda.reset_peak_memory_stats()
             label = f"256^3 float32 {path} [sharded x{len(m)}]"
@@ -908,6 +963,35 @@ def main():
             assert not fail and s.residuals[-1] <= 1e-6
             assert abs(its - its0) <= 1
             assert d <= (1e-5 if its == its0 else 5e-4), (path, d)
+            del s
+            torch.cuda.empty_cache()
+        # the hyperelastic bench on the slabs against phase 4's unsharded
+        # solve, warm as that one is
+        for path in HYPER_PATHS if m is mesh else ("hyperelasticity",):
+            label = f"256^3 float32 {path} [exact, sharded x{len(m)}]"
+            s = path_solver(256, "float32", "cuda", path, mesh=m,
+                            **HYPER_OPT)
+            assert not s.run()                   # warm-up
+            torch.cuda.reset_peak_memory_stats()
+            fail, got = run_counted(s, label, path)
+            if m is mesh:
+                path_launches[f"{path} [sharded]"] = got
+            outer, inner = s.newton_iterations
+            P = s.calc_mean_stress()
+            o0, i0, P0 = hyper[(path, "exact")]
+            d = float(np.max(np.abs(P - P0)) / np.max(np.abs(P0)))
+            log(f"  {label}: {outer} outer, {inner} inner iterations "
+                f"(unsharded {o0}, {i0}), {got[SHARDED_KERNELS[path][0]]} "
+                f"slab chain launches, solve_time {s.solve_time:.4f} s, "
+                f"{inner / s.solve_time:.2f} inner it/s, peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, P11 "
+                f"{P[0]:.6f} (the JAX package's {HYPER_P11}), mean PK1 rel "
+                f"diff to unsharded {d:.3e}")
+            assert not fail and np.all(np.isfinite(P))
+            assert abs(outer - o0) <= 1 and abs(inner - i0) <= 1, label
+            assert abs(P[0] - HYPER_P11) <= 5e-4 * HYPER_P11, label
+            assert d <= (1e-5 if (outer, inner) == (o0, i0) else 5e-4), \
+                (label, d)
             del s
             torch.cuda.empty_cache()
 
@@ -971,7 +1055,13 @@ def main():
                  "gamma_collocated_zt_chain_slab": "viscosity-collocated"}
     rows += [(name, counter, f"{slab_path[counter]} [sharded]", src, rep)
              for name, counter, src, rep in slab_rows]
+    rows += [("gamma_collocated_chain_slab[hyper]",
+              "gamma_collocated_chain_slab",
+              "hyperelasticity-collocated [sharded]", ch, f"{pc_}:470"),
+             ("g0_staggered_chain_slab[hyper]", "g0_staggered_chain_slab",
+              "hyperelasticity [sharded]", ch, f"{pc_}:470")]
     main_nums = dict(main_nums, **slab_nums)
+    log(f"total {time.perf_counter() - t_start:.1f} s, the build included")
     kernels = []
     for name, counter, path, src, replaces in rows:
         m = main_nums[name]

@@ -838,7 +838,9 @@ G collocated(const void* tx, const void* ty, const void* tz, const void* E,
                       GammaCollocatedHyper)                                  \
   FG_COLLOCATED_MIDDLE(gamma_collocated_chain, SUF, T, Gamma6)               \
   FG_COLLOCATED_MIDDLE(gamma_collocated_heat_chain, SUF, T, Gamma3)          \
-  FG_COLLOCATED_MIDDLE(gamma_collocated_zt_chain, SUF, T, GammaZt)
+  FG_COLLOCATED_MIDDLE(gamma_collocated_zt_chain, SUF, T, GammaZt)           \
+  FG_COLLOCATED_MIDDLE(gamma_collocated_hyper_chain, SUF, T,                 \
+                       GammaCollocatedHyper)
 
 FG_CHAIN_ENTRIES(f32, float)
 FG_CHAIN_ENTRIES(f64, double)

@@ -22,9 +22,10 @@ directly):
   isotropic linear moduli.
 
 With ``par`` (a parallel.fft.SlabPar) :func:`gamma_heat_staggered`,
-:func:`gamma_collocated` and :func:`delta_collocated` take lists of
-x-slabs and run the slab chains; the heat stencils then run per slab on
-the neighbours' halo planes, and ``E`` is a list with one value per slab.
+:func:`gamma_collocated`, :func:`delta_collocated` and
+:func:`gamma_hyper` take lists of x-slabs and run the slab chains; the
+staggered stencils then run per slab on the neighbours' halo planes, and
+``E`` is a list with one value per slab.
 """
 from __future__ import annotations
 
@@ -35,17 +36,20 @@ from . import green, staggered
 from .stencil_kernels import eps_from_u_dot, stress_div_beta
 
 
+def _halos(slab_list):
+    """Each slab's ``(minus, plus)`` halo planes (comm.halo_x)."""
+    return list(zip(*comm.halo_x(slab_list)))
+
+
 def gamma_heat_staggered(grid, E, mu_0, tau, par=None):
     """eta = -Gamma tau with mean E on (3, nx, ny, nz) fields
     (gamma_operator, mode heat/porous, staggered scheme, alpha = -1)."""
     if par is not None:
-        tm, tq = comm.halo_x(tau)
         f = [staggered.div_staggered_heat(grid, t, halo=h)
-             for t, h in zip(tau, zip(tm, tq))]
+             for t, h in zip(tau, _halos(tau))]
         u = green.g0_staggered_heat_fused(grid, mu_0, 0.0, f, par=par)
-        um, uq = comm.halo_x(u)
         return [staggered.eps_staggered_heat(grid, e, x, halo=h)
-                for e, x, h in zip(E, u, zip(um, uq))]
+                for e, x, h in zip(E, u, _halos(u))]
     f = staggered.div_staggered_heat(grid, tau)
     u = green.g0_staggered_heat_fused(grid, mu_0, 0.0, f)
     return staggered.eps_staggered_heat(grid, E, u)
@@ -93,22 +97,36 @@ def delta_collocated(grid, E, mu_0, tau, alpha=-1.0, par=None):
         2.0 * alpha * mu0v, par=par)
 
 
-def gamma_hyper(grid, scheme, E, mu_0, lambda_0, tau, alpha=-1.0, beta=0.0):
+def gamma_hyper(grid, scheme, E, mu_0, lambda_0, tau, alpha=-1.0, beta=0.0,
+                par=None):
     """eta = alpha Gamma tau + beta tau with mean E on 9-component
     (deformation-gradient) fields (gamma_operator, mode hyperelasticity,
     bc=None, fibergen.cpp:19619-19774).  ``E`` may be a device tensor on
-    the collocated grid; the staggered grid adds it in PyTorch."""
+    the collocated grid; the staggered grid adds it in PyTorch.  With
+    ``par`` the staggered stencils run per slab on the neighbours' halo
+    planes around the kz-slab K3 chain, and slab j takes E's slab j."""
     if scheme == "collocated":
         return green.gamma_collocated_hyper_fused(grid, E, mu_0, lambda_0,
-                                                  tau, alpha, beta)
+                                                  tau, alpha, beta, par=par)
     if scheme != "staggered":
         raise NotImplementedError(f"gamma scheme {scheme!r} is not ported "
                                   f"in hyperelasticity")
-    f = staggered.div_staggered_hyper(grid, tau)
-    u = green.g0_staggered_hyper_fused(grid, mu_0, lambda_0, f, alpha)
-    del f
-    eta = staggered.eps_staggered_hyper(
-        grid, torch.as_tensor(E, dtype=tau.dtype, device=tau.device), u)
+    if par is None:
+        f = staggered.div_staggered_hyper(grid, tau)
+        u = green.g0_staggered_hyper_fused(grid, mu_0, lambda_0, f, alpha)
+        del f
+        eta = staggered.eps_staggered_hyper(
+            grid, torch.as_tensor(E, dtype=tau.dtype, device=tau.device), u)
+    else:
+        f = [staggered.div_staggered_hyper(grid, t, halo=h)
+             for t, h in zip(tau, _halos(tau))]
+        u = green.g0_staggered_hyper_fused(grid, mu_0, lambda_0, f, alpha,
+                                           par=par)
+        del f
+        eta = [staggered.eps_staggered_hyper(
+            grid, torch.as_tensor(slabs.part(E, j), dtype=x.dtype,
+                                  device=x.device), x, halo=h)
+            for j, (x, h) in enumerate(zip(u, _halos(u)))]
     if beta != 0.0:
-        eta += beta * tau
+        slabs.smap(lambda e, t: e.add_(beta * t), eta, tau)
     return eta

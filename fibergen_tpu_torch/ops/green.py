@@ -93,11 +93,13 @@ def g0_staggered_hyper(grid, mu_0, lambda_0, tau_hat, alpha=-1.0):
     return spectral_kernels.g0_staggered_apply_plain(tau_hat, tables, -A, B)
 
 
-def g0_staggered_hyper_fused(grid, mu_0, lambda_0, f, alpha=-1.0):
+def g0_staggered_hyper_fused(grid, mu_0, lambda_0, f, alpha=-1.0, par=None):
     """u = ifftn(g0_staggered_hyper(fftn(f))) in one dispatch: the K3 chain
     with the full-gradient constants on the card, its plain twin on the
     CPU."""
     A, B = hyper_constants(mu_0, lambda_0, alpha)
+    if par is not None:
+        return spectral_kernels.g0_staggered_chain_slab(par, grid, f, -A, B)
     return spectral_kernels.g0_staggered_chain(grid, f, -A, B)
 
 
@@ -199,10 +201,14 @@ def gamma_collocated_hyper(grid, E, mu_0, lambda_0, tau_hat, alpha=-1.0,
 
 
 def gamma_collocated_hyper_fused(grid, E, mu_0, lambda_0, tau, alpha=-1.0,
-                                 beta=0.0):
+                                 beta=0.0, par=None):
     """eta = ifftn(gamma_collocated_hyper(fftn(tau))) on a real 9-component
     ``tau`` in one dispatch: the K5 chain at C = 9 on the card, its plain
-    twin on the CPU.  ``E`` may be a device tensor."""
+    twin on the CPU.  ``E`` may be a device tensor, on x-slabs a list of
+    them, one per slab."""
     A, B = hyper_constants(mu_0, lambda_0, alpha)
+    if par is not None:
+        return spectral_kernels.gamma_collocated_hyper_chain_slab(
+            par, grid, tau, A, B, E, beta)
     return spectral_kernels.gamma_collocated_hyper_chain(grid, tau, A, B, E,
                                                          beta)

@@ -39,8 +39,8 @@ A wrapper given CPU tensors computes the plain twin (``torch.fft`` around
 the plain apply, ``*_apply_plain``); given CUDA tensors it launches the
 kernel or raises, with the tensors' device current.  ``launches`` counts
 kernel launches only (a slab chain counts each of its per-slab z, middle
-and z-inverse launches); K5 counts both of its component counts under one
-name.
+and z-inverse launches); K5 counts every component count (6, 3 and 9)
+under one name, and its slab forms under another.
 """
 from __future__ import annotations
 
@@ -437,6 +437,11 @@ def gamma_collocated_chain_slab_plain(par, grid, tau, A, B, E, beta):
     return _slab_chain_plain(par, grid, tau, apply, real_planes=True)
 
 
+def gamma_collocated_hyper_chain_slab_plain(par, grid, tau, A, B, E, beta):
+    """Plain twin of :func:`gamma_collocated_hyper_chain_slab`."""
+    return gamma_collocated_chain_slab_plain(par, grid, tau, A, B, E, beta)
+
+
 def gamma_collocated_zt_chain_slab_plain(par, grid, tau, A, B, E, beta):
     """Plain twin of :func:`gamma_collocated_zt_chain_slab`: components
     1..5 go through the slab chain, component 0 is -(c1 + c2) in the
@@ -574,6 +579,22 @@ def gamma_collocated_chain_slab(par, grid, tau, A, B, E, beta):
                        lambda dev: collocated_tables(grid, tau[0].dtype, dev),
                        (A, B, beta),
                        vector=lambda j, like: _slab_vector(E, j, like, ncomp))
+
+
+def gamma_collocated_hyper_chain_slab(par, grid, tau, A, B, E, beta):
+    """K5 at C = 9 (the finite-strain collocated Gamma) on the x-slabs of a
+    sharded deformation-gradient field; ``E`` is 9 values or a list of them
+    replicated over the slabs.  Counts under ``gamma_collocated_chain_slab``."""
+    if _on_cpu(tau):
+        return gamma_collocated_hyper_chain_slab_plain(par, grid, tau, A, B,
+                                                       E, beta)
+    if tau[0].shape[0] != 9:
+        raise ValueError(f"tau has {tau[0].shape[0]} components, expected 9")
+    return _chain_slab("gamma_collocated_hyper_chain",
+                       "gamma_collocated_chain_slab", par, grid, tau, 9,
+                       lambda dev: collocated_tables(grid, tau[0].dtype, dev),
+                       (A, B, beta),
+                       vector=lambda j, like: _slab_vector(E, j, like, 9))
 
 
 def gamma_collocated_zt_chain_slab(par, grid, tau, A, B, E, beta):

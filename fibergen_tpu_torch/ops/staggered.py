@@ -14,8 +14,8 @@ finite-strain pair (full gradient, divergence of a full tensor) mixes them
 as the symmetric pair does; both pairs stay plain PyTorch on every device,
 as the JAX package computes them outside any Pallas kernel.
 
-On an x-slab of a sharded field (``parallel/``) the symmetric and the
-scalar pairs take ``halo=(minus, plus)``, the neighbouring slabs' x-planes
+On an x-slab of a sharded field (``parallel/``) each pair takes
+``halo=(minus, plus)``, the neighbouring slabs' x-planes
 (``comm.halo_x``): the stencil runs on the slab with its halo planes
 attached, and the two outer planes are dropped.  ``grid`` is the whole
 grid (its n/d per axis).
@@ -101,10 +101,12 @@ def div_staggered_heat(grid, tau, halo=None):
             + _dm(tau[2], 2, hz))[None]
 
 
-def eps_staggered_hyper(grid, E, u):
+def eps_staggered_hyper(grid, E, u, halo=None):
     """Full (unsymmetrized) staggered gradient of displacement + mean
     deformation gradient E (fibergen.cpp:18763-18847).  u: (3,nx,ny,nz),
     E: (9,), returns (9, ...) in the dim-9 component order."""
+    if halo is not None:
+        return with_halo(lambda x: eps_staggered_hyper(grid, E, x), u, halo)
     hx, hy, hz = hs(grid)
     ux, uy, uz = u[0], u[1], u[2]
     return torch.stack([
@@ -120,9 +122,11 @@ def eps_staggered_hyper(grid, E, u):
     ])
 
 
-def div_staggered_hyper(grid, tau):
+def div_staggered_hyper(grid, tau, halo=None):
     """Staggered divergence of a full (9-component) tensor field, row i
     from tau[i, :] (fibergen.cpp:19016-19071).  Returns (3, nx, ny, nz)."""
+    if halo is not None:
+        return with_halo(lambda x: div_staggered_hyper(grid, x), tau, halo)
     hx, hy, hz = hs(grid)
     return torch.stack([
         _dm(tau[0], 0, hx) + _dp(tau[5], 1, hy) + _dp(tau[4], 2, hz),

@@ -5,8 +5,9 @@ This module is the one place that tells the two layouts apart.  A sharded
 field is a list of x-slabs, slab i on the mesh's device i; a sharded
 scalar or vector is a list with the value on every slab's device, as
 :func:`.comm.psum` leaves it.  A whole value is one tensor.  Code that runs
-on either layout maps its per-voxel work with :func:`smap` and reduces
-with :func:`vmean`, and reads a replicated value with :func:`local`.
+on either layout maps its per-voxel work with :func:`smap`, reduces with
+:func:`vmean` or :func:`fold`, and reads a replicated value with
+:func:`local`.
 """
 from __future__ import annotations
 
@@ -48,6 +49,17 @@ def vmean(fn, *args):
     if not sharded(parts):
         return parts
     return [s / len(parts) for s in comm.psum(parts)]
+
+
+def fold(op, parts):
+    """``op`` (e.g. ``torch.minimum``) folded over per-slab values in slab
+    order on the first slab's device; a whole value as it is."""
+    if not sharded(parts):
+        return parts
+    out = parts[0]
+    for p in parts[1:]:
+        out = op(out, p.to(out.device))
+    return out
 
 
 def whole(x, device=None):

@@ -1,7 +1,7 @@
 """Finite-strain Newton-Krylov (runCGHyper, fibergen.cpp:22699-23131).
 
 Port of fibergen_tpu/solvers/newton.py ``run_newton_cg`` for trivial (pure
-F) boundary conditions on one device: an outer Newton iteration on the
+F) boundary conditions: an outer Newton iteration on the
 nonlinear Lippmann-Schwinger equation, an inner linear CG on the
 linearized operator.  The tangent dP/dF(F)[Q] is torch.func's jvp of the
 autodiff PK1 (``newton_tangent="exact"``), or the per-voxel frozen
@@ -9,6 +9,11 @@ isotropic form a Q + b tr(Q) I + c Q^T refreshed at each outer iteration
 (``"frozen_iso"``, modified Newton).  The Gamma operator is
 ``ops.gamma.gamma_hyper``: K3 with the full-gradient constants on the
 staggered grid, K5 at C = 9 on the collocated grid.
+
+Sharded (``solver.par``), the fields are x-slabs and the scalars lists
+replicated over them (``parallel/slabs.py``): every field and scalar op
+goes through ``slabs.smap``, the inner products add per-slab partials in
+slab order, and the Gamma operator runs the kz-slab chains.
 
 The inner CG runs ``check_every`` iterations on the device per host read:
 the host reads the chunk's (gamma, denominator, metric) stacks once and
@@ -24,6 +29,7 @@ import torch
 
 from ..core import fields
 from ..ops import gamma as gammamod
+from ..parallel import slabs
 from ..utils.logging import LOG
 from .estimators import make_estimator
 
@@ -47,7 +53,7 @@ def _metric_for(mat, kind):
 
 
 def _host(x):
-    return None if x is None else x.cpu().numpy()
+    return None if x is None else slabs.local(x).cpu().numpy()
 
 
 def _iso_project(T):
@@ -70,18 +76,19 @@ def _frozen_abc(solver):
     """Per-voxel (a, b, c) fields of the modified-Newton tangent: each
     phase law's exact 9x9 tangent at the mean deformation, projected onto
     the isotropic form, phi-mixed (VoigtMixed's dP/dF = sum phi_p
-    dP_p/dF)."""
+    dP_p/dF).  Sharded, the mean is taken across the slabs and each slab
+    gets its (a, b, c) from its own phi."""
     mat = solver.mat
-    F0 = fields.mean(solver.eps).reshape(9, 1, 1, 1)
+    F0 = slabs.local(fields.mean(solver.eps)).reshape(9, 1, 1, 1)
     eye = torch.eye(9, dtype=F0.dtype, device=F0.device)
     coefs = []
     for p in mat.phases:
         cols = [p.law.dpk1(F0, eye[j].reshape(9, 1, 1, 1)) for j in range(9)]
         T = torch.stack([c.reshape(9) for c in cols], dim=1)
         coefs.append(_iso_project(T.cpu().numpy()))
-    phis = [p.phi.to(dtype=F0.dtype, device=F0.device) for p in mat.phases]
-    return tuple(sum(ph * c[k] for ph, c in zip(phis, coefs))
-                 for k in range(3))
+    return slabs.smap(lambda *phis: tuple(
+        sum(ph * c[k] for ph, c in zip(phis, coefs)) for k in range(3)),
+        *mat.phase_fields(solver.eps))
 
 
 class _Operator:
@@ -92,26 +99,31 @@ class _Operator:
     def __init__(self, solver, F, mu0, lam0, abc):
         self.s, self.F, self.mu0, self.lam0, self.abc = (solver, F, mu0,
                                                          lam0, abc)
-        self.zero = torch.zeros(9, dtype=F.dtype, device=F.device)
+        self.zero = solver._vector(np.zeros(9))
 
     def stress_deriv(self, Q):
         """(dP/dF(F) - C0) : Q (calcStressDeriv, fibergen.cpp:18425-18480);
         frozen: (a - 2 mu0) Q + c Q^T + (b - lam0) tr(Q) I."""
-        mu0, lam0 = self.mu0, self.lam0
         if self.abc is not None:
-            a, b, c = self.abc
-            W = (a - 2.0 * mu0) * Q + c * Q[_T9]
-            W[0:3] += (b - lam0) * (Q[0] + Q[1] + Q[2])
-            return W
-        W = self.s.mat.dpk1(self.F, Q) - 2.0 * mu0 * Q
-        if lam0 != 0.0:
-            W[0:3] -= lam0 * (Q[0] + Q[1] + Q[2])
+            return slabs.smap(self._frozen, Q, self.abc)
+        return slabs.smap(self._minus_c0, self.s.mat.dpk1(self.F, Q), Q)
+
+    def _frozen(self, Q, abc):
+        a, b, c = abc
+        W = (a - 2.0 * self.mu0) * Q + c * Q[_T9]
+        W[0:3] += (b - self.lam0) * (Q[0] + Q[1] + Q[2])
+        return W
+
+    def _minus_c0(self, dP, Q):
+        W = dP - 2.0 * self.mu0 * Q
+        if self.lam0 != 0.0:
+            W[0:3] -= self.lam0 * (Q[0] + Q[1] + Q[2])
         return W
 
     def gamma(self, E, tau):
         s = self.s
         return gammamod.gamma_hyper(s.grid, s.scheme, E, self.mu0, self.lam0,
-                                    tau)
+                                    tau, par=s.par)
 
     def __call__(self, Q):
         return self.gamma(self.zero, self.stress_deriv(Q))
@@ -123,19 +135,25 @@ def _init(op, X0):
     system); gamma = <R, R>."""
     X = op.gamma(X0, op.s.mat.pk1(op.F))
     R = op(X)
-    return X, R, fields.inner_l2(R, R) + op.s._tiny
+    return X, R, _plus_tiny(op, fields.inner_l2(R, R))
+
+
+def _plus_tiny(op, x):
+    return slabs.smap(lambda v: v + op.s._tiny, x)
 
 
 def _step(op, X, R, Q, gamma):
     """One inner CG step in the unshifted form; X, R and Q are updated in
     place.  Returns (gamma of the next step, denominator <Q, Q - A Q>)."""
     W = op(Q)
-    denom = fields.inner_l2_diff(Q, Q, W) + op.s._tiny
-    alpha = gamma / denom
-    X.addcmul_(Q, alpha)                 # X + alpha Q
-    R.addcmul_(W.sub_(Q), alpha)         # R - alpha (Q - W)
-    delta = fields.inner_l2(R, R) + op.s._tiny
-    Q.mul_(delta / gamma).add_(R)        # R + beta Q
+    denom = _plus_tiny(op, fields.inner_l2_diff(Q, Q, W))
+    alpha = slabs.smap(torch.div, gamma, denom)
+    slabs.smap(torch.Tensor.addcmul_, X, Q, alpha)      # X + alpha Q
+    slabs.smap(lambda r, w, q, a: r.addcmul_(w.sub_(q), a), R, W, Q,
+               alpha)                                    # R - alpha (Q - W)
+    delta = _plus_tiny(op, fields.inner_l2(R, R))
+    slabs.smap(lambda q, d, g, r: q.mul_(d / g).add_(r), Q, delta, gamma,
+               R)                                        # R + beta Q
     return delta, denom
 
 
@@ -149,9 +167,9 @@ def run_newton_cg(solver, E0):
     relax = opt.newton_relax
 
     # satisfy <eps> = E0 (fibergen.cpp:22744-22745)
-    dE = np.asarray(E0, np.float64) - fields.mean(solver.eps).cpu().numpy()
-    solver.eps = solver.eps + torch.as_tensor(
-        dE, dtype=solver.dtype, device=solver.device).reshape(-1, 1, 1, 1)
+    dE = np.asarray(E0, np.float64) - _host(fields.mean(solver.eps))
+    solver.eps = slabs.smap(lambda e, d: e + d.reshape(-1, 1, 1, 1),
+                            solver.eps, solver._vector(dE))
 
     metric = _metric_for(mat, solver._estimator_kind)
     per_step = solver._estimator_kind in ("epsilon", "sigma", "energy")
@@ -164,7 +182,7 @@ def run_newton_cg(solver, E0):
     best_outer = float("inf")
     stall_outer = 0
     K = max(1, int(opt.check_every))
-    X0 = torch.zeros(9, dtype=solver.dtype, device=solver.device)
+    X0 = solver._vector(np.zeros(9))
     stats = solver.newton_iterations
 
     while True:
@@ -176,8 +194,8 @@ def run_newton_cg(solver, E0):
         op = _Operator(solver, F, solver.mu_0, solver.lambda_0, abc)
         X, R, gamma = _init(op, X0)
         if gamma0 < 0:
-            gamma0 = float(gamma)
-        Q = R.clone()
+            gamma0 = float(slabs.local(gamma))
+        Q = slabs.smap(torch.clone, R)
         stats[0] += 1
 
         ee = make_estimator(opt.error_estimator)
@@ -185,16 +203,19 @@ def run_newton_cg(solver, E0):
         solver._reset_stall()        # the inner CG restarts its errors
         it = 0
         done = False
+        def relaxed():
+            return slabs.smap(lambda f, x: f + relax * x, F, X)
+
         while not done:
             eps_checkpoint = solver.eps
             gs, ds, ms = [], [], []
             for _ in range(K):
-                gs.append(gamma)
+                gs.append(slabs.local(gamma))
                 gamma, denom = _step(op, X, R, Q, gamma)
-                ds.append(denom)
+                ds.append(slabs.local(denom))
                 if per_step:
-                    ms.append(metric(F + relax * X))
-            solver.eps = F + relax * X
+                    ms.append(slabs.local(metric(relaxed())))
+            solver.eps = relaxed()
             gs = torch.stack(gs).cpu().numpy()
             ds = torch.stack(ds).cpu().numpy()
             ms = torch.stack(ms).cpu().numpy() if ms else None

@@ -440,3 +440,85 @@ def test_cuda_sharded_solve_matches_cpu(cuda, mode, scheme):
     assert len(rg) == len(rc)
     np.testing.assert_allclose(rg, rc, rtol=1e-9)
     assert np.max(np.abs(eg - ec)) <= 1e-12
+
+
+@pytest.mark.parametrize("shape,d", [((48, 48, 48), 1), ((48, 48, 48), 2),
+                                     ((48, 48, 48), 4), ((33, 16, 29), 1)])
+def test_cuda_hyper_slab_chains_match_twins(cuda, shape, d):
+    """The finite-strain slab chains, K5 at C = 9 (lambda_0 = 0 and finite,
+    beta != 0, E per slab) and K3 with the full-gradient constants, on
+    ["cuda:0"] * d against their plain twins on CPU slabs and against the
+    whole-field chains, float64; each slab chain launches 3 d times (z,
+    middle, z inverse on every slab)."""
+    rng = np.random.default_rng(13)
+    g = Grid(*shape, dx=1.2, dy=0.8, dz=1.0)
+    tau = torch.as_tensor(rng.standard_normal((9,) + shape), device=cuda)
+    f = torch.as_tensor(rng.standard_normal((3,) + shape), device=cuda)
+    E = torch.as_tensor(rng.standard_normal(9), device=cuda)
+    mesh = parallel.make_mesh(["cuda:0"] * d)
+    cmesh = parallel.make_mesh(["cpu"] * d)
+    par, cpar = parallel.SlabPar(mesh), parallel.SlabPar(cmesh)
+    G = parallel.gather_field
+    for lam0, beta in ((0.0, 0.0), (0.3, 0.37)):
+        A, B = green.hyper_constants(1.7, lam0)
+        before = dict(stencil_kernels.launches, **spectral_kernels.launches)
+        out9 = spectral_kernels.gamma_collocated_hyper_chain_slab(
+            par, g, parallel.shard_field(tau, mesh), A, B, [E] * d, beta)
+        out3 = green.g0_staggered_hyper_fused(
+            g, 1.7, lam0, parallel.shard_field(f, mesh), par=par)
+        torch.cuda.synchronize()
+        after = dict(stencil_kernels.launches, **spectral_kernels.launches)
+        assert _launched(before, after) == {
+            "gamma_collocated_chain_slab": 3 * d,
+            "g0_staggered_chain_slab": 3 * d}
+        ref9 = spectral_kernels.gamma_collocated_hyper_chain_slab_plain(
+            cpar, g, parallel.shard_field(tau.cpu(), cmesh), A, B,
+            [E.cpu()] * d, beta)
+        ref3 = spectral_kernels.g0_staggered_chain_slab_plain(
+            cpar, g, parallel.shard_field(f.cpu(), cmesh), -A, B)
+        assert _rel(G(out9), G(ref9)) <= 1e-12
+        assert _rel(G(out3), G(ref3)) <= 1e-12
+        whole9 = spectral_kernels.gamma_collocated_hyper_chain(g, tau, A, B,
+                                                               E, beta)
+        whole3 = green.g0_staggered_hyper_fused(g, 1.7, lam0, f)
+        assert _rel(G(out9), whole9) <= 1e-12
+        assert _rel(G(out3), whole3) <= 1e-12
+
+
+@pytest.mark.parametrize("scheme,tangent,chain", [
+    ("staggered", "exact", "g0_staggered_chain_slab"),
+    ("collocated", "exact", "gamma_collocated_chain_slab"),
+    ("staggered", "frozen_iso", "g0_staggered_chain_slab")])
+def test_cuda_sharded_hyper_solve_matches_cpu(cuda, scheme, tangent, chain):
+    """A float64 Newton-Krylov solve (two-phase SVK sphere, 2 % stretch) on
+    four slabs of one card against the same solve on four CPU slabs: the
+    same outer and inner iterations, histories within 1e-9 (1e-14 absolute
+    on the epsilon entries), mean PK1 within 1e-10; the card's run
+    launches its slab chain and no other kernel."""
+    n = 24
+    a = ((np.arange(n) + 0.5) / n - 0.5) ** 2
+    phi = ((a[:, None, None] + a[None, :, None] + a[None, None, :])
+           < 0.09).astype(np.float64)
+    res = {}
+    for dev in ("cpu", "cuda:0"):
+        mat = ft.convert.material_from_numpy(
+            [("fiber", 10.0, 5.0, phi), ("matrix", 1.0, 1.0, 1.0 - phi)],
+            dim=9, law="svk", device=dev)
+        s = ft.LSSolver(Grid(n, n, n), mat, ft.SolverOptions(
+            mode="hyperelasticity", gamma_scheme=scheme, tol=1e-6,
+            newton_tangent=tangent, error_estimator="residual",
+            outer_error_estimator="epsilon", check_every=4),
+            sharding=parallel.field_sharding(parallel.make_mesh([dev] * 4)))
+        s.set_strain([1.02, 1, 1, 0, 0, 0, 0, 0, 0])
+        before = dict(stencil_kernels.launches, **spectral_kernels.launches)
+        assert not s.run()
+        after = dict(stencil_kernels.launches, **spectral_kernels.launches)
+        assert len(s.eps) == 4
+        res[dev] = (np.asarray(s.residuals), s.calc_mean_stress(),
+                    list(s.newton_iterations), set(_launched(before, after)))
+    (rc, Sc, nc, kc), (rg, Sg, ng, kg) = res["cpu"], res["cuda:0"]
+    assert kc == set() and kg == {chain}
+    assert ng == nc and len(rg) == len(rc)
+    np.testing.assert_allclose(rg, rc, rtol=1e-9, atol=1e-14)
+    np.testing.assert_allclose(Sg, Sc, rtol=0,
+                               atol=1e-10 * np.max(np.abs(Sc)))

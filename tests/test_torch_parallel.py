@@ -15,7 +15,11 @@ sharded code on forced host devices (conftest):
   (16, 8, 7) (kz = 4 does); in float32 against its fused sharded Pallas
   path;
 * the port's sharded solve against its own unsharded one at D = 1, 2, 4;
-* the refusals.
+* the refusals (the paths still refused on slabs: staggered viscosity and
+  ``sharding_fallback="warn"``).
+
+The sharded hyperelastic and polarization paths are in
+test_torch_parallel_hyper.py and test_torch_parallel_hyper_solve.py.
 
 The CUDA kernels of the slab path are held against these twins in
 test_torch_cuda.py.
@@ -470,15 +474,18 @@ def test_refusals_match_the_jax_package():
                 jreason(JSharding(_jmesh(8), P(*spec)), fg.Grid(*shape))
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(mode="viscosity", gamma_scheme="staggered"), "staggered viscosity"),
-    (dict(method="polarization"), "polarization"),
-    (dict(mode="hyperelasticity"), "hyperelasticity"),
-    (dict(sharding_fallback="warn"), "sharding_fallback"),
+@pytest.mark.parametrize("kw,shape,exc,match", [
+    (dict(mode="viscosity", gamma_scheme="staggered"), (16, 8, 8),
+     NotImplementedError, "staggered viscosity"),
+    (dict(sharding_fallback="warn"), (16, 8, 8), NotImplementedError,
+     "sharding_fallback"),
+    # the sharded Newton path refuses a grid the slabs cannot split, as
+    # the linear paths do
+    (dict(mode="hyperelasticity"), (18, 8, 8), SolverError, "not divisible"),
 ])
-def test_unported_sharded_paths_raise(kw, match):
+def test_unported_sharded_paths_raise(kw, shape, exc, match):
     mode = kw.get("mode", "elasticity")
-    phi = np.full((16, 8, 8), 0.5)
+    phi = np.full(shape, 0.5)
     if mode == "hyperelasticity":
         mat = ft.convert.material_from_numpy(
             [("a", 1.0, 1.0, phi), ("b", 2.0, 1.0, 1.0 - phi)], dim=9,
@@ -491,8 +498,8 @@ def test_unported_sharded_paths_raise(kw, match):
         mat = ft.convert.material_from_numpy(
             [("a", 1.0, 1.0, phi), ("b", 5.0, 2.0, 1.0 - phi)], device="cpu")
     sharding = parallel.field_sharding(parallel.make_mesh(["cpu"] * 4))
-    with pytest.raises(NotImplementedError, match=match):
-        ft.LSSolver(ft.Grid(16, 8, 8), mat, ft.SolverOptions(**kw),
+    with pytest.raises(exc, match=match):
+        ft.LSSolver(ft.Grid(*shape), mat, ft.SolverOptions(**kw),
                     sharding=sharding)
 
 
