@@ -14,8 +14,9 @@ constants) and collocated (K5 at C = 9).  Phases, each failing loudly:
 
 1. the card's name and power limit; build the CUDA kernels from ``csrc/``;
 2. every kernel in every mode against its plain PyTorch twin at the paths'
-   shapes (256^3 float32) and on an odd float64 grid, with kernel, twin
-   and cuFFT times from CUDA events;
+   shapes (256^3 float32), on an odd float64 grid and on a float64 grid
+   of power-of-two axes (the chains' register line FFT), with kernel,
+   twin and cuFFT times from CUDA events;
 3. the kernel path (cuda) against the plain path (cpu) on one 48^3
    float64 solve of each linear path and one 24^3 float64 Newton solve of
    each hyperelastic path;
@@ -51,6 +52,7 @@ the script exits non-zero before printing any result.
 """
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -666,9 +668,11 @@ def main():
     log(f"phase 1: kernels in {out}, {len(_build.ptxas_log)} sources "
         f"compiled in this run, {time.perf_counter() - t0:.1f} s")
     for src, text in sorted(_build.ptxas_log.items()):
-        for line in text.splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"  {src}: {line.strip()}")
+        regs = [int(w) for w in re.findall(r"Used (\d+) registers", text)]
+        spills = [line.strip() for line in text.splitlines()
+                  if "spill" in line and not line.strip().startswith("0 ")]
+        log(f"  {src}: {len(regs)} kernels, at most {max(regs, default=0)} "
+            f"registers a thread, {len(spills)} with spills")
 
     def run_counted(solver, label, path):
         """Run one solve with every launch count set to 0 just before it;
@@ -689,6 +693,8 @@ def main():
     log("phase 2: kernels vs plain twins")
     main_nums = check_kernels((256, 256, 256), torch.float32, timed=True)
     check_kernels((33, 17, 29), torch.float64, timed=False)
+    # power-of-two axes: the chains' register line FFT in float64
+    check_kernels((64, 32, 16), torch.float64, timed=False)
     torch.cuda.empty_cache()
 
     # ---- phase 3: kernel path vs plain path on the same solve
@@ -909,6 +915,7 @@ def main():
     slab_nums = check_slab_kernels((256, 256, 256), torch.float32, mesh,
                                    timed=True)
     check_slab_kernels((48, 48, 48), torch.float64, mesh, timed=False)
+    check_slab_kernels((64, 64, 64), torch.float64, mesh, timed=False)
     check_slab_kernels((33, 16, 29), torch.float64, ["cuda:0"], timed=False)
     torch.cuda.empty_cache()
     opt = dict(error_estimator="residual", tol=1e-8, check_every=4,

@@ -57,25 +57,45 @@
 // need not be Hermitian in (kx, ky), and z_inv keeps the real part there,
 // as a c2r transform that drops those imaginary parts does.
 //
-// Each block loads a tile of whole lines into shared memory and transforms
-// it there.  A power-of-two length runs radix-4 passes (radix 2 for an odd
-// power): decimation in frequency takes natural order to bit-reversed
-// order, decimation in time takes it back, so no pass only permutes; the
-// kernels read bit-reversed bins where they store or apply.  Any other
-// length runs a direct O(n^2) DFT.  Twiddles exp(-2 pi i t / n) come from
-// a per-axis table built in double.  The z kernels pack two real lines into
-// one complex transform (a + i b) and split or join their spectra by
-// Hermitian symmetry; with C = 1 the pairs are neighbouring y lines.
+// Line transforms.  A power-of-two length from 16 to 512 (every axis of
+// the 256^3 and 512^3 bench grids) runs the register-resident line FFT (see "The
+// register-resident line FFT" below): a line is held by n / V threads of V
+// values (256 = 16 threads x 16 values), each Stockham stage is an
+// R-point DFT in registers, and one exchange through shared memory (two for
+// n = 512) joins the stages; the first stage reads its values straight
+// from device memory and the last leaves them in natural order for the
+// store.  Twiddles between stages come from a per-length table built in
+// double on the host (spectral_kernels.plan_twiddles), those inside a
+// stage are compile-time constants.  Any other length loads a tile of whole
+// lines into shared memory: a power of two runs radix-4 passes (radix 2
+// for an odd power), decimation in frequency to bit-reversed order and
+// decimation in time back, the kernels reading bit-reversed bins where they
+// store or apply; any other length a direct O(n^2) DFT from a per-axis
+// table exp(-2 pi i t / n).  The choice is by length, per axis and pass.
+// The z kernels pack two real lines into one complex transform (a + i b)
+// and split or join their spectra by Hermitian symmetry (bins k and n - k
+// of a line, from the exchange's own slots); with C = 1 the pairs are
+// neighbouring y lines.
 //
 // Bound on the card: device-memory bytes.  The function reads f and writes
 // u once (2C values per voxel); the chain moves the spectrum five times, so
 // it runs at about five times that bound at best.  Design: y and x tiles
-// take TK consecutive kz bins of every line (coalesced along kz); the x
-// kernel holds all C components of its tile, so the apply, which mixes
-// components, happens between the forward and inverse x transforms without
-// a trip through device memory, as in the TPU kernel.  The x tile holds
-// C * nx * TK values: TK shrinks to keep it within 96 KiB, and the launcher
-// refuses a tile past Hopper's 227 KiB (the error reaches the caller).
+// take TK consecutive kz bins of every line (coalesced along kz).  In the
+// register passes a line's transform touches shared memory twice per value
+// (one exchange, one barrier pair) instead of about eight times with four
+// barriers, so the z and y passes run at 80-90 % of their own byte bounds
+// at 256^3 (PERF.md).  The x kernel holds all C components of its tile,
+// so the apply, which mixes components, happens between the forward and
+// inverse x transforms without a trip through device memory, as in the
+// TPU kernel: each thread transforms one component's line in registers,
+// the C spectra meet in shared memory (natural order) for the apply, and
+// each thread takes its line back for the inverse.  Its tile is C * nx *
+// TK values with TK a 128-byte row segment (16 float32 bins), halved until
+// the block has at most 1024 threads; its rows lie ny * nzl values apart,
+// and narrower segments cost more than the lower occupancy of the larger
+// tile.  The shared-memory route keeps its x tile within 96 KiB; the
+// launcher refuses a tile past Hopper's 227 KiB (the error reaches the
+// caller).
 
 #include "fg_common.cuh"
 
@@ -254,6 +274,201 @@ template <typename T>
 __device__ __forceinline__ Cx<T>* smem_base() {
   extern __shared__ __align__(16) unsigned char fg_smem[];
   return reinterpret_cast<Cx<T>*>(fg_smem);
+}
+
+// ---------------------------------------------------------------------------
+// The register-resident line FFT (power-of-two lengths 16..512).
+//
+// A line of n values is held by TT = n / V threads of V values each:
+// thread t holds elements t + TT m (m = 0..V-1) in registers.  The
+// transform runs Stockham stages of radix R = plan_radix(n, s), each
+// dividing V, so a thread does V / R butterflies a stage.  Butterfly j =
+// t + TT b of a stage whose earlier radices multiply to Ns takes the
+// elements j + r n / R (registers b + r V / R), multiplies element r by
+// W_{Ns R}^{r k} with k = j mod Ns, runs an R-point DFT in registers and
+// hands output r to element (j - k) R + k + r Ns of the next stage, through
+// shared memory.  The first stage's inputs are the thread's own elements,
+// and the last stage leaves element t + TT m, in natural order, in the
+// same register, so callers load from and store to device memory straight
+// from registers.  n = 16 .. 256 take two stages and one exchange (256 =
+// 16 x 16), n = 512 three (8 x 8 x 8).  The twiddles W_{Ns R}^{r k} come
+// from a per-n table built in double on the host (spectral_kernels.
+// plan_twiddles, which mirrors this plan), those inside the R-point DFTs
+// are compile-time constants.
+__host__ __device__ constexpr int plan_v(int n) {
+  return n == 16 ? 4 : (n == 128 || n == 256) ? 16 : 8;
+}
+__host__ __device__ constexpr int plan_radix(int n, int s) {
+  return s == 0 ? plan_v(n) : n == 512 ? 8 : n / plan_v(n);
+}
+__host__ __device__ constexpr int plan_stages(int n) {
+  return n == 512 ? 3 : 2;
+}
+inline bool reg_route(int n) {
+  return n >= 16 && n <= 512 && !(n & (n - 1));
+}
+
+// cos(pi i / 32) for 0 <= i <= 16, and for any i (period 64)
+__host__ __device__ constexpr double cos_pi32(int i) {
+  return i == 0 ? 1.0 : i == 1 ? 0.9951847266721969
+       : i == 2 ? 0.9807852804032304 : i == 3 ? 0.9569403357322088
+       : i == 4 ? 0.9238795325112867 : i == 5 ? 0.881921264348355
+       : i == 6 ? 0.8314696123025452 : i == 7 ? 0.773010453362737
+       : i == 8 ? 0.7071067811865476 : i == 9 ? 0.6343932841636455
+       : i == 10 ? 0.5555702330196023 : i == 11 ? 0.4713967368259978
+       : i == 12 ? 0.38268343236508984 : i == 13 ? 0.29028467725446233
+       : i == 14 ? 0.19509032201612833 : i == 15 ? 0.09801714032956077
+       : 0.0;
+}
+__host__ __device__ constexpr double cos64(int a) {
+  return (a & 63) <= 16 ? cos_pi32(a & 63)
+       : (a & 63) <= 32 ? -cos_pi32(32 - (a & 63))
+       : (a & 63) <= 48 ? -cos_pi32((a & 63) - 32)
+       : cos_pi32(64 - (a & 63));
+}
+
+// x W_m^k, W_m = exp(-2 pi i / m) (conjugated with INV), for m <= 64; k and
+// m are constants once the caller's loops are unrolled
+template <bool INV, typename T>
+__device__ __forceinline__ Cx<T> rot(Cx<T> x, int k, int m) {
+  if (k == 0) return x;
+  if (4 * k == m) return INV ? Cx<T>{-x.i, x.r} : Cx<T>{x.i, -x.r};
+  const int a = 64 * k / m;
+  const T c = T(cos64(a)), s = INV ? T(cos64(a - 16)) : T(-cos64(a - 16));
+  return {x.r * c - x.i * s, x.r * s + x.i * c};
+}
+
+template <int R>
+__host__ __device__ constexpr int brev_c(int i) {
+  int r = 0;
+  for (int b = 1; b < R; b <<= 1) {
+    r = (r << 1) | (i & 1);
+    i >>= 1;
+  }
+  return r;
+}
+
+// Radix-2 decimation-in-frequency stages of half size H, H/2, .., 1 on the
+// R registers u
+template <int R, int H, bool INV, typename T>
+struct Dif {
+  static __device__ __forceinline__ void run(Cx<T> (&u)[R]) {
+#pragma unroll
+    for (int b = 0; b < R; b += 2 * H) {
+#pragma unroll
+      for (int k = 0; k < H; ++k) {
+        const Cx<T> a = u[b + k], c = u[b + k + H];
+        u[b + k] = cadd(a, c);
+        u[b + k + H] = rot<INV>(csub(a, c), k, 2 * H);
+      }
+    }
+    Dif<R, H / 2, INV, T>::run(u);
+  }
+};
+template <int R, bool INV, typename T>
+struct Dif<R, 0, INV, T> {
+  static __device__ __forceinline__ void run(Cx<T> (&)[R]) {}
+};
+
+// R-point DFT of the registers u, natural order in and out (the bit
+// reversal of the decimation in frequency is a renaming of registers)
+template <int R, bool INV, typename T>
+__device__ __forceinline__ void dft_reg(Cx<T> (&u)[R]) {
+  Dif<R, R / 2, INV, T>::run(u);
+  Cx<T> w[R];
+#pragma unroll
+  for (int i = 0; i < R; ++i) w[i] = u[brev_c<R>(i)];
+#pragma unroll
+  for (int i = 0; i < R; ++i) u[i] = w[i];
+}
+
+// One Stockham stage (radix R, earlier radices' product NS) of the
+// calling thread's butterflies; tw: this stage's W_{NS R}^{r k} at
+// (r - 1) NS + k
+template <int N, int R, int NS, bool INV, typename T>
+__device__ __forceinline__ void stage(Cx<T> (&v)[plan_v(N)], int t,
+                                      const Cx<T>* __restrict__ tw) {
+  constexpr int V = plan_v(N), TT = N / V, NB = V / R;
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    const int k = (t + TT * b) & (NS - 1);
+    Cx<T> u[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      u[r] = v[b + r * NB];
+      if (NS > 1 && r > 0) {
+        Cx<T> w = tw[(r - 1) * NS + k];
+        if (INV) w.i = -w.i;
+        u[r] = cmul(u[r], w);
+      }
+    }
+    dft_reg<R, INV>(u);
+#pragma unroll
+    for (int r = 0; r < R; ++r) v[b + r * NB] = u[r];
+  }
+}
+
+// The exchange after a stage of radix R and earlier product NS: output r
+// of butterfly j goes to element (j - k) R + k + r NS; then each thread
+// takes elements t + TT m back.  at(j) is the shared-memory slot of element
+// j of the thread's line.
+template <int N, int R, int NS, typename T, class At>
+__device__ __forceinline__ void put(const Cx<T> (&v)[plan_v(N)], int t,
+                                    At at) {
+  constexpr int V = plan_v(N), TT = N / V, NB = V / R;
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    const int j = t + TT * b, k = j & (NS - 1), d = (j - k) * R + k;
+#pragma unroll
+    for (int r = 0; r < R; ++r) at(d + r * NS) = v[b + r * NB];
+  }
+}
+template <int N, typename T, class At>
+__device__ __forceinline__ void get(Cx<T> (&v)[plan_v(N)], int t, At at) {
+  constexpr int V = plan_v(N), TT = N / V;
+#pragma unroll
+  for (int m = 0; m < V; ++m) v[m] = at(t + TT * m);
+}
+
+// The register FFT of every line of a block, in place in v (element t + TT
+// m in v[m], natural order in and out).  Every thread of the block calls
+// it: each exchange begins with a barrier, so the caller's earlier use of
+// the slots at() names must be over by then, and ends with one.
+template <int N, bool INV, typename T, class At>
+__device__ __forceinline__ void line_fft(Cx<T> (&v)[plan_v(N)], int t,
+                                         const Cx<T>* __restrict__ tw,
+                                         At at) {
+  constexpr int R0 = plan_radix(N, 0), R1 = plan_radix(N, 1);
+  stage<N, R0, 1, INV>(v, t, tw);
+  __syncthreads();
+  put<N, R0, 1>(v, t, at);
+  __syncthreads();
+  get<N>(v, t, at);
+  stage<N, R1, R0, INV>(v, t, tw);
+  if constexpr (plan_stages(N) == 3) {
+    constexpr int R2 = plan_radix(N, 2);
+    __syncthreads();
+    put<N, R1, R0>(v, t, at);
+    __syncthreads();
+    get<N>(v, t, at);
+    stage<N, R2, R0 * R1, INV>(v, t, tw + (R1 - 1) * R0);
+  }
+}
+
+// Slot of element p of a tile in shared memory: one slot of padding after
+// every 128 bytes, so that the exchanges' power-of-two strides spread over
+// the banks.
+template <typename T>
+__host__ __device__ constexpr int pad_shift() {
+  return sizeof(T) == 4 ? 4 : 3;
+}
+template <typename T>
+__device__ __forceinline__ int pad(int p) {
+  return p + (p >> pad_shift<T>());
+}
+template <typename T>
+size_t padded_bytes(size_t elems) {
+  return (elems + (elems >> pad_shift<T>())) * sizeof(Cx<T>);
 }
 
 // Real lines of length nz (line g at f + g * nz) -> bins 0..nzh-1 of their
@@ -617,6 +832,173 @@ __global__ void x_apply(Cx<T>* __restrict__ spec, const Cx<T>* __restrict__ tw,
   }
 }
 
+// The register-FFT passes (line length N with reg_route(N)).  Threads that
+// hold no live data (past the last column or line) still take part in the
+// barriers and store nothing.
+
+// z_fwd with the register FFT: block of P = 256 / TT complex lines, each
+// holding real lines 2m and 2m+1; thread (m, t) = m TT + t, so a warp's
+// loads run along z.  The Hermitian split reads bins k and N - k of a line
+// from the exchange's own slots.
+template <typename T, int N>
+__global__ void __launch_bounds__(256)
+    z_fwd_reg(const T* __restrict__ f, Cx<T>* __restrict__ spec,
+              const Cx<T>* __restrict__ tw, int64_t nlines) {
+  constexpr int V = plan_v(N), TT = N / V, P = 256 / TT, NZH = N / 2 + 1;
+  const int t = threadIdx.x & (TT - 1), m = threadIdx.x / TT;
+  const int64_t g0 = static_cast<int64_t>(blockIdx.x) * 2 * P;
+  const int64_t ga = g0 + 2 * m;
+  Cx<T>* s = smem_base<T>();
+  Cx<T> v[V];
+#pragma unroll
+  for (int r = 0; r < V; ++r) {
+    const int j = t + TT * r;
+    v[r] = {ga < nlines ? f[ga * N + j] : T(0),
+            ga + 1 < nlines ? f[(ga + 1) * N + j] : T(0)};
+  }
+  auto at = [&](int j) -> Cx<T>& { return s[pad<T>(m * N + j)]; };
+  line_fft<N, false>(v, t, tw, at);
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < V; ++r) at(t + TT * r) = v[r];
+  __syncthreads();
+  for (int e = threadIdx.x; e < P * NZH; e += blockDim.x) {
+    const int mm = e / NZH, k = e - mm * NZH;
+    const int64_t gb = g0 + 2 * mm;
+    const Cx<T> z = s[pad<T>(mm * N + k)];
+    const Cx<T> zc = s[pad<T>(mm * N + (k ? N - k : 0))];
+    // A = (Z[k] + conj Z[n-k]) / 2,  B = (Z[k] - conj Z[n-k]) / 2i
+    if (gb < nlines)
+      spec[gb * NZH + k] = {T(0.5) * (z.r + zc.r), T(0.5) * (z.i - zc.i)};
+    if (gb + 1 < nlines)
+      spec[(gb + 1) * NZH + k] = {T(0.5) * (z.i + zc.i),
+                                  T(0.5) * (zc.r - z.r)};
+  }
+}
+
+// z_inv with the register FFT: the packed line A + i B is read straight
+// from the half-spectrum (Hermitian completion) into registers.
+template <typename T, int N>
+__global__ void __launch_bounds__(256)
+    z_inv_reg(const Cx<T>* __restrict__ spec, T* __restrict__ out,
+              const Cx<T>* __restrict__ tw, int64_t nlines) {
+  constexpr int V = plan_v(N), TT = N / V, NZH = N / 2 + 1;
+  const int t = threadIdx.x & (TT - 1), m = threadIdx.x / TT;
+  const int64_t ga = static_cast<int64_t>(blockIdx.x) * 2 * (256 / TT) +
+                     2 * m;
+  Cx<T>* s = smem_base<T>();
+  Cx<T> v[V];
+#pragma unroll
+  for (int r = 0; r < V; ++r) {
+    const int j = t + TT * r;
+    const Cx<T> a = full_bin(spec, ga, nlines, j, N, NZH);
+    const Cx<T> b = full_bin(spec, ga + 1, nlines, j, N, NZH);
+    v[r] = {a.r - b.i, a.i + b.r};
+  }
+  line_fft<N, true>(v, t, tw,
+                    [&](int j) -> Cx<T>& { return s[pad<T>(m * N + j)]; });
+#pragma unroll
+  for (int r = 0; r < V; ++r) {
+    const int j = t + TT * r;
+    if (ga < nlines) out[ga * N + j] = v[r].r;
+    if (ga + 1 < nlines) out[(ga + 1) * N + j] = v[r].i;
+  }
+}
+
+// y_line with the register FFT (ny = N): block (kz tile, c * nx + x) holds
+// TK consecutive kz columns of one row, TT threads a column; thread (t, q)
+// = t TK + q, so a warp's loads run along kz.
+template <typename T, int N, bool INV>
+__global__ void __launch_bounds__(256)
+    y_line_reg(Cx<T>* __restrict__ spec, const Cx<T>* __restrict__ tw,
+               int nzl, int log2TK) {
+  constexpr int V = plan_v(N), TT = N / V;
+  const int TK = 1 << log2TK;
+  const int q = threadIdx.x & (TK - 1), t = threadIdx.x >> log2TK;
+  const int kz0 = blockIdx.x * TK;
+  const bool live = kz0 + q < nzl;
+  Cx<T>* g = spec + static_cast<int64_t>(blockIdx.y) * N * nzl + kz0 + q;
+  Cx<T>* s = smem_base<T>();
+  Cx<T> v[V];
+#pragma unroll
+  for (int m = 0; m < V; ++m)
+    v[m] = live ? g[static_cast<int64_t>(t + TT * m) * nzl]
+                : Cx<T>{T(0), T(0)};
+  line_fft<N, INV>(v, t, tw, [&](int j) -> Cx<T>& {
+    return s[pad<T>((j << log2TK) + q)];
+  });
+  if (live) {
+#pragma unroll
+    for (int m = 0; m < V; ++m)
+      g[static_cast<int64_t>(t + TT * m) * nzl] = v[m];
+  }
+}
+
+// log2 of the kz columns of an x_apply_reg tile: a 128-byte row segment
+// (16 float32, 8 float64 complex values), fewer where the C TT threads a
+// column would pass 1024 threads.  Wide segments matter here: the rows of
+// an x line lie ny * nzl values apart, and 32-byte segments took the pass
+// from 0.43 to 0.58 ms at C = 5 (PERF.md).
+template <typename T>
+__host__ __device__ constexpr int x_log2tk_max(int threads_per_col) {
+  int l = sizeof(T) == 4 ? 4 : 3;
+  while (l > 0 && (threads_per_col << l) > 1024) --l;
+  return l;
+}
+template <typename T, int C, int N>
+__host__ __device__ constexpr int x_threads_max() {
+  return (C * (N / plan_v(N))) << x_log2tk_max<T>(C * (N / plan_v(N)));
+}
+
+// x_apply with the register FFT (nx = N): block (kz tile, y) holds TK
+// consecutive kz columns of all C components, TT threads a column and
+// component; thread (c, t, q) = (c TT + t) TK + q.  Each thread transforms
+// its own component's line in registers (the exchanges through the
+// component's slots of the tile), the spectra meet in shared memory for
+// the apply (natural x order), and each thread takes its line back for the
+// inverse transform and stores it.
+template <typename T, class A, int N>
+__global__ void __launch_bounds__(x_threads_max<T, A::C, N>())
+    x_apply_reg(Cx<T>* __restrict__ spec, const Cx<T>* __restrict__ tw,
+                A apply, int ny, int nzl, int koff, int log2TK) {
+  constexpr int V = plan_v(N), TT = N / V;
+  const int TK = 1 << log2TK;
+  const int q = threadIdx.x & (TK - 1), ct = threadIdx.x >> log2TK;
+  const int c = ct / TT, t = ct & (TT - 1);
+  const int kz0 = blockIdx.x * TK, y = blockIdx.y;
+  const bool live = kz0 + q < nzl;
+  const int64_t sx = static_cast<int64_t>(ny) * nzl;
+  Cx<T>* g = spec + c * (N * sx) + static_cast<int64_t>(y) * nzl + kz0 + q;
+  Cx<T>* s = smem_base<T>();
+  Cx<T> v[V];
+#pragma unroll
+  for (int m = 0; m < V; ++m)
+    v[m] = live ? g[(t + TT * m) * sx] : Cx<T>{T(0), T(0)};
+  const int lo = c * N;
+  auto at = [&](int j) -> Cx<T>& {
+    return s[pad<T>(((lo + j) << log2TK) + q)];
+  };
+  line_fft<N, false>(v, t, tw, at);
+  __syncthreads();
+#pragma unroll
+  for (int m = 0; m < V; ++m) at(t + TT * m) = v[m];
+  __syncthreads();
+  const int bins = N << log2TK;
+  const int bs = pad<T>(bins);      // a component's padded stride
+  const typename A::Row row = apply.row(y);
+  for (int e = threadIdx.x; e < bins; e += blockDim.x) {
+    const int i = e >> log2TK, qq = e & (TK - 1);
+    if (kz0 + qq < nzl) apply(s + pad<T>(e), bs, row, i, koff + kz0 + qq);
+  }
+  __syncthreads();
+  get<N>(v, t, at);
+  line_fft<N, true>(v, t, tw, at);
+  if (live) {
+#pragma unroll
+    for (int m = 0; m < V; ++m) g[(t + TT * m) * sx] = v[m];
+  }
+}
+
 constexpr int kThreads = 256;
 constexpr size_t kTileBytes = 96 * 1024;   // preferred shared memory per block
 constexpr size_t kMaxBytes = 227 * 1024;   // Hopper's opt-in limit
@@ -638,11 +1020,57 @@ int pick_log2(size_t unit, int want, int cover) {
   return l;
 }
 
+// Lets `kernel` take `bytes` of dynamic shared memory; up to the default
+// 48 KiB there is nothing to set (no runtime call on the launch path).
 template <typename K>
 cudaError_t allow_smem(K kernel, size_t bytes) {
   if (bytes > kMaxBytes) return cudaErrorInvalidValue;
+  if (bytes <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(bytes));
+}
+
+// `return CALL;` with the constant N = n, for a length n with reg_route(n)
+#define FG_WITH_N(n, CALL)                                                   \
+  switch (n) {                                                               \
+    case 16: { constexpr int N = 16; return CALL; }                          \
+    case 32: { constexpr int N = 32; return CALL; }                          \
+    case 64: { constexpr int N = 64; return CALL; }                          \
+    case 128: { constexpr int N = 128; return CALL; }                        \
+    case 256: { constexpr int N = 256; return CALL; }                        \
+    case 512: { constexpr int N = 512; return CALL; }                        \
+  }                                                                          \
+  return static_cast<int>(cudaErrorInvalidValue)
+
+// log2 of a tile's kz columns: at most lmax, no more than needed to cover
+// nzl columns
+int cover_log2(int lmax, int nzl) {
+  int l = lmax;
+  while (l > 0 && (1 << (l - 1)) >= nzl) --l;
+  return l;
+}
+
+template <typename T, int N>
+int launch_z_reg(const void* in, void* out, const void* twz, int64_t nlines,
+                 bool inv, cudaStream_t st) {
+  using Cp = Cx<T>;
+  constexpr int P = 256 / (N / plan_v(N));     // complex lines per block
+  const unsigned blocks =
+      static_cast<unsigned>((nlines + 2 * P - 1) / (2 * P));
+  const size_t bytes = padded_bytes<T>(size_t(P) * N);
+  cudaError_t err;
+  if (inv) {
+    if ((err = allow_smem(z_inv_reg<T, N>, bytes))) return int(err);
+    z_inv_reg<T, N><<<blocks, 256, bytes, st>>>(
+        static_cast<const Cp*>(in), static_cast<T*>(out),
+        static_cast<const Cp*>(twz), nlines);
+  } else {
+    if ((err = allow_smem(z_fwd_reg<T, N>, bytes))) return int(err);
+    z_fwd_reg<T, N><<<blocks, 256, bytes, st>>>(
+        static_cast<const T*>(in), static_cast<Cp*>(out),
+        static_cast<const Cp*>(twz), nlines);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The z pass on nlines real lines of length nz (C * nx * ny of a field, or
@@ -651,6 +1079,10 @@ template <typename T>
 int launch_z(const void* in, void* out, const void* twz, int64_t nlines,
              int nz, bool inv, void* stream) {
   using Cp = Cx<T>;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (reg_route(nz)) {
+    FG_WITH_N(nz, (launch_z_reg<T, N>(in, out, twz, nlines, inv, st)));
+  }
   const int nzh = nz / 2 + 1, lz = log2_or_neg(nz);
   // 2^lP complex lines (twice as many real lines) per block
   const size_t zunit = (lz >= 0 ? 1 : 2) * nz * sizeof(Cp);
@@ -658,7 +1090,6 @@ int launch_z(const void* in, void* out, const void* twz, int64_t nlines,
   const int64_t zper = 2LL << lP;
   const unsigned zblocks = static_cast<unsigned>((nlines + zper - 1) / zper);
   const size_t zb = zunit << lP;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (inv) {
     if ((err = allow_smem(z_inv<T>, zb))) return static_cast<int>(err);
@@ -674,39 +1105,98 @@ int launch_z(const void* in, void* out, const void* twz, int64_t nlines,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int N>
+int launch_y_reg(Cx<T>* sp, const Cx<T>* tw, int rows, int nzl, bool inv,
+                 cudaStream_t st) {
+  constexpr int TT = N / plan_v(N);
+  int lmax = 0;                      // at most 256 threads a block
+  while ((TT << (lmax + 1)) <= 256) ++lmax;
+  const int l = cover_log2(lmax, nzl);
+  const size_t bytes = padded_bytes<T>(size_t(N) << l);
+  const dim3 grid((nzl + (1 << l) - 1) >> l, rows);
+  cudaError_t err;
+  if (inv) {
+    if ((err = allow_smem(y_line_reg<T, N, true>, bytes))) return int(err);
+    y_line_reg<T, N, true><<<grid, TT << l, bytes, st>>>(sp, tw, nzl, l);
+  } else {
+    if ((err = allow_smem(y_line_reg<T, N, false>, bytes))) return int(err);
+    y_line_reg<T, N, false><<<grid, TT << l, bytes, st>>>(sp, tw, nzl, l);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// c2c along y on every (c, x) row of a (rows, ny, nzl) spectrum, in place
+template <typename T>
+int launch_y(Cx<T>* sp, const void* twy, int rows, int ny, int nzl, bool inv,
+             cudaStream_t st) {
+  using Cp = Cx<T>;
+  const Cp* tw = static_cast<const Cp*>(twy);
+  if (reg_route(ny)) {
+    FG_WITH_N(ny, (launch_y_reg<T, N>(sp, tw, rows, nzl, inv, st)));
+  }
+  const int ly = log2_or_neg(ny);
+  const int want = sizeof(T) == 4 ? 16 : 8;
+  const size_t yunit = (ly >= 0 ? 1 : 2) * ny * sizeof(Cp);
+  const int lTy = pick_log2(yunit, want, nzl);
+  const size_t yb = yunit << lTy;
+  cudaError_t err;
+  if ((err = allow_smem(y_line<T>, yb))) return static_cast<int>(err);
+  const dim3 yg((nzl + (1 << lTy) - 1) >> lTy, rows);
+  y_line<T><<<yg, kThreads, yb, st>>>(sp, tw, ny, ly, nzl, lTy, inv);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, class A, int N>
+int launch_x_reg(Cx<T>* sp, const Cx<T>* tw, const A& apply, int ny,
+                 int nzl, int koff, cudaStream_t st) {
+  constexpr int C = A::C, TT = N / plan_v(N);
+  int l = cover_log2(x_log2tk_max<T>(C * TT), nzl);
+  while (l > 0 && padded_bytes<T>(size_t(C) * N << l) > kMaxBytes) --l;
+  const size_t bytes = padded_bytes<T>(size_t(C) * N << l);
+  const dim3 grid((nzl + (1 << l) - 1) >> l, ny);
+  cudaError_t err;
+  if ((err = allow_smem(x_apply_reg<T, A, N>, bytes))) return int(err);
+  x_apply_reg<T, A, N><<<grid, (C * TT) << l, bytes, st>>>(
+      sp, tw, apply, ny, nzl, koff, l);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x forward, the apply, x inverse on a (C, nx, ny, nzl) spectrum, in place
+template <typename T, class A>
+int launch_x(Cx<T>* sp, const void* twx, const A& apply, int nx, int ny,
+             int nzl, int koff, cudaStream_t st) {
+  using Cp = Cx<T>;
+  constexpr int C = A::C;
+  const Cp* tw = static_cast<const Cp*>(twx);
+  if (reg_route(nx)) {
+    FG_WITH_N(nx, (launch_x_reg<T, A, N>(sp, tw, apply, ny, nzl, koff, st)));
+  }
+  const int lx = log2_or_neg(nx);
+  const int want = sizeof(T) == 4 ? 16 : 8;
+  const size_t xunit = (lx >= 0 ? 1 : 2) * C * nx * sizeof(Cp);
+  const int lTx = pick_log2(xunit, want, nzl);
+  const size_t xb = xunit << lTx;
+  cudaError_t err;
+  if ((err = allow_smem(x_apply<T, A>, xb))) return static_cast<int>(err);
+  const dim3 xg((nzl + (1 << lTx) - 1) >> lTx, ny);
+  x_apply<T, A><<<xg, kThreads, xb, st>>>(sp, tw, apply, nx, lx, ny, nzl,
+                                          koff, lTx);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The middle on a (C, nx, ny, nzl) spectrum whose column q is global kz bin
 // koff + q: y forward, x forward + apply + x inverse, y inverse, in place.
 template <typename T, class A>
 int launch_middle(void* spec, const void* twx, const void* twy,
                   const A& apply, int nx, int ny, int nzl, int koff,
                   void* stream) {
-  using Cp = Cx<T>;
-  constexpr int C = A::C;
   if (nzl <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int lx = log2_or_neg(nx), ly = log2_or_neg(ny);
-  const size_t cs = sizeof(Cp);
-  Cp* sp = static_cast<Cp*>(spec);
-  // y: TK kz columns of all ny rows; x: TK columns of C components x nx rows
-  const int want = sizeof(T) == 4 ? 16 : 8;
-  const size_t yunit = (ly >= 0 ? 1 : 2) * ny * cs;
-  const int lTy = pick_log2(yunit, want, nzl);
-  const size_t xunit = (lx >= 0 ? 1 : 2) * C * nx * cs;
-  const int lTx = pick_log2(xunit, want, nzl);
-  const size_t yb = yunit << lTy, xb = xunit << lTx;
-  cudaError_t err;
-  if ((err = allow_smem(y_line<T>, yb)) ||
-      (err = allow_smem(x_apply<T, A>, xb)))
-    return static_cast<int>(err);
-  const dim3 yg((nzl + (1 << lTy) - 1) >> lTy, C * nx);
-  y_line<T><<<yg, kThreads, yb, st>>>(sp, static_cast<const Cp*>(twy), ny,
-                                      ly, nzl, lTy, false);
-  const dim3 xg((nzl + (1 << lTx) - 1) >> lTx, ny);
-  x_apply<T, A><<<xg, kThreads, xb, st>>>(sp, static_cast<const Cp*>(twx),
-                                          apply, nx, lx, ny, nzl, koff, lTx);
-  y_line<T><<<yg, kThreads, yb, st>>>(sp, static_cast<const Cp*>(twy), ny,
-                                      ly, nzl, lTy, true);
-  return static_cast<int>(cudaGetLastError());
+  Cx<T>* sp = static_cast<Cx<T>*>(spec);
+  int err = launch_y<T>(sp, twy, A::C * nx, ny, nzl, false, st);
+  if (!err) err = launch_x<T, A>(sp, twx, apply, nx, ny, nzl, koff, st);
+  if (!err) err = launch_y<T>(sp, twy, A::C * nx, ny, nzl, true, st);
+  return err;
 }
 
 // The whole chain on one device: z forward, the middle on every kz bin,

@@ -100,12 +100,40 @@ def collocated_tables(grid, dtype, device):
     return t
 
 
+# The register-resident line FFT of the chain passes (csrc/
+# g0_staggered_chain.cu, plan_v / plan_radix): a line of power-of-two
+# length n, 16 <= n <= 512, is held by n / V threads of V values each and
+# transformed in Stockham stages of the given radices (each dividing V),
+# one exchange through shared memory between two stages.  Other lengths
+# take the shared-memory radix-4 FFT or the direct DFT.
+LINE_PLANS = {16: (4, (4, 4)), 32: (8, (8, 4)), 64: (8, (8, 8)),
+              128: (16, (16, 8)), 256: (16, (16, 16)), 512: (8, (8, 8, 8))}
+
+
+def plan_twiddles(n):
+    """The twiddles of the register FFT of length ``n`` (a key of
+    LINE_PLANS), complex128: for each stage s >= 1, with Ns the product of
+    the earlier radices and R its own, W_{Ns R}^{r k} = exp(-2 pi i r k /
+    (Ns R)) at (r - 1) Ns + k for r = 1..R-1, k = 0..Ns-1; the stages one
+    after another."""
+    radices = LINE_PLANS[n][1]
+    parts, ns = [], radices[0]
+    for r in radices[1:]:
+        rk = np.arange(1, r)[:, None] * np.arange(ns)[None, :]
+        parts.append(np.exp(-2j * np.pi * rk / (ns * r)).reshape(-1))
+        ns *= r
+    return np.concatenate(parts)
+
+
 def _twiddle(n, dtype, device):
-    """exp(-2 pi i t / n), t = 0..n-1, built in float64, complex ``dtype``."""
+    """The twiddle table of a length-``n`` axis, built in float64, complex
+    ``dtype``: :func:`plan_twiddles` for a length of LINE_PLANS (the
+    register FFT), else exp(-2 pi i t / n), t = 0..n-1."""
     key = (n, dtype, torch.device(device))
     t = _twiddles.get(key)
     if t is None:
-        w = np.exp(-2j * np.pi * np.arange(n) / n)
+        w = plan_twiddles(n) if n in LINE_PLANS else \
+            np.exp(-2j * np.pi * np.arange(n) / n)
         t = torch.as_tensor(w, dtype=dtype, device=device)
         _twiddles[key] = t
     return t
@@ -494,15 +522,20 @@ def _chain_slab(fn_name, counter, par, grid, f, ncomp, tables_on, consts,
         [vp] * (6 + (vector is not None)) + [ctypes.c_double] * len(consts)
         + [ctypes.c_int] * 5 + [vp])
     nlines = ncomp * nxl * grid.ny
+    # per distinct device: its stream and the twiddle tables (the host side
+    # of a slab chain is a dozen launches, and on a small field it, not the
+    # card, sets the pace)
+    per_dev = {dev: (_stream(dev), *(_twiddle(n, cdt, dev).data_ptr()
+                                      for n in grid.shape))
+               for dev in dict.fromkeys(par.devices)}
 
     spec = []
     for x, dev in zip(f, par.devices):
+        st, _, _, twz = per_dev[dev]
         y = torch.empty((ncomp, nxl, grid.ny, grid.nzc), dtype=cdt,
                         device=dev)
         with torch.cuda.device(dev):
-            err = zfwd(x.data_ptr(), y.data_ptr(),
-                       _twiddle(grid.nz, cdt, dev).data_ptr(), nlines,
-                       grid.nz, _stream(dev))
+            err = zfwd(x.data_ptr(), y.data_ptr(), twz, nlines, grid.nz, st)
         _build.check(err, "g0_staggered_chain")
         launches[counter] += 1
         spec.append(y)
@@ -514,12 +547,12 @@ def _chain_slab(fn_name, counter, par, grid, f, ncomp, tables_on, consts,
             continue
         tx, ty, tz = tables_on(dev)
         ptrs = () if vector is None else (vector(j, tx).data_ptr(),)
+        st, twx, twy, _ = per_dev[dev]
         with torch.cuda.device(dev):
             err = mid(y.data_ptr(), tx.data_ptr(), ty.data_ptr(),
-                      tz.data_ptr(), _twiddle(grid.nx, cdt, dev).data_ptr(),
-                      _twiddle(grid.ny, cdt, dev).data_ptr(), *ptrs,
+                      tz.data_ptr(), twx, twy, *ptrs,
                       *(float(c) for c in consts), grid.nx, grid.ny, grid.nz,
-                      w, off, _stream(dev))
+                      w, off, st)
         _build.check(err, "g0_staggered_chain")
         launches[counter] += 1
     spec = comm.from_kz(kzs, nxl, par.devices)
@@ -528,10 +561,9 @@ def _chain_slab(fn_name, counter, par, grid, f, ncomp, tables_on, consts,
     for i, (y, dev) in enumerate(zip(spec, par.devices)):
         o = torch.empty(shape, dtype=dt, device=dev) if out is None \
             else out[i]
+        st, _, _, twz = per_dev[dev]
         with torch.cuda.device(dev):
-            err = zinv(y.data_ptr(), o.data_ptr(),
-                       _twiddle(grid.nz, cdt, dev).data_ptr(), nlines,
-                       grid.nz, _stream(dev))
+            err = zinv(y.data_ptr(), o.data_ptr(), twz, nlines, grid.nz, st)
         _build.check(err, "g0_staggered_chain")
         launches[counter] += 1
         outs.append(o)

@@ -225,6 +225,83 @@ def test_cuda_hyper_solve_matches_cpu(cuda, scheme, chain):
                                atol=1e-10 * np.max(np.abs(Sc)))
 
 
+# Every length of the register line FFT (spectral_kernels.LINE_PLANS) on
+# each axis, beside a length that is not a power of two (the direct DFT)
+# on another axis; and powers of two outside 16..512 (the shared-memory
+# radix-4 FFT).
+REG_SHAPES = [s for n in (16, 32, 64, 128, 256, 512)
+              for s in ((n, 17, 16), (33, n, 16), (12, 17, n))] + [
+                  (8, 1024, 12), (1024, 4, 17)]
+
+
+@pytest.mark.parametrize("shape", REG_SHAPES)
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_cuda_register_fft_chains_match_twins(cuda, shape, dtype, tol):
+    """K6 and K3 against their twins at every length the register FFT
+    takes, on each axis, and at powers of two it leaves to the
+    shared-memory FFT."""
+    g = Grid(*shape, dx=1.2, dy=0.8, dz=1.0)
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=cuda, dtype=dtype)
+    tau, E, f = rnd(6, *shape), rnd(6), rnd(3, *shape)
+    tau[0] = -(tau[1] + tau[2])
+    A, B = green.collocated_constants(-1.7, float("inf"))
+    c10, c20 = green.g0_constants(MU0, 0.4)
+    before = dict(stencil_kernels.launches, **spectral_kernels.launches)
+    out6 = spectral_kernels.gamma_collocated_zt_chain(g, tau, A, B, E, -0.3)
+    out3 = spectral_kernels.g0_staggered_chain(g, f, c10, c20)
+    torch.cuda.synchronize()
+    after = dict(stencil_kernels.launches, **spectral_kernels.launches)
+    assert _launched(before, after) == {"gamma_collocated_zt_chain": 1,
+                                        "g0_staggered_chain": 1}
+    ref6 = spectral_kernels.gamma_collocated_zt_chain_plain(g, tau, A, B, E,
+                                                            -0.3)
+    ref3 = spectral_kernels.g0_staggered_chain_plain(g, f, c10, c20)
+    assert _rel(out6, ref6) <= tol
+    assert _rel(out3, ref3) <= tol
+
+
+@pytest.mark.parametrize("d", [2, 4])
+def test_cuda_register_fft_slab_chains_match_twins(cuda, d):
+    """The kz-slab K6 and K3 at power-of-two lengths (the slab middles run
+    the register passes) on ["cuda:0"] * d against their plain twins on CPU
+    slabs and against the whole-field chains, float64."""
+    shape = (64, 32, 64)
+    rng = np.random.default_rng(19)
+    g = Grid(*shape, dx=1.2, dy=0.8, dz=1.0)
+    tau = torch.as_tensor(rng.standard_normal((6,) + shape), device=cuda)
+    tau[0] = -(tau[1] + tau[2])
+    f = torch.as_tensor(rng.standard_normal((3,) + shape), device=cuda)
+    E = torch.as_tensor(rng.standard_normal(6), device=cuda)
+    mesh, cmesh = (parallel.make_mesh([dev] * d) for dev in ("cuda:0", "cpu"))
+    par, cpar = parallel.SlabPar(mesh), parallel.SlabPar(cmesh)
+    G = parallel.gather_field
+    sh = lambda a, m: parallel.shard_field(a, m)
+    A, B = green.collocated_constants(-MU0, float("inf"))
+    c10, c20 = green.g0_constants(MU0, 0.4)
+    before = dict(stencil_kernels.launches, **spectral_kernels.launches)
+    out6 = spectral_kernels.gamma_collocated_zt_chain_slab(
+        par, g, sh(tau, mesh), A, B, [E] * d, -0.2)
+    out3 = spectral_kernels.g0_staggered_chain_slab(par, g, sh(f, mesh), c10,
+                                                    c20)
+    torch.cuda.synchronize()
+    after = dict(stencil_kernels.launches, **spectral_kernels.launches)
+    assert _launched(before, after) == {
+        "gamma_collocated_zt_chain_slab": 3 * d,
+        "g0_staggered_chain_slab": 3 * d}
+    ref6 = spectral_kernels.gamma_collocated_zt_chain_slab_plain(
+        cpar, g, sh(tau.cpu(), cmesh), A, B, [E.cpu()] * d, -0.2)
+    ref3 = spectral_kernels.g0_staggered_chain_slab_plain(
+        cpar, g, sh(f.cpu(), cmesh), c10, c20)
+    assert _rel(G(out6), G(ref6)) <= 1e-12
+    assert _rel(G(out3), G(ref3)) <= 1e-12
+    whole6 = spectral_kernels.gamma_collocated_zt_chain(g, tau, A, B, E, -0.2)
+    whole3 = spectral_kernels.g0_staggered_chain(g, f, c10, c20)
+    assert _rel(G(out6), whole6) <= 1e-12
+    assert _rel(G(out3), whole3) <= 1e-12
+
+
 def test_cuda_wrappers_reject_bad_input(cuda):
     g = Grid(4, 4, 4)
     r = torch.zeros((6, 4, 4, 4), device=cuda)

@@ -7,6 +7,11 @@
 * The same twins in float32 against the Pallas kernels they replace, run
   in Pallas interpret mode as the JAX package's own tests run them.
 
+* The host-side tables of the chains' register line FFT (the per-length
+  twiddle tables) against numpy, and a plain-Python model of its radix
+  plan's index map (each exchange fills every slot once, the result comes
+  out in natural order).
+
 The CUDA kernels against their twins are in test_torch_cuda.py.
 """
 import contextlib
@@ -28,7 +33,8 @@ from fibergen_tpu.ops import pallas_kernels as pk
 from fibergen_tpu.ops import pallas_sweep as psw
 from fibergen_tpu.ops import staggered as jstag
 from fibergen_tpu_torch.core.grid import Grid
-from fibergen_tpu_torch.ops import fft, green, staggered, stencil_kernels
+from fibergen_tpu_torch.ops import fft, green, spectral_kernels, staggered
+from fibergen_tpu_torch.ops import stencil_kernels
 
 torch.set_num_threads(2)
 
@@ -328,3 +334,94 @@ def test_g0_heat_chain_matches_pallas_middle(dtype, tol):
     out = green.g0_staggered_heat_fused(g, 0.65, 0.0, torch.as_tensor(f))
     assert out.dtype == torch.as_tensor(f).dtype
     assert _rel(out, ref) <= tol
+
+
+# ------------------------------------- the register line FFT of the chains
+
+@pytest.mark.parametrize("n", sorted(spectral_kernels.LINE_PLANS))
+def test_plan_twiddles_match_numpy(n):
+    """Each stage's W_{Ns R}^{r k} at (r - 1) Ns + k, against the
+    length-(Ns R) numpy twiddle at index r k."""
+    V, radices = spectral_kernels.LINE_PLANS[n]
+    assert int(np.prod(radices)) == n and all(V % r == 0 for r in radices)
+    tab = spectral_kernels.plan_twiddles(n)
+    want, ns = [], radices[0]
+    for r in radices[1:]:
+        w = np.exp(-2j * np.pi * np.arange(ns * r) / (ns * r))
+        want += [w[ri * k] for ri in range(1, r) for k in range(ns)]
+        ns *= r
+    assert tab.dtype == np.complex128 and tab.shape == (len(want),)
+    np.testing.assert_allclose(tab, want, rtol=0, atol=1e-15)
+    t32 = spectral_kernels._twiddle(n, torch.complex64, "cpu")
+    assert t32.shape == (len(want),)
+
+
+def _line_fft_model(x, inv=False):
+    """The register FFT as the kernel runs it: n / V threads, thread t
+    holding elements t + T m in v[t][m]; Stockham stages of the plan's
+    radices with the table's twiddles; between two stages each output goes
+    to its slot of a shared buffer, which must fill every slot once.
+    Returns the line as the threads hold it after the last stage."""
+    n = len(x)
+    V, radices = spectral_kernels.LINE_PLANS[n]
+    T = n // V
+    tw = spectral_kernels.plan_twiddles(n)
+    if inv:
+        tw = tw.conj()
+    v = [[x[t + T * m] for m in range(V)] for t in range(T)]
+    ns, off = 1, 0
+    for s, R in enumerate(radices):
+        if s:
+            Rp = radices[s - 1]
+            nsp, nbp = ns // Rp, V // Rp
+            buf = [None] * n
+            for t in range(T):
+                for b in range(nbp):
+                    j = t + T * b
+                    k = j % nsp
+                    for r in range(Rp):
+                        slot = (j - k) * Rp + k + r * nsp
+                        assert buf[slot] is None
+                        buf[slot] = v[t][b + r * nbp]
+            assert all(e is not None for e in buf)
+            v = [[buf[t + T * m] for m in range(V)] for t in range(T)]
+        nb = V // R
+        for t in range(T):
+            for b in range(nb):
+                k = (t + T * b) % ns
+                u = np.array([v[t][b + r * nb] for r in range(R)])
+                if ns > 1:
+                    u[1:] *= tw[off + np.arange(R - 1) * ns + k]
+                u = np.fft.ifft(u) * R if inv else np.fft.fft(u)
+                for r in range(R):
+                    v[t][b + r * nb] = u[r]
+        if ns > 1:
+            off += (R - 1) * ns
+        ns *= R
+    out = np.empty(n, complex)
+    for t in range(T):
+        for m in range(V):
+            out[t + T * m] = v[t][m]
+    return out
+
+
+@pytest.mark.parametrize("n", sorted(spectral_kernels.LINE_PLANS))
+def test_line_plan_model_is_natural_order_dft(n):
+    """The plan's index map computes the DFT (and the unnormalized inverse)
+    of a line in natural order."""
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    tol = 1e-13 * np.abs(np.fft.fft(x)).max()
+    np.testing.assert_allclose(_line_fft_model(x), np.fft.fft(x), rtol=0,
+                               atol=tol)
+    np.testing.assert_allclose(_line_fft_model(x, inv=True),
+                               n * np.fft.ifft(x), rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("n", [8, 48, 1024])
+def test_twiddle_table_outside_the_plans_is_the_full_table(n):
+    """Lengths the register FFT does not take keep the full table of the
+    shared-memory FFT and the direct DFT."""
+    t = spectral_kernels._twiddle(n, torch.complex128, "cpu").numpy()
+    np.testing.assert_allclose(
+        t, np.exp(-2j * np.pi * np.arange(n) / n), rtol=0, atol=1e-15)
