@@ -45,7 +45,15 @@ constants) and collocated (K5 at C = 9).  Phases, each failing loudly:
    kernels and no other); with two or more cards, the staggered
    elasticity and hyperelastic solves over min(4, count) cards;
 7. the launch counts and one JSON line per kernel and mode with its
-   numbers.
+   numbers;
+8. load cases on the bench's RVE at 256^3 float32 (``load_cases``): the
+   effective stiffness (staggered elasticity) and conductivity (staggered
+   heat), batched collocated elasticity and collocated viscosity (the five
+   traceless cases), each ``run_batched`` against its sequential
+   ``run()`` solves; uniaxial stress under a mixed-BC projector on both
+   grids; a 64^3 float64 linear loadstep run against the single-step
+   solve, with and without extrapolation; the mixed_bc demo's
+   finite-strain load (P11 = 1 prescribed, F22 = 1.1) at 32^3 float64.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits non-zero before printing any result.
@@ -631,6 +639,180 @@ def check_slab_kernels(shape, dtype, devices, timed):
     return out
 
 
+# the traceless load cases of the effective viscosity (fibergen_tpu
+# api._effective_viscosity): xx-yy, yy-zz and the three shears
+EFF_VISC = [[1.0, -1, 0, 0, 0, 0], [0, 1.0, -1, 0, 0, 0],
+            [0, 0, 0, 1.0, 0, 0], [0, 0, 0, 0, 1.0, 0], [0, 0, 0, 0, 0, 1.0]]
+# the mixed_bc demo (demo/hyperelasticity/mixed_bc): SVK matrix mu = lam =
+# 10, sphere (R = 0.3) mu = 10, lam = 100; p11 = 0, s11 = 1, e22 = 0.1; and
+# the JAX package's answer at n = 32 on its own voxelization of the sphere
+# (tests/test_demos.py: F11, P22, P33)
+MIXED_BC_DEMO = dict(fiber=(10.0, 100.0), matrix=(10.0, 10.0), s11=1.0,
+                     e22=0.1, pinned=(0.9886118258, 3.6713797927,
+                                      1.2379378454))
+
+
+def load_cases(run_counted, res32, path_launches, n=256, dtype="float32",
+               device="cuda", nl=64, nh=32):
+    """Phase 8: the load-case layer.  ``run_counted(solver, label, path,
+    fn)`` runs ``fn`` (the solver's run by default) with every launch count
+    set to 0 and checks the path's kernels; ``res32`` holds phase 4's
+    pure-strain iterations per path.  Each batched path runs batched,
+    sequential, sequential, batched (the two pairs in turns)."""
+    import numpy as np
+    import torch
+    import fibergen_tpu_torch as ft
+    from fibergen_tpu_torch.core import voigt
+    cuda = device == "cuda"
+    opt = dict(error_estimator="residual", tol=1e-6, check_every=8,
+               maxiter=4000)
+    log(f"phase 8: load cases, {n}^3 {dtype}, residual tol 1e-6, "
+        f"check_every 8")
+
+    def batched_vs_sequential(path, Es):
+        s = path_solver(n, dtype, device, path, **opt)
+        dim, Es = s.dim, np.asarray(Es, dtype=np.float64)
+
+        def batched():
+            t0 = time.perf_counter()
+            assert not s.run_batched(Es)
+            return time.perf_counter() - t0
+
+        def sequential():
+            S, its, t0 = np.zeros((len(Es), dim)), 0, time.perf_counter()
+            for i, E in enumerate(Es):
+                s.set_bc_projector(voigt.id4(dim))
+                s.set_strain(E)
+                s.set_stress(np.zeros(dim))
+                assert not s.run()
+                S[i] = s.calc_mean_stress()
+                its += len(s.residuals)
+            return S, its, time.perf_counter() - t0
+
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t_b = []
+        _, got = run_counted(s, f"{path} run_batched B={len(Es)}", path,
+                             lambda: t_b.append(batched()))
+        peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+        path_launches[f"{path} [batched]"] = got
+        its_b, Sb = len(s.residuals), s.calc_mean_stress_batched()
+        Ss, its_s, t_s = sequential()
+        _, _, t_s2 = sequential()
+        t_b.append(batched())
+        d = float(np.max(np.abs(Sb - Ss)) / np.max(np.abs(Ss)))
+        log(f"  {path} B={len(Es)}: batched {its_b} iterations, wall "
+            f"{t_b[0]:.4f} / {t_b[1]:.4f} s; sequential {its_s} iterations "
+            f"in all, wall {t_s:.4f} / {t_s2:.4f} s; batched / sequential "
+            f"{sum(t_b) / (t_s + t_s2):.3f}; peak device memory "
+            f"{peak:.2f} GiB; means rel diff {d:.3e}")
+        assert np.all(np.isfinite(Sb)) and d <= 1e-5, (path, d)
+        del s
+        if cuda:
+            torch.cuda.empty_cache()
+        return Sb
+
+    # effective stiffness (api.calc_effective_properties, elasticity)
+    S = batched_vs_sequential("elasticity", np.eye(6)).T
+    C = S.copy()
+    C[:, 3:6] *= 0.5
+    S1, S2 = S[0:3, 0:3].sum(), np.trace(S)
+    lam, mu = (2 * S1 - S2) / 15.0, (3 * S2 - S1) / 30.0
+    fit = np.zeros((6, 6))
+    fit[0:3, 0:3] = lam
+    np.fill_diagonal(fit[0:3, 0:3], lam + 2 * mu)
+    fit[3, 3] = fit[4, 4] = fit[5, 5] = 2 * mu
+    log(f"  C_eff (Voigt):\n{np.array2string(C, precision=6)}")
+    log(f"  isotropic fit: K_eff {lam + 2.0 / 3.0 * mu:.6f}, mu_eff "
+        f"{mu:.6f}, lambda_eff {lam:.6f}, relative error of fit "
+        f"{np.linalg.norm(S - fit) / np.linalg.norm(S):.3e}")
+    K = batched_vs_sequential("heat", np.eye(3)).T
+    log(f"  conductivity:\n{np.array2string(K, precision=6)}")
+    batched_vs_sequential("elasticity-collocated", np.eye(6))
+    batched_vs_sequential("viscosity-collocated", EFF_VISC)
+
+    # uniaxial stress: strain xx prescribed, every other stress zero
+    P = np.zeros((6, 6))
+    P[0, 0] = 1.0
+    for path in ("elasticity", "elasticity-collocated"):
+        s = path_solver(n, dtype, device, path, **opt)
+        s.set_bc_projector(P)
+        s.set_strain([0.01, 0, 0, 0, 0, 0])
+        s.set_stress(np.zeros(6))
+        fail, got = run_counted(s, f"{path} uniaxial stress", path)
+        path_launches[f"{path} [mixed BC]"] = got
+        Sm, bce = s.calc_mean_stress(), s.bc_error()
+        side = float(np.max(np.abs(Sm[1:])) / abs(Sm[0]))
+        log(f"  {path} uniaxial stress: {len(s.residuals)} iterations "
+            f"(pure strain: {res32.get(path, ('not run',))[0]}), "
+            f"solve_time {s.solve_time:.4f} s, bc_error {bce:.3e}, "
+            f"max |stress-controlled mean stress| / |sigma_xx| {side:.3e}, "
+            f"mean stress {Sm.tolist()}")
+        assert not fail and bce <= s.opt.bc_tol and side <= 1e-5, path
+        del s
+
+    # the linear loadstep loop against one step, 64^3 float64
+    lopt = dict(error_estimator="residual", tol=1e-11, check_every=8,
+                maxiter=4000)
+
+    def per_loadstep(s, label, path="elasticity"):
+        counts, solve = [], s.run_solver
+
+        def counted(E, S):
+            k = len(s.residuals)
+            solve(E, S)
+            counts.append(len(s.residuals) - k)
+        s.run_solver = counted
+        assert not run_counted(s, label, path)[0]
+        return counts, s.calc_mean_stress()
+
+    one, S1 = per_loadstep(sphere_solver(nl, "float64", device, **lopt),
+                           f"{nl}^3 float64 one loadstep")
+    for method, eopt in (("cg", lopt), ("basic", dict(
+            error_estimator="epsilon", tol=1e-8, maxiter=4000))):
+        for order in (0, 1):
+            counts, S4 = per_loadstep(sphere_solver(
+                nl, "float64", device, method=method, loadsteps=4,
+                loadstep_extrapolation_order=order, **eopt),
+                f"{nl}^3 float64 {method} 4 loadsteps, order {order}")
+            d = float(np.max(np.abs(S4 - S1)) / np.max(np.abs(S1)))
+            log(f"  {nl}^3 float64 {method}, 4 loadsteps, polynomial "
+                f"extrapolation of order {order}: iterations per loadstep "
+                f"{counts} (one loadstep: {one}), final mean stress rel "
+                f"diff to the single step {d:.3e}")
+            assert d <= (1e-9 if method == "cg" else 1e-6), (method, d)
+
+    # the mixed_bc demo's finite-strain load
+    c = MIXED_BC_DEMO
+    phi = sphere_phi(nh, "float64")
+    mat = ft.convert.material_from_numpy(
+        [("pore", *c["fiber"], phi), ("matrix", *c["matrix"], 1.0 - phi)],
+        dim=9, law="svk", device=device)
+    s = ft.LSSolver(ft.Grid(nh, nh, nh), mat, ft.SolverOptions(
+        mode="hyperelasticity", tol=1e-10, check_every=8, maxiter=4000),
+        device=device)
+    Pm = voigt.id4(9)
+    Pm[0, 0] = 0.0
+    E = np.zeros(9)
+    E[1] = c["e22"]
+    s.set_bc_projector(Pm)
+    s.set_strain(E + voigt.dyad4_mv(Pm, voigt.identity_vec(9)))
+    s.set_stress([c["s11"]] + [0.0] * 8)
+    fail, got = run_counted(s, f"{nh}^3 float64 mixed_bc demo",
+                            "hyperelasticity")
+    path_launches["hyperelasticity [mixed BC]"] = got
+    F, Pk = s.calc_mean_strain(), s.calc_mean_stress()
+    pin = c["pinned"]
+    log(f"  {nh}^3 float64 mixed_bc demo: {s.newton_iterations} (outer, "
+        f"inner) iterations, solve_time {s.solve_time:.3f} s, bc_error "
+        f"{s.bc_error():.3e}, P11 {Pk[0]:.10f} (prescribed 1), F22 "
+        f"{F[1]:.10f} (prescribed 1.1), free F11 {F[0]:.10f} P22 "
+        f"{Pk[1]:.10f} P33 {Pk[2]:.10f}; the JAX package's demo (its own "
+        f"voxelized sphere) F11 {pin[0]} P22 {pin[1]} P33 {pin[2]}")
+    assert not fail and abs(Pk[0] - 1.0) <= s.opt.bc_tol
+    assert abs(F[1] - 1.1) <= 1e-12 and np.all(np.isfinite(Pk))
+
+
 def sync_all():
     import torch
     for i in range(torch.cuda.device_count()):
@@ -674,13 +856,14 @@ def main():
         log(f"  {src}: {len(regs)} kernels, at most {max(regs, default=0)} "
             f"registers a thread, {len(spills)} with spills")
 
-    def run_counted(solver, label, path):
-        """Run one solve with every launch count set to 0 just before it;
-        fail unless each kernel of ``path`` launched in it and no other."""
+    def run_counted(solver, label, path, fn=None):
+        """Run one solve (``fn``, the solver's run by default) with every
+        launch count set to 0 just before it; fail unless each kernel of
+        ``path`` launched in it and no other."""
         for table in (sk.launches, spk.launches):
             for name in table:
                 table[name] = 0
-        fail = solver.run()
+        fail = (fn or solver.run)()
         sync_all()
         got = dict(sk.launches, **spk.launches)
         log(f"  {label} launches: {json.dumps(got)}")
@@ -1001,6 +1184,9 @@ def main():
                 (label, d)
             del s
             torch.cuda.empty_cache()
+
+    # ---- phase 8: load cases
+    load_cases(run_counted, res32, path_launches)
 
     # ---- phase 7: launches and per-kernel numbers.  The per-kernel list
     # takes the key "kernels"; the launch counts of each path's timed 256^3

@@ -2,7 +2,7 @@
 """Where a CG solve of the PyTorch/CUDA port spends its time on one card.
 
     python3 scripts/torch_profile_solve.py [n] [mode] [scheme] [method]
-        [--slabs=D]
+        [--slabs=D | --batched]
     python3 scripts/torch_profile_solve.py [n] hyperelasticity [scheme] cg
         [exact|frozen_iso]
 
@@ -23,6 +23,9 @@ reference-material pass (the tangent eigenvalue bounds at 256^3).
 ``--slabs=D`` solves sharded into D x-slabs of one card (the mesh
 ["cuda:0"] * D); the spectrum exchanges then show as ``torch.cat`` (a kind
 of its own, with ``torch.stack``) and the halo planes as copy kernels.
+``--batched`` runs the mode's effective-property load cases in one
+``run_batched`` (np.eye(dim), viscosity the five traceless cases of
+chip_smoke.EFF_VISC) instead of one solve.
 Prints one JSON line last.
 """
 import json
@@ -57,7 +60,9 @@ def main():
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import HYPER_OPT, sphere_solver
+    import numpy as np
+
+    from chip_smoke import EFF_VISC, HYPER_OPT, sphere_solver
     from fibergen_tpu_torch.utils.logging import LOG
 
     if not torch.cuda.is_available():
@@ -67,7 +72,9 @@ def main():
     slabs = [int(a.split("=", 1)[1]) for a in sys.argv
              if a.startswith("--slabs=")]
     slabs = slabs[0] if slabs else None
-    sys.argv = [a for a in sys.argv if not a.startswith("--slabs=")]
+    batched = "--batched" in sys.argv
+    sys.argv = [a for a in sys.argv
+                if not a.startswith("--slabs=") and a != "--batched"]
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 256
     mode = sys.argv[2] if len(sys.argv) > 2 else "elasticity"
     scheme = sys.argv[3] if len(sys.argv) > 3 else "staggered"
@@ -82,8 +89,13 @@ def main():
     s = sphere_solver(n, "float32", "cuda", mode, scheme, method,
                       mesh=None if slabs is None else ["cuda:0"] * slabs,
                       **opt)
-    assert not s.run()
-    assert not s.run()
+    Es = EFF_VISC if mode == "viscosity" else np.eye(s.dim)
+
+    def solve():
+        assert not (s.run_batched(Es) if batched else s.run())
+
+    solve()
+    solve()
     wall = s.solve_time
     its = len(s.residuals)
     ref_ms = None
@@ -95,7 +107,7 @@ def main():
         ref_ms = 1e3 * (time.perf_counter() - t0)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof:
-        assert not s.run()
+        solve()
         torch.cuda.synchronize()
 
     # device-side kernel events only: operator events carry their kernels'
@@ -111,7 +123,8 @@ def main():
         kinds[kind_of(name)] = kinds.get(kind_of(name), 0.0) + us / 1e3
     card = torch.cuda.get_device_name(0)
     print(f"{card}: {n}^3 float32 {mode} {scheme} {method}"
-          f"{'' if slabs is None else f' on {slabs} slabs'}, {its} "
+          f"{'' if slabs is None else f' on {slabs} slabs'}"
+          f"{f' run_batched B={len(Es)}' if batched else ''}, {its} "
           f"iterations (Newton outer, inner: {s.newton_iterations}), "
           f"unprofiled wall "
           f"{1e3 * wall:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
@@ -124,7 +137,9 @@ def main():
     for k, ms in sorted(kinds.items(), key=lambda kv: -kv[1]):
         print(f"  {k:18s} {ms:9.3f} ms  {ms / busy_ms:6.1%} of busy")
     print(json.dumps({"n": n, "mode": mode, "scheme": scheme,
-                      "method": method, "slabs": slabs, "iterations": its,
+                      "method": method, "slabs": slabs,
+                      "batched": len(Es) if batched else None,
+                      "iterations": its,
                       "newton_iterations": s.newton_iterations,
                       "ref_material_ms": ref_ms,
                       "wall_ms": 1e3 * wall,

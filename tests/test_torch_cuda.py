@@ -599,3 +599,100 @@ def test_cuda_sharded_hyper_solve_matches_cpu(cuda, scheme, tangent, chain):
     np.testing.assert_allclose(rg, rc, rtol=1e-9, atol=1e-14)
     np.testing.assert_allclose(Sg, Sc, rtol=0,
                                atol=1e-10 * np.max(np.abs(Sc)))
+
+
+# the load-case paths: mode -> (dim, law, (fibre, matrix) moduli); each path
+# launches the kernels of its trivial-BC solve and no other
+LOAD_CASE_MATERIALS = {
+    "elasticity": (6, "isotropic", ((10.0, 5.0), (1.0, 1.0))),
+    "heat": (3, "scalar", ((10.0,), (1.0,))),
+    "viscosity": (6, "scalar", ((0.1,), (1.0,))),
+}
+LOAD_CASE_KERNELS = {
+    ("elasticity", "staggered"): {"stress_div_beta", "eps_from_u_dot",
+                                  "g0_staggered_chain"},
+    ("heat", "staggered"): {"g0_staggered_heat_chain"},
+    ("viscosity", "staggered"): {"stress_div_beta", "eps_from_u_dot",
+                                 "g0_staggered_chain"},
+    ("elasticity", "collocated"): {"gamma_collocated_chain"},
+    ("heat", "collocated"): {"gamma_collocated_chain"},
+    ("viscosity", "collocated"): {"gamma_collocated_zt_chain"},
+}
+
+
+def _load_case_solver(dev, mode, scheme, n=24, **opt):
+    a = ((np.arange(n) + 0.5) / n - 0.5) ** 2
+    phi = ((a[:, None, None] + a[None, :, None] + a[None, None, :])
+           < 0.09).astype(np.float64)
+    dim, law, mods = LOAD_CASE_MATERIALS[mode]
+    mat = ft.convert.material_from_numpy(
+        [("fiber", *mods[0], phi), ("matrix", *mods[1], 1.0 - phi)],
+        dim=dim, law=law, device=dev)
+    return ft.LSSolver(Grid(n, n, n), mat, ft.SolverOptions(
+        mode=mode, gamma_scheme=scheme, tol=1e-8, error_estimator="residual",
+        check_every=4, **opt), device=dev)
+
+
+@pytest.mark.parametrize("mode,scheme", sorted(LOAD_CASE_KERNELS))
+def test_cuda_run_batched_matches_cpu(cuda, mode, scheme):
+    """run_batched in float64 on the card against the CPU: the same
+    iterations, histories within 1e-9, mean stresses within 1e-10; the
+    card's run launches its path's kernels and no other."""
+    Es = np.eye(LOAD_CASE_MATERIALS[mode][0])
+    if mode == "viscosity":
+        Es = Es[3:]                     # the traceless shear cases
+    res = {}
+    for dev in ("cpu", "cuda"):
+        s = _load_case_solver(dev, mode, scheme)
+        before = dict(stencil_kernels.launches, **spectral_kernels.launches)
+        assert not s.run_batched(Es)
+        after = dict(stencil_kernels.launches, **spectral_kernels.launches)
+        res[dev] = (np.asarray(s.residuals), s.calc_mean_stress_batched(),
+                    set(_launched(before, after)))
+    (rc, Sc, kc), (rg, Sg, kg) = res["cpu"], res["cuda"]
+    assert kc == set() and kg == LOAD_CASE_KERNELS[(mode, scheme)]
+    assert len(rg) == len(rc)
+    np.testing.assert_allclose(rg, rc, rtol=1e-9)
+    np.testing.assert_allclose(Sg, Sc, rtol=0,
+                               atol=1e-10 * np.max(np.abs(Sc)))
+
+
+@pytest.mark.parametrize("scheme", ["staggered", "collocated"])
+def test_cuda_mixed_bc_solve_matches_cpu(cuda, scheme):
+    """Uniaxial stress (P = e_xx e_xx, S = 0, E = 0.01 e_xx) in float64 on
+    the card against the CPU: the same iterations, histories within 1e-9,
+    mean stress within 1e-10, the boundary condition met."""
+    P = np.zeros((6, 6))
+    P[0, 0] = 1.0
+    res = {}
+    for dev in ("cpu", "cuda"):
+        s = _load_case_solver(dev, "elasticity", scheme)
+        s.set_bc_projector(P)
+        s.set_strain([0.01, 0, 0, 0, 0, 0])
+        s.set_stress(np.zeros(6))
+        assert not s.run()
+        assert s.bc_error() <= s.opt.bc_tol
+        res[dev] = (np.asarray(s.residuals), s.calc_mean_stress())
+    (rc, Sc), (rg, Sg) = res["cpu"], res["cuda"]
+    assert len(rg) == len(rc)
+    np.testing.assert_allclose(rg, rc, rtol=1e-9)
+    np.testing.assert_allclose(Sg, Sc, rtol=0,
+                               atol=1e-10 * np.max(np.abs(Sc)))
+
+
+def test_cuda_mixed_bc_staggered_step_launches_k1_k3_k2(cuda):
+    """A mixed-BC staggered elasticity solve runs K1, the K3 chain and K2
+    (the mean correction is K2's E), once each at CG init and per step."""
+    s = _load_case_solver("cuda", "elasticity", "staggered", n=16)
+    P = np.zeros((6, 6))
+    P[0, 0] = 1.0
+    s.set_bc_projector(P)
+    s.set_strain([0.01, 0, 0, 0, 0, 0])
+    before = dict(stencil_kernels.launches, **spectral_kernels.launches)
+    assert not s.run()
+    moved = _launched(before, dict(stencil_kernels.launches,
+                                   **spectral_kernels.launches))
+    steps = -(-len(s.residuals) // 4) * 4
+    assert moved == {"stress_div_beta": steps + 1,
+                     "eps_from_u_dot": steps + 1,
+                     "g0_staggered_chain": steps + 1}

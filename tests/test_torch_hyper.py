@@ -530,18 +530,24 @@ def test_hyper_options():
         [("a", 1.0, 1.0, np.ones((4, 4, 4)))], dim=9, law="svk",
         device="cpu")
     for kw in ({"method": "basic"}, {"method": "polarization"},
-               {"method": "nl_cg"}, {"loadstep_extrapolation_order": 1},
-               {"gamma_scheme": "willot"}):
+               {"method": "nl_cg"}, {"gamma_scheme": "willot"}):
         with pytest.raises(NotImplementedError):
             ft.LSSolver(ft.Grid(4, 4, 4), mat, ft.SolverOptions(
                 mode="hyperelasticity", **kw), device="cpu")
     lin = ft.convert.material_from_numpy(
         [("a", 1.0, 1.0, np.ones((4, 4, 4)))], device="cpu")
-    for kw in ({"loadsteps": 2}, {"first_loadstep": 0},
-               {"max_loadstep_splits": 2}, {"error_estimator": "sigma"}):
-        with pytest.raises(NotImplementedError):
-            ft.LSSolver(ft.Grid(4, 4, 4), lin, ft.SolverOptions(**kw),
-                        device="cpu")
+    with pytest.raises(NotImplementedError):
+        ft.LSSolver(ft.Grid(4, 4, 4), lin, ft.SolverOptions(
+            error_estimator="sigma"), device="cpu")
+    # the loadstep options run in every mode (one loadstep loop)
+    for m, mode in ((lin, "elasticity"), (mat, "hyperelasticity")):
+        for kw in ({"loadsteps": 2}, {"first_loadstep": 0},
+                   {"max_loadstep_splits": 2},
+                   {"loadstep_extrapolation_order": 1},
+                   {"loadstep_extrapolation_method": "transformation"},
+                   {"bc_relax": 0.5}):
+            ft.LSSolver(ft.Grid(4, 4, 4), m, ft.SolverOptions(
+                mode=mode, **kw), device="cpu")
     s = ft.LSSolver(ft.Grid(4, 4, 4), mat, ft.SolverOptions(
         mode="hyperelasticity", loadsteps=2, newton_relax=0.9,
         outer_error_estimator="sigma"), device="cpu")

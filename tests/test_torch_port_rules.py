@@ -79,7 +79,7 @@ def test_unported_options_raise():
     for kw in ({"method": "nesterov"},
                {"mode": "hyperelasticity", "method": "nl_cg"},
                {"gamma_scheme": "full_staggered"}, {"gamma_scheme": "willot"},
-               {"freq_hack": True}, {"loadsteps": 3}, {"use_pallas": "on"},
+               {"freq_hack": True}, {"cg_reinit": 3}, {"use_pallas": "on"},
                {"error_estimator": "energy"}):
         with pytest.raises(NotImplementedError):
             ft.LSSolver(ft.Grid(4, 4, 4), mat, ft.SolverOptions(**kw),
