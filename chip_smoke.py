@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Nine paths run on the card (PATHS).  Staggered CG: elasticity (K1, K3,
+Nine paths run on the card (PATHS), and six more of general linear
+materials (GENERAL_PATHS, phase 9).  Staggered CG: elasticity (K1, K3,
 K2), heat conduction (the scalar K4 chain; porous flow is the same path)
 and viscosity (K1 tau-sum mode, K3 with the dual constants, K2 Delta mode).
 Collocated: CG in elasticity and heat (the plain stress difference and the
@@ -53,7 +54,18 @@ constants) and collocated (K5 at C = 9).  Phases, each failing loudly:
    ``run()`` solves; uniaxial stress under a mixed-BC projector on both
    grids; a 64^3 float64 linear loadstep run against the single-step
    solve, with and without extrapolation; the mixed_bc demo's
-   finite-strain load (P11 = 1 prescribed, F22 = 1.1) at 32^3 float64.
+   finite-strain load (P11 = 1 prescribed, F22 = 1.1) at 32^3 float64;
+9. general linear materials on the bench's sphere at 256^3 float32
+   (``general_materials``, GENERAL_PATHS): the tiso demo's fibre (about
+   e_x, and about a per-voxel axis) in its isotropic matrix on the generic
+   staggered route (K3 alone) and on the collocated grid (K5), the bench's
+   phases under the Reuss rule (K1, K2, K3), an anisotropic conductor on
+   both grids (K4; K5 at C = 3); path 1 in float64; the route oracle (the
+   bench's phases as general 6x6 and as tiso laws on the generic route
+   against phase 4's K1/K2 solve); path 1's effective stiffness batched
+   and sequential, with the symmetry about the fibre axis; and 48^3
+   float64 solves on the card against the CPU, the Maximum, Random, 50-50,
+   Split and Iso rules among them.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits non-zero before printing any result.
@@ -164,6 +176,31 @@ PATH_KERNELS = {
     "elasticity-polarization": ("gamma_collocated_chain",),
     "hyperelasticity": ("g0_staggered_chain",),
     "hyperelasticity-collocated": ("gamma_collocated_chain",),
+    # phase 9: general linear materials (GENERAL_PATHS)
+    "elasticity-general": ("g0_staggered_chain",),
+    "elasticity-general-collocated": ("gamma_collocated_chain",),
+    "elasticity-tiso-field": ("g0_staggered_chain",),
+    "elasticity-reuss": ("stress_div_beta", "eps_from_u_dot",
+                         "g0_staggered_chain"),
+    "heat-aniso": ("g0_staggered_heat_chain",),
+    "heat-aniso-collocated": ("gamma_collocated_chain",),
+}
+
+# phase 9: the tiso demo's materials (demo/elasticity/transverse_isotropy):
+# an isotropic matrix of E = 910, nu = 0.3 (mu = 350, lam = 525) and a
+# transversely isotropic fibre, here about e_x
+TISO_FIBRE = dict(E=3860.0, nu=0.2, E_a=5390.0, G_a=390.0, nu_a=0.031)
+TISO_MATRIX = dict(E=910.0, nu=0.3)
+# path -> (mode, gamma_scheme, mixing rule, fibre of general_solver)
+GENERAL_PATHS = {
+    "elasticity-general": ("elasticity", "staggered", "voigt", "tiso"),
+    "elasticity-general-collocated": ("elasticity", "collocated", "voigt",
+                                      "tiso"),
+    "elasticity-tiso-field": ("elasticity", "staggered", "voigt",
+                              "tiso-field"),
+    "elasticity-reuss": ("elasticity", "staggered", "reuss", "iso"),
+    "heat-aniso": ("heat", "staggered", "voigt", "aniso"),
+    "heat-aniso-collocated": ("heat", "collocated", "voigt", "aniso"),
 }
 
 # the paths of the x-slab sharded solve and the slab kernels each launches
@@ -204,6 +241,80 @@ def sphere_solver(n, dtype, device, mode="elasticity", scheme="staggered",
         device=None if mesh is not None else device, sharding=sharding)
     s.set_strain(c["load"])
     return s
+
+
+def general_solver(n, dtype, device, fibre, mode="elasticity",
+                   scheme="staggered", rule="voigt", blur=None, **opt):
+    """A general linear material on the bench's sphere (n^3, ``dtype``),
+    loaded by e_xx = 1 (elasticity) or a unit x gradient (heat).  The
+    ``fibre``:
+
+    * ``tiso``: the tiso demo's fibre about e_x in its iso matrix;
+      ``tiso-field``: the same about a per-voxel axis, unit vectors
+      normalised from a numpy normal draw (seed 0);
+    * ``iso``: the bench's isotropic phases (mu = 10, lam = 5 / mu = 1,
+      lam = 1); ``general-iso``: the same constants as LinearGeneral 6x6
+      stiffnesses; ``tiso-iso``: as tiso laws with E_a = E, G_a = mu,
+      nu_a = nu;
+    * ``aniso`` (heat): K = R diag(10, 5, 2) R^T, R a 30 degree rotation
+      about z, in a matrix of conductivity 1.
+
+    ``blur`` (voxels) smooths the sphere's surface into interface voxels
+    (a logistic profile), for the rules that treat them apart."""
+    import numpy as np
+    import fibergen_tpu_torch as ft
+    from fibergen_tpu_torch.materials.convert import elastic_constants
+    dt = "float32" if dtype == "float32" else "float64"
+    if blur is None:
+        phi = sphere_phi(n, dt)
+    else:
+        a = ((np.arange(n) + 0.5) / n - 0.5) ** 2
+        r = np.sqrt(a[:, None, None] + a[None, :, None] + a[None, None, :])
+        phi = (1.0 / (1.0 + np.exp((r - 0.3) * n / blur))).astype(dt)
+
+    def iso_c(mu, lam):
+        C = np.zeros((6, 6))
+        C[:3, :3] = lam
+        C[range(3), range(3)] += 2.0 * mu
+        C[3, 3] = C[4, 4] = C[5, 5] = mu
+        return ("general", C)
+
+    def tiso_iso(mu, lam):
+        c = elastic_constants(mu=mu, lam=lam)
+        return ("tiso", dict(E=c["E"], nu=c["nu"], E_a=c["E"], G_a=mu,
+                             nu_a=c["nu"]), [1.0, 0.0, 0.0])
+
+    c = elastic_constants(**TISO_MATRIX)
+    matrix = ("isotropic", c["mu"], c["lam"])
+    if fibre == "tiso":
+        f = ("tiso", TISO_FIBRE, [1.0, 0.0, 0.0])
+    elif fibre == "tiso-field":
+        o = np.random.default_rng(0).standard_normal((3, n, n, n))
+        f = ("tiso", TISO_FIBRE, (o / np.linalg.norm(o, axis=0)).astype(dt))
+    elif fibre == "aniso":
+        ang = np.pi / 6
+        R = np.array([[np.cos(ang), -np.sin(ang), 0.0],
+                      [np.sin(ang), np.cos(ang), 0.0], [0.0, 0.0, 1.0]])
+        f, matrix = ("aniso", R @ np.diag([10.0, 5.0, 2.0]) @ R.T), \
+            ("scalar", 1.0)
+    else:
+        make = {"iso": lambda mu, lam: ("isotropic", mu, lam),
+                "general-iso": iso_c, "tiso-iso": tiso_iso}[fibre]
+        f, matrix = make(10.0, 5.0), make(1.0, 1.0)
+    dim = 3 if mode == "heat" else 6
+    mat = ft.convert.material_from_numpy(
+        [("fiber", f, phi), ("matrix", matrix, 1.0 - phi)], dim=dim,
+        device=device, rule=rule)
+    s = ft.LSSolver(ft.Grid(n, n, n), mat, ft.SolverOptions(
+        mode=mode, gamma_scheme=scheme, dtype=dtype, **opt), device=device)
+    s.set_strain([1.0, 0.0, 0.0, 0.0, 0.0, 0.0][:dim])
+    return s
+
+
+def general_path_solver(n, dtype, device, path, **opt):
+    """The material of ``path`` (GENERAL_PATHS) on the bench's sphere."""
+    mode, scheme, rule, fibre = GENERAL_PATHS[path]
+    return general_solver(n, dtype, device, fibre, mode, scheme, rule, **opt)
 
 
 def path_solver(n, dtype, device, path, **opt):
@@ -813,6 +924,144 @@ def load_cases(run_counted, res32, path_launches, n=256, dtype="float32",
     assert abs(F[1] - 1.1) <= 1e-12 and np.all(np.isfinite(Pk))
 
 
+def general_materials(run_counted, res32, path_launches, n=256):
+    """Phase 9: general linear materials (GENERAL_PATHS) at n^3 float32,
+    residual tol 1e-6, check_every 8.  ``run_counted`` and ``res32`` as in
+    :func:`load_cases`; the launches of each timed solve go into
+    ``path_launches``."""
+    import numpy as np
+    import torch
+    from fibergen_tpu_torch.core import voigt
+    opt = dict(error_estimator="residual", tol=1e-6, check_every=8,
+               maxiter=4000)
+    log(f"phase 9: general linear materials, {n}^3 float32, residual tol "
+        f"1e-6, check_every 8")
+
+    def timed(s, label, path):
+        """A warm solve: one run, then the counted one with its wall time
+        and peak device memory."""
+        assert not s.run()                       # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fail, got = run_counted(s, label, path)
+        wall = time.perf_counter() - t0
+        its, S = len(s.residuals), s.calc_mean_stress()
+        log(f"  {label}: {its} iterations, final_rel {s.residuals[-1]:.3e}, "
+            f"wall {wall:.4f} s (solve_time {s.solve_time:.4f} s), peak "
+            f"device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, mean "
+            f"stress {S.tolist()}")
+        assert not fail and s.residuals[-1] <= 1e-6 and np.all(np.isfinite(S))
+        return its, S, got
+
+    res = {}
+    for path in GENERAL_PATHS:
+        s = general_path_solver(n, "float32", "cuda", path, **opt)
+        *res[path], path_launches[path] = timed(s, f"{n}^3 float32 {path}",
+                                                path)
+        del s
+        torch.cuda.empty_cache()
+
+    # path 1 in float64
+    its, S32 = res["elasticity-general"]
+    s64 = general_path_solver(n, "float64", "cuda", "elasticity-general",
+                              **opt)
+    assert not run_counted(s64, f"{n}^3 float64 elasticity-general",
+                           "elasticity-general")[0]
+    S64 = s64.calc_mean_stress()
+    d = float(np.max(np.abs(S64 - S32)) / np.max(np.abs(S64)))
+    log(f"  {n}^3 float64 elasticity-general: {len(s64.residuals)} "
+        f"iterations, final_rel {s64.residuals[-1]:.3e}, rel diff to "
+        f"float32 {d:.3e}")
+    assert abs(len(s64.residuals) - its) <= 2 and d <= 1e-5
+    del s64
+    torch.cuda.empty_cache()
+
+    # the route oracle: the bench's isotropic phases as general and as tiso
+    # laws on the generic route against phase 4's K1/K2 elasticity solve
+    its0, S0 = res32["elasticity"]
+    for fibre in ("general-iso", "tiso-iso"):
+        s = general_solver(n, "float32", "cuda", fibre, **opt)
+        fail, _ = run_counted(s, f"{n}^3 float32 {fibre} (route oracle)",
+                              "elasticity-general")
+        S = s.calc_mean_stress()
+        d = float(np.max(np.abs(S - S0)) / np.max(np.abs(S0)))
+        log(f"  route oracle {fibre}: {len(s.residuals)} iterations "
+            f"(phase 4's K1/K2 elasticity: {its0}), mean stress rel diff "
+            f"{d:.3e}")
+        assert not fail and abs(len(s.residuals) - its0) <= 1 and d <= 1e-5
+        del s
+        torch.cuda.empty_cache()
+
+    # the effective stiffness of path 1: batched against sequential
+    s = general_path_solver(n, "float32", "cuda", "elasticity-general", **opt)
+    t0 = time.perf_counter()
+    fail, got = run_counted(s, f"{n}^3 float32 elasticity-general "
+                               f"run_batched B=6", "elasticity-general",
+                            lambda: s.run_batched(np.eye(6)))
+    t_b = time.perf_counter() - t0
+    assert not fail
+    its_b, Sb = len(s.residuals), s.calc_mean_stress_batched()
+    path_launches["elasticity-general [batched]"] = got
+    Ss, its_s, t0 = np.zeros((6, 6)), 0, time.perf_counter()
+    for i in range(6):
+        s.set_bc_projector(voigt.id4(6))
+        s.set_strain(np.eye(6)[i])
+        s.set_stress(np.zeros(6))
+        assert not s.run()
+        Ss[i] = s.calc_mean_stress()
+        its_s += len(s.residuals)
+    t_s = time.perf_counter() - t0
+    d = float(np.max(np.abs(Sb - Ss)) / np.max(np.abs(Ss)))
+    C = Sb.T.copy()
+    C[:, 3:6] *= 0.5
+    sym = {"C22/C33": (C[1, 1], C[2, 2]), "C12/C13": (C[0, 1], C[0, 2]),
+           "C55/C66": (C[4, 4], C[5, 5])}
+    sym = {k: abs(a - b) / abs(a) for k, (a, b) in sym.items()}
+    log(f"  elasticity-general B=6: batched {its_b} iterations, wall "
+        f"{t_b:.4f} s; sequential {its_s} iterations in all, wall "
+        f"{t_s:.4f} s; means rel diff {d:.3e}")
+    log(f"  C_eff (Voigt) of the tiso fibre (axis e_x) in its matrix:\n"
+        f"{np.array2string(C, precision=4)}")
+    log(f"  transverse symmetry, relative: "
+        f"{', '.join(f'{k} {v:.3e}' for k, v in sym.items())}")
+    assert np.all(np.isfinite(Sb)) and d <= 1e-5
+    assert all(v <= 1e-4 for v in sym.values()), sym
+    del s
+    torch.cuda.empty_cache()
+
+    # the kernel path against the plain path, 48^3 float64 (phase 3's
+    # limits); the rules that treat interface voxels apart on a sphere
+    # blurred over 1.5 voxels
+    copt = dict(error_estimator="residual", tol=1e-8, check_every=4,
+                maxiter=1000)
+    cases = [(p, GENERAL_PATHS[p][3:], GENERAL_PATHS[p][:3], None)
+             for p in ("elasticity-general", "elasticity-tiso-field",
+                       "elasticity-reuss", "heat-aniso")]
+    cases += [(f"elasticity-{rule}", (fibre,),
+               ("elasticity", "staggered", rule), 1.5)
+              for rule, fibre in (("maximum", "tiso"), ("random", "tiso"),
+                                  ("fiftyfifty", "tiso"), ("split", "iso"),
+                                  ("iso", "iso"))]
+    for label, (fibre,), (mode, scheme, rule), blur in cases:
+        path = label if label in GENERAL_PATHS else "elasticity-general"
+        s_cpu, s_gpu = (general_solver(48, "float64", dev, fibre, mode,
+                                       scheme, rule, blur=blur, **copt)
+                        for dev in ("cpu", "cuda"))
+        assert not s_cpu.run()
+        assert not run_counted(s_gpu, f"48^3 float64 {label}", path)[0]
+        rc, rg = np.asarray(s_cpu.residuals), np.asarray(s_gpu.residuals)
+        res_rel = float(np.max(np.abs(rg - rc) / np.abs(rc))) \
+            if len(rc) == len(rg) else float("inf")
+        Sc, Sg = s_cpu.calc_mean_stress(), s_gpu.calc_mean_stress()
+        s_rel = float(np.max(np.abs(Sg - Sc)) / np.max(np.abs(Sc)))
+        log(f"  {label}: iterations cpu {len(rc)} cuda {len(rg)}, residual "
+            f"history max rel diff {res_rel:.3e}, mean stress max rel diff "
+            f"{s_rel:.3e}")
+        assert len(rc) == len(rg), f"{label}: iteration counts differ"
+        assert res_rel <= 1e-9 and s_rel <= 1e-10, label
+
+
 def sync_all():
     import torch
     for i in range(torch.cuda.device_count()):
@@ -1188,10 +1437,14 @@ def main():
     # ---- phase 8: load cases
     load_cases(run_counted, res32, path_launches)
 
+    # ---- phase 9: general linear materials
+    general_materials(run_counted, res32, path_launches)
+
     # ---- phase 7: launches and per-kernel numbers.  The per-kernel list
     # takes the key "kernels"; the launch counts of each path's timed 256^3
     # float32 solve print on their own line as "kernel_launches".  A mode's
-    # row takes its launches from the path that runs that mode.
+    # row takes its launches from the path that runs that mode, plus those
+    # of the phase-9 paths that run it (more_paths).
     log(json.dumps({"kernel_launches": path_launches}))
     k1, k2, ch = ("fibergen_tpu_torch/csrc/stress_div_beta.cu",
                   "fibergen_tpu_torch/csrc/eps_from_u_dot.cu",
@@ -1253,6 +1506,14 @@ def main():
               "hyperelasticity-collocated [sharded]", ch, f"{pc_}:470"),
              ("g0_staggered_chain_slab[hyper]", "g0_staggered_chain_slab",
               "hyperelasticity [sharded]", ch, f"{pc_}:470")]
+    more_paths = {
+        "stress_div_beta": ("elasticity-reuss",),
+        "eps_from_u_dot": ("elasticity-reuss",),
+        "g0_staggered_chain": ("elasticity-general", "elasticity-tiso-field",
+                               "elasticity-reuss"),
+        "g0_staggered_heat_chain": ("heat-aniso",),
+        "gamma_collocated_chain": ("elasticity-general-collocated",),
+        "gamma_collocated_chain[heat]": ("heat-aniso-collocated",)}
     main_nums = dict(main_nums, **slab_nums)
     log(f"total {time.perf_counter() - t_start:.1f} s, the build included")
     kernels = []
@@ -1261,7 +1522,8 @@ def main():
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": path_launches[path][counter],
+            "launches": path_launches[path][counter] + sum(
+                path_launches[p][counter] for p in more_paths.get(name, ())),
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
             "bound_by": m["bound_by"], "library_ms": m.get("library_ms")})

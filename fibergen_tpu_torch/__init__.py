@@ -2,23 +2,40 @@
 H100.
 
 The port runs the linear Lippmann-Schwinger solvers (CG, basic,
-polarization) on the staggered and the collocated grid with trivial
-boundary conditions, in the modes elasticity, heat, porous flow and
-viscosity (the Delta dual scheme), and finite-strain hyperelasticity by
-Newton-Krylov.  On a card every step runs hand-written CUDA kernels
+polarization) on the staggered and the collocated grid, in the modes
+elasticity, heat, porous flow and viscosity (the Delta dual scheme), and
+finite-strain hyperelasticity by Newton-Krylov.  The linear materials are
+isotropic, general (6x6), transversely isotropic and anisotropic (3x3 for
+heat and porous flow) phases under the Voigt, Reuss, Maximum, Random,
+50-50, Split and Iso mixing rules (``materials``).  Load cases: mixed
+boundary conditions (a strain-control projector and a prescribed mean
+stress), loadsteps with solution extrapolation, and the batched
+multi-right-hand-side CG (``LSSolver.run_batched``) of the effective
+properties.  On a card every step runs hand-written CUDA kernels
 (``csrc/``, built with ``nvcc`` at first use); on the CPU the same
-functions run as plain PyTorch.  ``parallel`` splits a linear solve into
-x-slabs over a mesh of devices driven by this one process
-(``LSSolver(..., sharding=parallel.field_sharding(mesh))``).
+functions run as plain PyTorch.  ``parallel`` splits a solve into x-slabs
+over a mesh of devices driven by this one process
+(``LSSolver(..., sharding=parallel.field_sharding(mesh))``): CG and basic
+on the linear paths, polarization, and Newton-Krylov, for Voigt mixtures
+of isotropic or hyperelastic phases.
 """
 from . import convert, parallel
 from .core.grid import Grid
-from .materials.laws import (GOLDBERG_LAWS, LinearIsotropic, NeoHooke,
-                             NeoHooke2, SaintVenantKirchhoff,
-                             ScalarLinearIsotropic)
-from .materials.mixing import Phase, VoigtMixed
+from .materials.laws import (GOLDBERG_LAWS, LinearGeneral, LinearIsotropic,
+                             LinearTransverselyIsotropic,
+                             MatrixLinearAnisotropic, NeoHooke, NeoHooke2,
+                             SaintVenantKirchhoff, ScalarLinearIsotropic,
+                             make_law)
+from .materials.mixing import (MIXING_RULES, FiftyFiftyMixed, IsoMixed,
+                               MaximumMixed, MixedMaterial, Phase,
+                               RandomMixed, ReussMixed, SplitMixed,
+                               VoigtMixed, make_mixed)
 from .solvers.ls import LSSolver, SolverOptions
 
 __all__ = ["Grid", "Phase", "LinearIsotropic", "ScalarLinearIsotropic",
-           "SaintVenantKirchhoff", "NeoHooke", "NeoHooke2", "GOLDBERG_LAWS",
-           "VoigtMixed", "SolverOptions", "LSSolver", "convert", "parallel"]
+           "LinearGeneral", "MatrixLinearAnisotropic",
+           "LinearTransverselyIsotropic", "make_law", "SaintVenantKirchhoff",
+           "NeoHooke", "NeoHooke2", "GOLDBERG_LAWS", "MixedMaterial",
+           "VoigtMixed", "ReussMixed", "MaximumMixed", "RandomMixed",
+           "FiftyFiftyMixed", "SplitMixed", "IsoMixed", "MIXING_RULES",
+           "make_mixed", "SolverOptions", "LSSolver", "convert", "parallel"]

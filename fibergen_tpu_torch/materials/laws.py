@@ -1,10 +1,14 @@
-"""Constitutive laws: isotropic elasticity, the scalar law of heat
-conduction, porous flow and viscosity (fluidity), and the finite-strain
-hyperelastic laws.
+"""Constitutive laws: isotropic and general (6x6) linear elasticity, the
+transversely isotropic law, the scalar and the anisotropic (3x3) laws of
+heat conduction and porous flow (the scalar one also viscosity's
+fluidity), and the finite-strain hyperelastic laws.
 
 Laws act on whole Voigt fields ``(dim, nx, ny, nz)``; dim-6 strains store
 tensor shear components, dim 9 the full deformation gradient
-[xx, yy, zz, yz, xz, xy, zy, zx, yx] (core.voigt).  A hyperelastic law
+[xx, yy, zz, yz, xz, xy, zy, zx, yx] (core.voigt).  A linear law's tangent
+is the law itself (``dpk1(F, W) = pk1(W)``) and its energy is
+1/2 sigma : eps; the constant tensors of a law (a 6x6 or 3x3 matrix) are
+moved to a field's type and device once per type and device.  A hyperelastic law
 defines its stored energy on the nine component fields; its first
 Piola-Kirchhoff stress and the stress's directional derivative come from
 ``torch.func`` (grad, and jvp over grad), as the JAX package takes them
@@ -13,12 +17,71 @@ from ``jax.grad`` and ``jax.jvp``.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
+import numpy as np
 import torch
+
+from ..core import voigt
+from . import convert
+
+
+def _weights(dim):
+    """The double-contraction weights as Python floats."""
+    return [float(w) for w in voigt.weights(dim)]
+
+
+class MaterialLaw:
+    """What every law shares (MaterialLaw, fibergen.cpp:10287-10445): the
+    energy 1/2 sigma : eps, the tangent and the Cauchy stress of a linear
+    law, and no polarization unless the law defines one."""
+
+    dim: int = 6
+    is_linear: bool = False
+
+    def pk1(self, F):
+        raise NotImplementedError
+
+    def w(self, F):
+        s = self.pk1(F)
+        wts = _weights(self.dim)
+        return 0.5 * sum(wts[i] * s[i] * F[i] for i in range(self.dim))
+
+    def dpk1(self, F, W):
+        """Directional derivative of pk1 at F along W (dPK1,
+        fibergen.cpp:10338): the law itself for a linear law."""
+        return self.pk1(W)
+
+    def eig_range_const(self):
+        """(lmin, lmax) of the Voigt tangent when it is constant (getRefMaterial
+        bounds, fibergen.cpp:12153-12236); None for nonlinear laws."""
+        return None
+
+    def cauchy(self, F):
+        """The Cauchy stress: the stress itself below dim 9."""
+        return self.pk1(F)
+
+    def polarization(self, mu_0, F, inv=False):
+        """Eyre-Milton transform (C - C0)(C + C0)^{-1} F with C0 = 2 mu_0 Id
+        (calcPolarization, fibergen.cpp:10414-10445)."""
+        raise NotImplementedError(f"{type(self).__name__} has no polarization")
+
+    def _on(self, name, value, like):
+        """The host array ``value`` as a tensor in ``like``'s type on its
+        device, made once per type and device."""
+        cache = self.__dict__.setdefault("_tensors", {})
+        key = (name, like.dtype, like.device)
+        if key not in cache:
+            cache[key] = torch.as_tensor(np.asarray(value, dtype=np.float64),
+                                         dtype=like.dtype, device=like.device)
+        return cache[key]
+
+    def __str__(self):
+        return type(self).__name__
 
 
 @dataclasses.dataclass
-class LinearIsotropic:
+class LinearIsotropic(MaterialLaw):
     """sigma = 2 mu eps + lambda tr(eps) I  (fibergen.cpp:11354-11474)."""
 
     mu: float
@@ -60,7 +123,7 @@ class LinearIsotropic:
 
 
 @dataclasses.dataclass
-class ScalarLinearIsotropic:
+class ScalarLinearIsotropic(MaterialLaw):
     """Scalar conductivity/fluidity law sigma = mu * E on dim-3 fields
     (fibergen.cpp:11161-11228).  Also used for viscosity (dim 6)."""
 
@@ -70,6 +133,11 @@ class ScalarLinearIsotropic:
 
     def pk1(self, F):
         return self.mu * F
+
+    def w(self, F):
+        wts = _weights(self.dim)
+        return 0.5 * self.mu * sum(wts[i] * F[i] * F[i]
+                                   for i in range(self.dim))
 
     def eig_range_const(self):
         return (self.mu, self.mu)
@@ -87,6 +155,163 @@ class ScalarLinearIsotropic:
 
     def __str__(self):
         return f"scalar linear isotropic mu={self.mu:g}"
+
+
+@dataclasses.dataclass
+class LinearGeneral(MaterialLaw):
+    """Full 6x6 stiffness in Voigt notation, sigma = C : eps
+    (LinearGeneralMaterialLaw, fibergen.cpp:11233-11349).  The strain holds
+    tensor shear components, so the Voigt weights go on C's columns."""
+
+    C: np.ndarray  # (6, 6)
+    dim: int = 6
+    is_linear: bool = True
+
+    def pk1(self, F):
+        Cw = self._on("Cw", np.asarray(self.C, dtype=np.float64)
+                      * voigt.weights(6)[None, :], F)
+        return torch.einsum("ij,j...->i...", Cw, F)
+
+    def eig_range_const(self):
+        e = np.linalg.eigvalsh(np.asarray(self.C, dtype=np.float64))
+        return (float(e.min()), float(e.max()))
+
+    def __str__(self):
+        return "general linear C"
+
+
+@dataclasses.dataclass
+class MatrixLinearAnisotropic(MaterialLaw):
+    """Anisotropic conduction/permeability S = K E with a full 3x3 matrix
+    (MatrixLinearAnisotropicMaterialLaw, fibergen.cpp:11089-11160)."""
+
+    K: np.ndarray  # (3, 3)
+    dim: int = 3
+    is_linear: bool = True
+
+    def pk1(self, F):
+        return torch.einsum("ij,j...->i...", self._on("K", self.K, F), F)
+
+    def w(self, F):
+        s = self.pk1(F)
+        return 0.5 * sum(s[i] * F[i] for i in range(3))
+
+    def eig_range_const(self):
+        K = np.asarray(self.K, dtype=np.float64)
+        e = np.linalg.eigvalsh(0.5 * (K + K.T))
+        return (float(e.min()), float(e.max()))
+
+    def __str__(self):
+        return "matrix linear anisotropic"
+
+
+@dataclasses.dataclass
+class LinearTransverselyIsotropic(MaterialLaw):
+    """Transversely isotropic elasticity with five engineering constants
+    and an axis: a fixed vector ``a``, or a per-voxel unit ``orientation``
+    field (3, nx, ny, nz) on the solve's device
+    (LinearTransverselyIsotropicMaterialLaw, fibergen.cpp:11479-11593):
+
+        S = 2 mu E + lambda tr(E) I + alpha (a.E.a) I
+            + (alpha tr(E) + beta (a.E.a)) A + dmu (AE + EA),  A = a x a.
+
+    With a fixed axis the law is one constant 6x6 map (its columns the
+    stresses of the unit strains), applied as one product; with a field
+    the terms are formed voxel by voxel."""
+
+    E: float = 1.0
+    nu: float = 0.3
+    E_a: float = 1.0
+    G_a: float = 1.0
+    nu_a: float = 0.3
+    a: Optional[np.ndarray] = None          # fixed direction, else field
+    orientation: object = None              # (3, nx, ny, nz) unit field
+    dim: int = 6
+    is_linear: bool = True
+
+    def __post_init__(self):
+        E, nu, E_a, G_a, nu_ab = self.E, self.nu, self.E_a, self.G_a, self.nu_a
+        G = E / (2 * (nu + 1))
+        nu_ba = E / E_a * nu_ab
+        D = (1 + nu) * (1 - nu - 2 * nu_ab * nu_ba)
+        self._alpha = E * (nu_ab * (1 + nu - nu_ba) - nu) / D
+        self._beta = (E_a * (1 - nu * nu) - E * (nu + nu_ab * nu_ba)
+                      - 2 * E * (nu_ab * (1 + nu - nu_ba) - nu)) / D \
+            - 4 * G_a + 2 * G
+        self._lam = E * (nu + nu_ab * nu_ba) / D
+        self._two_mu = 2 * G
+        self._two_dmu = 2 * (G_a - G)
+
+    def _fixed_axis(self):
+        """The unit axis as floats, or None when the law reads a field."""
+        if self.a is not None and np.linalg.norm(self.a) != 0:
+            av = np.asarray(self.a, dtype=np.float64)
+            return [float(x) for x in av / np.linalg.norm(av)]
+        if self.orientation is None:
+            raise ValueError("tiso law needs a direction or orientation field")
+        return None
+
+    def matrix(self, a):
+        """The 6x6 map of strains (tensor shear components) to stresses
+        about the axis ``a``: column j is the stress of the unit strain
+        e_j."""
+        eye = np.eye(6)
+        C = np.zeros((6, 6))
+        for j in range(6):
+            C[:, j] = np.asarray(self._stress_terms(eye[j], a),
+                                 dtype=np.float64)
+        return C
+
+    def pk1(self, F):
+        a = self._fixed_axis()
+        if a is not None:
+            C = self._on("C", self.matrix(a), F)
+            return torch.einsum("ij,j...->i...", C, F)
+        o = self.orientation.to(dtype=F.dtype, device=F.device)
+        return torch.stack(self._stress_terms(F, (o[0], o[1], o[2])))
+
+    def _stress_terms(self, F, a):
+        """The six stress components [xx, yy, zz, yz, xz, xy] on tensors,
+        numpy arrays or floats alike."""
+        a0, a1, a2 = a
+        # A = a x a in Voigt [xx, yy, zz, yz, xz, xy]
+        A = [a0 * a0, a1 * a1, a2 * a2, a1 * a2, a0 * a2, a0 * a1]
+        trE = F[0] + F[1] + F[2]
+        w = _weights(6)
+        aEa = sum(w[i] * A[i] * F[i] for i in range(6))
+        # (AE + EA)_ij = sum_k A_ik E_kj + E_ik A_kj for symmetric A, E
+        Am = [[A[0], A[5], A[4]], [A[5], A[1], A[3]], [A[4], A[3], A[2]]]
+        Em = [[F[0], F[5], F[4]], [F[5], F[1], F[3]], [F[4], F[3], F[2]]]
+
+        def prod(i, j):
+            return sum(Am[i][k] * Em[k][j] + Em[i][k] * Am[k][j]
+                       for k in range(3))
+
+        AE = [prod(0, 0), prod(1, 1), prod(2, 2),
+              0.5 * (prod(1, 2) + prod(2, 1)),
+              0.5 * (prod(0, 2) + prod(2, 0)),
+              0.5 * (prod(0, 1) + prod(1, 0))]
+
+        c_I = self._lam * trE + self._alpha * aEa
+        c_A = self._alpha * trE + self._beta * aEa
+        out = []
+        for i in range(6):
+            t = self._two_mu * F[i] + c_A * A[i] + 0.5 * self._two_dmu * AE[i]
+            if i < 3:
+                t = t + c_I
+            out.append(t)
+        return out
+
+    def eig_range_const(self):
+        """Bounds of the symmetric part of the 6x6 map about a = e_z,
+        whatever the axis, as the JAX package takes them."""
+        C = self.matrix((0.0, 0.0, 1.0))
+        e = np.linalg.eigvalsh(0.5 * (C + C.T))
+        return (float(e.min()), float(e.max()))
+
+    def __str__(self):
+        return (f"linear transversely isotropic lambda={self._lam:g} "
+                f"mu={0.5 * self._two_mu:g}")
 
 
 # ------------------------------------------------------------------------
@@ -143,7 +368,7 @@ def cauchy_from_pk1_comp(P, F):
         (p10 * f00 + p11 * f01 + p12 * f02) / J])
 
 
-class HyperelasticLaw:
+class HyperelasticLaw(MaterialLaw):
     """Finite-strain law on (9, ...) deformation-gradient fields:
     subclasses define the energy density ``energy(F)`` with the component
     helpers above (no voxel-trailing (..., 3, 3) view); PK1 = dW/dF and
@@ -390,3 +615,28 @@ GOLDBERG_LAWS = {
     "gb_fiber5": GoldbergFiber5,
     "gb_fiber6": GoldbergFiber6,
 }
+
+
+def make_law(kind: str, dim_hint: int = 6, **params) -> MaterialLaw:
+    """Law factory by XML tag name (readSettings law table,
+    fibergen.cpp:15219-15305): ``iso`` and the hyperelastic laws from any
+    two isotropic constants (convert.elastic_constants), ``scalar`` from
+    ``mu`` (dim ``dim_hint``), ``general`` from ``C``."""
+    kind = kind.lower()
+    if kind in ("iso", "linear_isotropic", "matrix", "fiber", ""):
+        c = convert.elastic_constants(**params)
+        return LinearIsotropic(mu=c["mu"], lam=c["lam"])
+    if kind in ("scalar", "scalar_linear_isotropic"):
+        return ScalarLinearIsotropic(mu=float(params["mu"]), dim=dim_hint)
+    if kind in ("general", "linear_general"):
+        return LinearGeneral(C=np.asarray(params["C"], dtype=np.float64))
+    if kind in ("svk", "saint_venant_kirchhoff", "sv"):
+        c = convert.elastic_constants(**params)
+        return SaintVenantKirchhoff(mu=c["mu"], lam=c["lam"])
+    if kind in ("nh", "neo_hooke", "neo-hooke", "neohooke"):
+        c = convert.elastic_constants(**params)
+        return NeoHooke(mu=c["mu"], lam=c["lam"])
+    if kind in ("nh2", "neo_hooke_2", "neohooke2"):
+        c = convert.elastic_constants(**params)
+        return NeoHooke2(mu=c["mu"], K=c["K"])
+    raise ValueError(f"Unknown material law '{kind}'")

@@ -2,8 +2,14 @@
 
 Counterpart of fibergen_tpu/ops/gamma.py (GammaOperator*,
 fibergen.cpp:20288-20531) for the branches the port runs (the elasticity
-staggered CG step calls K1, K3 and K2 directly):
+staggered CG step of a material on the isotropic route calls K1, K3 and
+K2 directly):
 
+* :func:`gamma_staggered`: the generic elasticity branch of
+  ``gamma_operator`` on the staggered grid for any other material,
+  div_staggered -> K3 -> eps_staggered around a stress difference formed
+  in PyTorch (the JAX package forms the stencils outside any Pallas
+  kernel there too);
 * :func:`gamma_heat_staggered`: the heat/porous branch of
   ``gamma_operator``, div_staggered_heat -> K4 -> eps_staggered_heat;
 * :func:`fused_visc`: the viscosity Delta scheme's staggered branch of
@@ -73,6 +79,17 @@ def stress_diff_mean(x, mu_x, lam_x, mu_0, lambda_0):
     m = torch.einsum("cxyz,xyz->c", x, mu_x - mu_0) * (2.0 / n)
     tr = torch.einsum("xyz,xyz->", x[0] + x[1] + x[2], lam_x - lambda_0) / n
     return m + torch.cat([tr.expand(3), tr.new_zeros(x.shape[0] - 3)])
+
+
+def gamma_staggered(grid, E, mu_0, lambda_0, tau, bc=None):
+    """eta = -Gamma tau with mean E on (6, nx, ny, nz) fields
+    (gamma_operator, mode elasticity, staggered scheme, alpha = -1):
+    div_staggered -> K3 -> eps_staggered, whose mean E + alpha R carries
+    the correction under ``bc``."""
+    f = staggered.div_staggered(grid, tau)
+    u = green.g0_staggered_fused(grid, mu_0, lambda_0, f)
+    del f
+    return staggered.eps_staggered(grid, _corrected(E, bc, tau, -1.0), u)
 
 
 def gamma_heat_staggered(grid, E, mu_0, tau, par=None, bc=None):

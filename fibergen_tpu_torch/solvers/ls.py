@@ -10,8 +10,12 @@ loadstep loop with solution extrapolation, and the batched multi-RHS CG
 On a card each step runs hand-written kernels, on the CPU their plain
 twins.  Staggered grid:
 
-* elasticity: K1 (ops/stencil_kernels.py), the K3 G0 chain
-  (ops/spectral_kernels.py, with its own transforms), K2;
+* elasticity, a material on the isotropic route (Voigt or Reuss mixing of
+  isotropic linear phases, ``MixedMaterial.iso_route``): K1
+  (ops/stencil_kernels.py), the K3 G0 chain (ops/spectral_kernels.py, with
+  its own transforms), K2; any other linear material (general,
+  transversely isotropic, the other mixing rules): the plain stress
+  difference and stencils around K3 (ops/gamma.py gamma_staggered);
 * heat and porous flow: plain stencils around the scalar K4 chain
   (ops/gamma.py gamma_heat_staggered);
 * viscosity (the Delta dual scheme): K1 tau-sum mode, K3 with the dual
@@ -237,6 +241,19 @@ class LSSolver:
         if self.mode == "viscosity" and self.opt.method == "polarization":
             raise NotImplementedError(
                 "the polarization method in viscosity is not ported yet")
+        # staggered elasticity and viscosity fuse the step into K1 and K2,
+        # which read the isotropic moduli planes
+        iso = material.iso_route()
+        self._k1_route = (self.scheme == "staggered" and iso
+                          and self.mode in ("elasticity", "viscosity"))
+        if (self.mode == "viscosity" and self.scheme == "staggered"
+                and not iso):
+            raise NotImplementedError(
+                "staggered viscosity of a material off the isotropic route "
+                "(phases without isotropic moduli, or a rule other than "
+                "voigt and reuss) takes the JAX package's generic staggered "
+                "Delta path, which is not ported yet (ROADMAP.md, Queue 1 "
+                "item 4); the collocated scheme takes it")
         if (self.mode == "viscosity" and self.scheme == "staggered"
                 and any(float(p.law.iso_moduli()[1]) != 0.0
                         for p in material.phases)):
@@ -295,6 +312,13 @@ class LSSolver:
                 "solve runs CG, basic and polarization in elasticity, heat "
                 "and porous flow on both grids, in viscosity on the "
                 "collocated grid, and Newton-Krylov in hyperelasticity")
+        if self.mat.rule != "voigt" or (self.dim != 9
+                                        and not self.mat.iso_route()):
+            raise NotImplementedError(
+                f"a sharded solve of a material off the isotropic Voigt "
+                f"route ({self.mat}: phases without isotropic moduli, or "
+                f"another mixing rule) is not ported yet (ROADMAP.md, Queue "
+                f"1 item 8)")
         return par
 
     # ------------------------------------------------------------------ API
@@ -362,14 +386,16 @@ class LSSolver:
         (calcRefMaterial, fibergen.cpp:22283-22313): mu_0 = 0.5 ref_scale
         0.5 (lmin + lmax), or 0.5 ref_scale sqrt(lmin lmax) for the
         polarization method; lambda_0 = 0.  Linear materials: memoized on
-        the identity of the mixed moduli.  Hyperelasticity: the bounds of
-        the tangent at the current ``eps``, recomputed at every call
+        the identity of the tensors the material reads (``state()``: phi,
+        orientation fields, the mixed moduli).  Hyperelasticity: the bounds
+        of the tangent at the current ``eps``, recomputed at every call
         (Newton calls it at the shifted F)."""
         if self.mode == "hyperelasticity":
             lmin, lmax = (float(x) for x in self.mat.eig_range(self.eps))
         else:
-            key = tuple(id(t) for t in self.mat._all_iso())
-            if self._eig_memo is None or self._eig_memo[0] != key:
+            key = self.mat.state()
+            if self._eig_memo is None or len(self._eig_memo[0]) != len(key) \
+                    or not all(a is b for a, b in zip(self._eig_memo[0], key)):
                 self._eig_memo = (key, tuple(
                     float(x) for x in self.mat.eig_range(
                         zero_trace=self.mode == "viscosity",
@@ -439,9 +465,6 @@ class LSSolver:
         failed = self._run_loadstepping(self.E, self.S)
         self._sync()
         self.solve_time = time.perf_counter() - t0
-        if self.opt.print_mean:
-            LOG.info(f"mean elastic strain = {self.calc_mean_strain()}")
-            LOG.info(f"average elastic stress = {self.calc_mean_stress()}")
         return failed
 
     def _refuse_mixed(self):
@@ -553,6 +576,22 @@ class LSSolver:
             self._run_polarization(E, S)
         else:
             self._run_cg(E, S)
+        if self.opt.print_mean:
+            self._print_mean_values()
+
+    def _print_mean_values(self):
+        """Log the mean strain and stress under the mode's names
+        (after each run_solver call, as the JAX package does)."""
+        names = {
+            "elasticity": ("elastic strain", "average elastic stress"),
+            "hyperelasticity": ("deformation gradient",
+                                "1st Piola-Kirchhoff stress"),
+            "viscosity": ("fluid stress", "fluid shear"),
+            "heat": ("temperature gradient", "heat flux"),
+            "porous": ("pressure gradient", "volumetric flux"),
+        }[self.mode]
+        LOG.info(f"mean {names[0]} = {self.calc_mean_strain()}")
+        LOG.info(f"mean {names[1]} = {self.calc_mean_stress()}")
 
     def _refuse_refinement(self):
         """Raise where the reference would engage mixed-precision
@@ -592,8 +631,11 @@ class LSSolver:
                                    d, nx=nx) for d in self.par.devices]
 
     def _moduli(self):
-        """(mu(x), lam(x)) of the solve: tensors, or x-slabs whose halo
-        planes (for K1) are exchanged here, once per solve."""
+        """(mu(x), lam(x)) for K1 and K2: tensors, or x-slabs whose halo
+        planes (for K1) are exchanged here, once per solve; (None, None) on
+        the paths that read the material through its stress difference."""
+        if not self._k1_route:
+            return None, None
         if self.par is None:
             return self.mat.iso_moduli(self.dtype, self.device)
         mu_x, lam_x = self.mat.iso_moduli_slabs(self.dtype, self.par.devices)
@@ -607,8 +649,10 @@ class LSSolver:
         fibergen.cpp:20583-20587); ``bc`` corrects the mean.  Staggered
         elasticity: K1 init mode, G0, K2 no-dot mode; heat/porous: the
         plain stress difference and the scalar Gamma; viscosity: the Delta
-        operator (its dot is not read).  Collocated: the plain stress
-        difference, then K5 (K6 in viscosity)."""
+        operator (its dot is not read); elasticity off the isotropic route:
+        the plain stress difference, div_staggered, K3, eps_staggered.
+        Collocated: the plain stress difference, then K5 (K6 in
+        viscosity)."""
         grid, mu0, lam0, par = self.grid, self.mu_0, self.lambda_0, self.par
         if self.scheme == "collocated":
             tau = self.mat.stress_diff(eps, mu0, lam0)
@@ -623,6 +667,10 @@ class LSSolver:
         if self.dim == 3:
             return gammamod.gamma_heat_staggered(
                 grid, E, mu0, self.mat.stress_diff(eps, mu0, lam0), par=par,
+                bc=bc)
+        if not self._k1_route:
+            return gammamod.gamma_staggered(
+                grid, E, mu0, lam0, self.mat.stress_diff(eps, mu0, lam0),
                 bc=bc)
         return self._k1_k3_k2(eps, None, None, E, mu_x, lam_x, bc)[0]
 
@@ -670,18 +718,19 @@ class LSSolver:
     def _cg_step(self, eps, r, p_prev, gamma, gamma_prev, mu_x, lam_x, zero,
                  bc=None):
         """One CG step; eps and r are updated in place.  The staggered
-        elasticity and viscosity steps fuse the direction update into K1;
-        the others form p, apply the operator and take the denominator
-        <p, p - w> in PyTorch (the JAX package's generic step).  Sharded,
-        each slab takes the same step (``slabs.smap``)."""
+        elasticity (on the isotropic route) and viscosity steps fuse the
+        direction update into K1; the others form p, apply the operator and
+        take the denominator <p, p - w> in PyTorch (the JAX package's
+        generic step).  Sharded, each slab takes the same step
+        (``slabs.smap``)."""
         grid, tiny = self.grid, self._tiny
         beta = slabs.smap(lambda g, gp: (g, gp), gamma, gamma_prev)
-        staggered = self.scheme == "staggered"
-        if staggered and self.mode == "elasticity":
+        fused = self._k1_route
+        if fused and self.mode == "elasticity":
             w, p, dot_raw = self._k1_k3_k2(r, p_prev, beta, zero, mu_x, lam_x,
                                            bc)
             denom = slabs.smap(lambda d: d / grid.nxyz, dot_raw)
-        elif staggered and self.mode == "viscosity":
+        elif fused and self.mode == "viscosity":
             w, p, dot_raw = gammamod.fused_visc(grid, r, p_prev, beta, zero,
                                                 mu_x, lam_x, self.mu_0,
                                                 self.lambda_0)
@@ -748,7 +797,7 @@ class LSSolver:
                     break
 
     # ------------------------------------------------------ batched CG
-    def run_batched(self, Es) -> bool:
+    def run_batched(self, Es, pallas_mid="auto") -> bool:
         """B pure-strain load cases (the rows of ``Es``) against the one
         operator, advanced in lockstep by the linear CG (the JAX package's
         run_batched, ls.py:2008-2136): each right-hand side has its own
@@ -763,9 +812,15 @@ class LSSolver:
         On success ``eps_batch`` holds (B, dim, nx, ny, nz) and ``eps`` the
         last case (``eps_batch[-1]``); calc_mean_stress_batched() gives the
         (B, dim) mean stresses.  Returns True on failure, False on success
-        (run() semantics)."""
+        (run() semantics).  ``pallas_mid`` (the JAX package's choice of its
+        batched chain) is accepted and has no effect: the port launches
+        its chain once per right-hand side."""
         if self.opt.method != "cg" or self.mode == "hyperelasticity":
             raise SolverError("run_batched requires the linear CG")
+        if self.sharding is not None and self.par is None:
+            raise SolverError(
+                "run_batched on a mesh requires the slab-FFT layout "
+                "(x-slab NamedSharding with mesh-divisible nx, ny)")
         if self.par is not None:
             raise NotImplementedError(
                 "run_batched on a sharded mesh is not ported yet")

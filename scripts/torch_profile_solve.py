@@ -2,7 +2,7 @@
 """Where a CG solve of the PyTorch/CUDA port spends its time on one card.
 
     python3 scripts/torch_profile_solve.py [n] [mode] [scheme] [method]
-        [--slabs=D | --batched]
+        [--slabs=D | --batched] [--material=FIBRE]
     python3 scripts/torch_profile_solve.py [n] hyperelasticity [scheme] cg
         [exact|frozen_iso]
 
@@ -25,7 +25,10 @@ reference-material pass (the tangent eigenvalue bounds at 256^3).
 of its own, with ``torch.stack``) and the halo planes as copy kernels.
 ``--batched`` runs the mode's effective-property load cases in one
 ``run_batched`` (np.eye(dim), viscosity the five traceless cases of
-chip_smoke.EFF_VISC) instead of one solve.
+chip_smoke.EFF_VISC) instead of one solve.  ``--material=FIBRE`` solves
+a general linear material of ``chip_smoke.general_solver`` instead of the
+bench's (``tiso``, ``tiso-field``, ``general-iso`` or ``tiso-iso`` in
+elasticity, ``aniso`` in heat).
 Prints one JSON line last.
 """
 import json
@@ -44,6 +47,8 @@ def kind_of(name):
             return "port kernels"
     if "fft" in n:
         return "cuFFT"
+    if "gemm" in n or "cutlass" in n:
+        return "cuBLAS (einsum)"
     if any(k in n for k in ("sytrd", "stedc", "laed", "lansy", "lascl",
                             "steqr", "syev")):
         return "cuSOLVER eigvalsh"
@@ -62,7 +67,7 @@ def main():
 
     import numpy as np
 
-    from chip_smoke import EFF_VISC, HYPER_OPT, sphere_solver
+    from chip_smoke import EFF_VISC, HYPER_OPT, general_solver, sphere_solver
     from fibergen_tpu_torch.utils.logging import LOG
 
     if not torch.cuda.is_available():
@@ -73,8 +78,12 @@ def main():
              if a.startswith("--slabs=")]
     slabs = slabs[0] if slabs else None
     batched = "--batched" in sys.argv
+    material = [a.split("=", 1)[1] for a in sys.argv
+                if a.startswith("--material=")]
+    material = material[0] if material else None
     sys.argv = [a for a in sys.argv
-                if not a.startswith("--slabs=") and a != "--batched"]
+                if not a.startswith(("--slabs=", "--material="))
+                and a != "--batched"]
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 256
     mode = sys.argv[2] if len(sys.argv) > 2 else "elasticity"
     scheme = sys.argv[3] if len(sys.argv) > 3 else "staggered"
@@ -86,9 +95,13 @@ def main():
         est = "residual" if method == "cg" else "epsilon"
         opt = dict(error_estimator=est, tol=1e-6, check_every=8,
                    maxiter=4000)
-    s = sphere_solver(n, "float32", "cuda", mode, scheme, method,
-                      mesh=None if slabs is None else ["cuda:0"] * slabs,
-                      **opt)
+    if material is not None:
+        s = general_solver(n, "float32", "cuda", material, mode, scheme,
+                           method=method, **opt)
+    else:
+        s = sphere_solver(n, "float32", "cuda", mode, scheme, method,
+                          mesh=None if slabs is None else ["cuda:0"] * slabs,
+                          **opt)
     Es = EFF_VISC if mode == "viscosity" else np.eye(s.dim)
 
     def solve():
@@ -123,6 +136,7 @@ def main():
         kinds[kind_of(name)] = kinds.get(kind_of(name), 0.0) + us / 1e3
     card = torch.cuda.get_device_name(0)
     print(f"{card}: {n}^3 float32 {mode} {scheme} {method}"
+          f"{'' if material is None else f' {s.mat}, fibre {material}'}"
           f"{'' if slabs is None else f' on {slabs} slabs'}"
           f"{f' run_batched B={len(Es)}' if batched else ''}, {its} "
           f"iterations (Newton outer, inner: {s.newton_iterations}), "
@@ -138,6 +152,7 @@ def main():
         print(f"  {k:18s} {ms:9.3f} ms  {ms / busy_ms:6.1%} of busy")
     print(json.dumps({"n": n, "mode": mode, "scheme": scheme,
                       "method": method, "slabs": slabs,
+                      "material": material,
                       "batched": len(Es) if batched else None,
                       "iterations": its,
                       "newton_iterations": s.newton_iterations,

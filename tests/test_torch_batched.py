@@ -20,6 +20,7 @@ import fibergen_tpu as fg
 import fibergen_tpu_torch as ft
 from fibergen_tpu.materials import laws as jlaws
 from fibergen_tpu.utils.logging import LOG as JLOG
+from fibergen_tpu_torch import parallel
 from fibergen_tpu_torch.core import voigt
 from fibergen_tpu_torch.solvers.ls import SolverError
 from fibergen_tpu_torch.utils.logging import LOG
@@ -152,3 +153,27 @@ def test_run_batched_refusals():
         mode="hyperelasticity"), device="cpu")
     with pytest.raises(SolverError, match="linear CG"):
         s.run_batched(np.eye(9)[:1])
+    # a replicated sharding has no slab layout: refused, as in the JAX
+    # package, rather than solved on the mesh's first device
+    phi = _sphere(SHAPE)
+    mat = ft.convert.material_from_numpy(
+        [("a", 10.0, 5.0, phi), ("b", 1.0, 1.0, 1.0 - phi)], device="cpu")
+    mesh = parallel.make_mesh(["cpu"])
+    s = ft.LSSolver(ft.Grid(*SHAPE), mat, ft.SolverOptions(dtype="float64"),
+                    sharding=parallel.NamedSharding(mesh, (None,) * 4))
+    assert s.par is None
+    with pytest.raises(SolverError, match="slab-FFT layout"):
+        s.run_batched(np.eye(6))
+
+
+def test_run_batched_takes_the_pallas_mid_keyword():
+    """run_batched(Es, pallas_mid=...) as the JAX package's signature has
+    it; the keyword changes nothing in the port."""
+    runs = []
+    for kw in ({}, {"pallas_mid": "auto"}, {"pallas_mid": False}):
+        _, ps = _solvers("heat", tol=1e-9, error_estimator="residual")
+        assert not ps.run_batched(np.eye(3), **kw)
+        runs.append((ps.residuals, ps.calc_mean_stress_batched()))
+    for res, S in runs[1:]:
+        assert res == runs[0][0]
+        np.testing.assert_array_equal(S, runs[0][1])

@@ -325,6 +325,32 @@ def test_extrapolation_cuts_basic_iterations():
     assert counts[1] < counts[0]
 
 
+@pytest.mark.parametrize("mode,names", [
+    ("heat", ("temperature gradient", "heat flux")),
+    ("elasticity", ("elastic strain", "average elastic stress"))])
+def test_print_mean_logs_each_loadstep_with_the_modes_names(mode, names,
+                                                             capsys):
+    """print_mean logs the mean strain and stress after every run_solver
+    call, once per loadstep, under the mode's names (the JAX package's
+    _print_mean_values)."""
+    _, ps = _solvers(mode, bcs=False, loadsteps=2, print_mean=True,
+                     error_estimator="residual", tol=1e-9)
+    calls = []
+    solve = ps.run_solver
+    ps.run_solver = lambda E, S: (calls.append(1), solve(E, S))
+    capsys.readouterr()
+    LOG.enabled = True
+    assert not ps.run()
+    LOG.enabled = False
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("mean ")]
+    assert len(calls) == 3                  # t = 0, 1/2, 1
+    assert [ln.split(" = ")[0] for ln in lines] == \
+        [f"mean {names[0]}", f"mean {names[1]}"] * 3
+    last = f"mean {names[1]} = {ps.calc_mean_stress()}"
+    assert lines[-1] == last.splitlines()[0]
+
+
 def test_extrapolate_functions_match_jax():
     """The extrapolation rules on random fields (the transformation rule
     on deformation gradients near the identity) within 1e-12."""

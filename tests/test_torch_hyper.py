@@ -552,3 +552,28 @@ def test_hyper_options():
         mode="hyperelasticity", loadsteps=2, newton_relax=0.9,
         outer_error_estimator="sigma"), device="cpu")
     assert s.dim == 9 and s.scheme == "staggered"
+
+
+def test_set_strain_takes_six_values_in_dim_9():
+    """Six values in dim 9 mirror their shear entries into the last three,
+    as the JAX package's _fit_vec does; nine are kept, fewer padded."""
+    mat = ft.convert.material_from_numpy(
+        [("a", 1.0, 1.0, np.ones((4, 4, 4)))], dim=9, law="svk",
+        device="cpu")
+    s = ft.LSSolver(ft.Grid(4, 4, 4), mat, ft.SolverOptions(
+        mode="hyperelasticity"), device="cpu")
+    jmat = fg.VoigtMixed([fg.Phase("a", jlaws.SaintVenantKirchhoff(
+        mu=1.0, lam=1.0), jnp.ones((4, 4, 4)))], dim=9)
+    js = fg.LSSolver(fg.Grid(4, 4, 4), jmat, fg.SolverOptions(
+        mode="hyperelasticity"))
+    for e in ([1.02, 1.0, 0.99, 0.01, 0.02, 0.03],
+              [1.02, 1.0, 0.99, 0.01, 0.02, 0.03, 0.04, 0.05, 0.06],
+              [1.02, 1.0]):
+        s.set_strain(e)
+        s.set_stress(e)
+        js.set_strain(e)
+        np.testing.assert_array_equal(s.E, js.E)
+        np.testing.assert_array_equal(s.S, s.E)
+    s.set_strain([1.02, 1.0, 0.99, 0.01, 0.02, 0.03])
+    np.testing.assert_array_equal(
+        s.E, [1.02, 1.0, 0.99, 0.01, 0.02, 0.03, 0.01, 0.02, 0.03])
