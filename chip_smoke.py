@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py
 
-Nine paths run on the card (PATHS), and six more of general linear
-materials (GENERAL_PATHS, phase 9).  Staggered CG: elasticity (K1, K3,
+Nine paths run on the card (PATHS), six more of general linear
+materials (GENERAL_PATHS, phase 9) and eight of the interface rules, the
+doubly-fine grid and the generic staggered Delta path (INTERFACE_PATHS,
+phase 10).  Staggered CG: elasticity (K1, K3,
 K2), heat conduction (the scalar K4 chain; porous flow is the same path)
 and viscosity (K1 tau-sum mode, K3 with the dual constants, K2 Delta mode).
 Collocated: CG in elasticity and heat (the plain stress difference and the
@@ -15,9 +17,10 @@ constants) and collocated (K5 at C = 9).  Phases, each failing loudly:
 
 1. the card's name and power limit; build the CUDA kernels from ``csrc/``;
 2. every kernel in every mode against its plain PyTorch twin at the paths'
-   shapes (256^3 float32), on an odd float64 grid and on a float64 grid
-   of power-of-two axes (the chains' register line FFT), with kernel,
-   twin and cuFFT times from CUDA events;
+   shapes (256^3 float32), on an odd float64 grid, on a float64 grid of
+   power-of-two axes (the chains' register line FFT) and at phase 10's
+   64^3 in float32 and float64 (K3 also with the viscosity dual
+   constants), with kernel, twin and cuFFT times from CUDA events;
 3. the kernel path (cuda) against the plain path (cpu) on one 48^3
    float64 solve of each linear path and one 24^3 float64 Newton solve of
    each hyperelastic path;
@@ -65,7 +68,22 @@ constants) and collocated (K5 at C = 9).  Phases, each failing loudly:
    against phase 4's K1/K2 solve); path 1's effective stiffness batched
    and sequential, with the symmetry about the fibre axis; and 48^3
    float64 solves on the card against the CPU, the Maximum, Random, 50-50,
-   Split and Iso rules among them.
+   Split and Iso rules among them;
+10. slice I on the bench's sphere at 256^3 float32 (``interfaces_and_dfg``,
+   INTERFACE_PATHS): the bench's phases on the 512^3 doubly-fine sphere
+   under full_staggered (K3 alone), with the share of prolong -> law ->
+   restrict in a step; the laminate on the sharp sphere (the Voigt rule
+   there: a route oracle against phase 4) and on a partial-volume sphere
+   with its analytic normals on both grids (K3; K5), between Reuss and
+   Voigt, with the jump solve's share and Cramer's rule against a batched
+   torch.linalg.solve; the heat laminate (K4); fluidity mixing on both
+   grids (K3; K6); staggered viscosity on the generic Delta path (K3
+   alone) under the Maximum rule (a route oracle against phase 4's K1
+   tau-sum route) and with lambda phases; the Nunan-Keller demo at n = 64
+   (rigid spheres, V = 0.2, the five traceless cases batched and one by
+   one) against the paper's alpha and beta; mixed BCs in staggered
+   viscosity at 64^3 float64; 48^3 float64 solves on the card against
+   the CPU.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits non-zero before printing any result.
@@ -184,6 +202,18 @@ PATH_KERNELS = {
                          "g0_staggered_chain"),
     "heat-aniso": ("g0_staggered_heat_chain",),
     "heat-aniso-collocated": ("gamma_collocated_chain",),
+    # phase 10: interface laminates, the doubly-fine grid, the generic
+    # staggered Delta path (INTERFACE_PATHS)
+    "elasticity-full-staggered": ("g0_staggered_chain",),
+    "elasticity-laminate": ("g0_staggered_chain",),
+    "elasticity-laminate-collocated": ("gamma_collocated_chain",),
+    "heat-laminate": ("g0_staggered_heat_chain",),
+    "viscosity-generic": ("g0_staggered_chain",),
+    "viscosity-lambda": ("g0_staggered_chain",),
+    "viscosity-fluidity": ("g0_staggered_chain",),
+    "viscosity-fluidity-collocated": ("gamma_collocated_zt_chain",),
+    "viscosity-nunan-keller": ("g0_staggered_chain",),
+    "viscosity-mixed-bc": ("g0_staggered_chain",),
 }
 
 # phase 9: the tiso demo's materials (demo/elasticity/transverse_isotropy):
@@ -308,6 +338,95 @@ def general_solver(n, dtype, device, fibre, mode="elasticity",
     s = ft.LSSolver(ft.Grid(n, n, n), mat, ft.SolverOptions(
         mode=mode, gamma_scheme=scheme, dtype=dtype, **opt), device=device)
     s.set_strain([1.0, 0.0, 0.0, 0.0, 0.0, 0.0][:dim])
+    return s
+
+
+# phase 10: path -> (mode, gamma_scheme, mixing rule, phases, phi).  The
+# phases: the bench's of the mode (RVE), or viscosity phases that carry a
+# lambda; phi: the bench's sharp sphere, its partial-volume (smooth)
+# sphere with the analytic normals, or the sharp sphere on the doubly-fine
+# grid (a DfgMaterial)
+INTERFACE_PATHS = {
+    "elasticity-full-staggered": ("elasticity", "full_staggered", "voigt",
+                                  "bench", "fine"),
+    "elasticity-laminate": ("elasticity", "staggered", "laminate", "bench",
+                            "smooth"),
+    "elasticity-laminate-collocated": ("elasticity", "collocated",
+                                       "laminate", "bench", "smooth"),
+    "heat-laminate": ("heat", "staggered", "laminate", "bench", "smooth"),
+    "viscosity-generic": ("viscosity", "staggered", "maximum", "bench",
+                          "sharp"),
+    "viscosity-lambda": ("viscosity", "staggered", "voigt", "lambda",
+                         "sharp"),
+    "viscosity-fluidity": ("viscosity", "staggered", "fluidity", "bench",
+                           "smooth"),
+    "viscosity-fluidity-collocated": ("viscosity", "collocated", "fluidity",
+                                      "bench", "smooth"),
+}
+# the Nunan-Keller demo (demo/viscosity/nunan_keller): rigid spheres (V =
+# 0.2) in a fluid of fluidity 1 (0.5 for the law), full_staggered; their
+# alpha and beta (Nunan and Keller 1984)
+NUNAN_KELLER = dict(V=0.2, alpha=1.0666, beta=0.49665)
+
+
+def smooth_sphere(n, dtype, r=0.3, ss=4):
+    """The partial-volume phi of a centred sphere of radius ``r`` (the
+    share of ss^3 points of each voxel inside it; on the card if there is
+    one, an x-slab at a time) and its outward unit normal field (e_x
+    stands in at the centre), as numpy arrays in ``dtype``."""
+    import torch
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    t = (torch.arange(n * ss, dtype=torch.float64, device=dev) + 0.5) / (
+        n * ss) - 0.5
+    t2 = t * t
+    yz = t2[:, None] + t2[None, :]
+    phi = torch.empty((n, n, n), dtype=torch.float64, device=dev)
+    for i in range(n):
+        inside = (t2[i * ss:(i + 1) * ss, None, None] + yz[None]) < r * r
+        phi[i] = inside.reshape(ss, n, ss, n, ss).double().mean(dim=(0, 2, 4))
+    c = (torch.arange(n, dtype=torch.float64, device=dev) + 0.5) / n - 0.5
+    X = torch.stack(torch.meshgrid(c, c, c, indexing="ij"))
+    nrm = X.norm(dim=0, keepdim=True)
+    X = torch.where(nrm > 0, X / nrm.clamp_min(1e-30),
+                    torch.tensor([1.0, 0.0, 0.0], dtype=torch.float64,
+                                 device=dev).reshape(3, 1, 1, 1))
+    return (phi.cpu().numpy().astype(dtype), X.cpu().numpy().astype(dtype))
+
+
+def interface_solver(n, dtype, device, path, rule=None, geometry=None,
+                     **opt):
+    """The material of ``path`` (INTERFACE_PATHS; its rule replaced by
+    ``rule``) on the bench's sphere at n^3 in ``dtype``, loaded as the
+    bench loads its mode.  ``geometry`` (phi, normals) replaces the
+    path's phi (both solvers of a comparison then read the same arrays;
+    on the doubly-fine grid phi is 2n^3)."""
+    import fibergen_tpu_torch as ft
+    mode, scheme, rule0, phases, kind = INTERFACE_PATHS[path]
+    rule = rule or rule0
+    dt = "float32" if dtype == "float32" else "float64"
+    if geometry is not None:
+        phi, normals = geometry
+    elif kind == "smooth":
+        phi, normals = smooth_sphere(n, dt)
+    else:
+        phi, normals = sphere_phi(2 * n if kind == "fine" else n, dt), None
+    c = RVE[mode]
+    if phases == "lambda":
+        # 2 mu + 3 lam < 4 mu_0 in both phases: the Delta operator stays
+        # regular on the trace (ROADMAP.md, Queue 3)
+        fibre, matrix = ("isotropic", 0.05, 0.01), ("isotropic", 0.5, 0.02)
+    else:
+        fibre, matrix = (c["law"], *c["fiber"]), (c["law"], *c["matrix"])
+    takes_normals = rule in ("laminate", "infinity_laminate", "fluidity")
+    mat = ft.convert.material_from_numpy(
+        [("fiber", fibre, phi), ("matrix", matrix, 1.0 - phi)],
+        dim=c["dim"], device=device, rule=rule,
+        normals=normals if takes_normals else None)
+    if kind == "fine":
+        mat = ft.DfgMaterial(mat)
+    s = ft.LSSolver(ft.Grid(n, n, n), mat, ft.SolverOptions(
+        mode=mode, gamma_scheme=scheme, dtype=dtype, **opt), device=device)
+    s.set_strain(c["load"])
     return s
 
 
@@ -478,7 +597,13 @@ def check_kernels(shape, dtype, timed):
     # K3: the whole chain against rfftn -> plain G0 apply -> irfftn
     k3 = lambda: spk.g0_staggered_chain(g, f, c10, c20)
     p3 = lambda: spk.g0_staggered_chain_plain(g, f, c10, c20)
-    report("g0_staggered_chain", [rel_err(k3(), p3())], k3, p3, n)
+    # and with the viscosity Delta scheme's dual constants (-mu0, inf),
+    # which the fused and the generic staggered Delta paths hand K3
+    d10, d20 = green.g0_constants(-mu0, float("inf"))
+    report("g0_staggered_chain",
+           [rel_err(k3(), p3()),
+            rel_err(spk.g0_staggered_chain(g, f, d10, d20),
+                    spk.g0_staggered_chain_plain(g, f, d10, d20))], k3, p3, n)
     # K4: the scalar chain (heat) on one component
     f1 = f[:1].contiguous()
     h10 = 1.0 / (2.0 * mu0)
@@ -1062,6 +1187,241 @@ def general_materials(run_counted, res32, path_launches, n=256):
         assert res_rel <= 1e-9 and s_rel <= 1e-10, label
 
 
+def interfaces_and_dfg(run_counted, res32, path_launches, n=256,
+                       device="cuda", nk=64, nm=64, nc=48):
+    """Phase 10: interface laminates, the doubly-fine grid and the generic
+    staggered Delta path (INTERFACE_PATHS) at n^3 float32, residual tol
+    1e-6, check_every 8; ``run_counted`` and ``res32`` as in
+    :func:`load_cases`, the launches of each timed solve into
+    ``path_launches``.  Each path prints its iterations, wall, peak memory
+    and launches; the generic paths launch their chain and neither K1 nor
+    K2 (run_counted).  Nunan-Keller runs at nk^3, the mixed BCs at nm^3,
+    the comparison with the CPU at nc^3."""
+    import numpy as np
+    import torch
+    import fibergen_tpu_torch as ft
+    from fibergen_tpu_torch.core import voigt
+    from fibergen_tpu_torch.materials import dfg, laminate
+    cuda = device == "cuda"
+    opt = dict(error_estimator="residual", tol=1e-6, check_every=8,
+               maxiter=4000)
+    log(f"phase 10: interface laminates, the doubly-fine grid, the generic "
+        f"staggered Delta path; {n}^3 float32, residual tol 1e-6, "
+        f"check_every 8")
+
+    def solve(s, label, path, warm=True):
+        """A solve (after a warm-up run with ``warm``) with its wall time,
+        peak device memory and launches; (iterations, mean stress, wall)."""
+        if warm:
+            assert not s.run()
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fail, got = run_counted(s, label, path)
+        wall = time.perf_counter() - t0
+        its, S = len(s.residuals), s.calc_mean_stress()
+        log(f"  {label}: {its} iterations, final_rel {s.residuals[-1]:.3e}, "
+            f"wall {wall:.4f} s ({1e3 * wall / its:.2f} ms an iteration), "
+            f"peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30 if cuda else 0:.2f} "
+            f"GiB, mean "
+            f"stress {S.tolist()}")
+        assert not fail and s.residuals[-1] <= opt["tol"]
+        assert np.all(np.isfinite(S))
+        return its, S, wall, got
+
+    # a. the bench's phases on the 2n^3 fine sphere (DfgMaterial)
+    path = "elasticity-full-staggered"
+    s = interface_solver(n, "float32", device, path, **opt)
+    its, S, wall, path_launches[path] = solve(
+        s, f"{n}^3 float32 {path} ({2 * n}^3 fine phases)", path)
+    its0, S0 = res32["elasticity"]
+    d = float(np.max(np.abs(S - S0)) / np.max(np.abs(S0)))
+    log(f"  {path}: mean stress rel diff to phase 4's staggered solve on "
+        f"the {n}^3 sphere {d:.3e} ({its0} iterations there)")
+    F = torch.randn((6,) + s.grid.shape, device=device,
+                    generator=torch.Generator(device).manual_seed(0))
+    t_law = cuda_ms(lambda: s.mat.stress_diff(F, s.mu_0, 0.0), reps=5,
+                    warm=1)
+    t_pr = cuda_ms(lambda: dfg.restrict(dfg.prolong(F)), reps=5, warm=1)
+    log(f"  {path}: prolong -> fine law -> restrict {t_law:.3f} ms, of it "
+        f"prolong + restrict {t_pr:.3f} ms; an iteration "
+        f"{1e3 * wall / its:.3f} ms, the stress difference "
+        f"{t_law / (1e3 * wall / its):.1%} of it")
+    del s, F
+    torch.cuda.empty_cache()
+
+    # b. the laminate: a route oracle on the sharp sphere (the Voigt rule
+    # there), then the smooth sphere on both grids between Reuss and Voigt
+    geo = smooth_sphere(n, "float32")
+    s = interface_solver(n, "float32", device, "elasticity-laminate",
+                         geometry=(sphere_phi(n, "float32"), geo[1]), **opt)
+    its, S, _, _ = solve(s, f"{n}^3 float32 elasticity-laminate on the "
+                            f"sharp sphere (route oracle)",
+                         "elasticity-laminate", warm=False)
+    d = float(np.max(np.abs(S - S0)) / np.max(np.abs(S0)))
+    log(f"  route oracle: {its} iterations (phase 4's K1/K2 elasticity: "
+        f"{its0}), mean stress rel diff {d:.3e}")
+    assert abs(its - its0) <= 1 and d <= 1e-5
+    del s
+    sxx = {}
+    for path in ("elasticity-laminate", "elasticity-laminate-collocated"):
+        s = interface_solver(n, "float32", device, path, geometry=geo, **opt)
+        its, S, wall, path_launches[path] = solve(
+            s, f"{n}^3 float32 {path} (smooth sphere)", path)
+        sxx[path] = S[0]
+        if path == "elasticity-laminate":
+            F = torch.randn((6,) + s.grid.shape, device=device,
+                            generator=torch.Generator(device).manual_seed(1))
+            view = s.mat._two_phase_view(F)
+            t_pk1 = cuda_ms(lambda: s.mat.pk1(F), reps=5, warm=1)
+            t_jump = cuda_ms(lambda: s.mat._phase_strains(F, view), reps=5,
+                             warm=1)
+            log(f"  {path}: the laminate's stress {t_pk1:.3f} ms, of it the "
+                f"jump solve (phase strains) {t_jump:.3f} ms; an iteration "
+                f"{1e3 * wall / its:.3f} ms, the jump solve "
+                f"{t_jump / (1e3 * wall / its):.1%} of it")
+            # the per-voxel 3x3 solve: Cramer's rule on the component
+            # fields against a batched torch.linalg.solve
+            g = torch.Generator(device).manual_seed(2)
+            A = torch.randn((3, 3) + s.grid.shape, device=device, generator=g)
+            K = [[sum(A[i, k] * A[j, k] for k in range(3)) + (3.0 if i == j
+                                                               else 0.0)
+                  for j in range(3)] for i in range(3)]
+            b = list(torch.randn((3,) + s.grid.shape, device=device,
+                                 generator=g))
+            Km = torch.stack([torch.stack(r, -1) for r in K], -2)
+            bm = torch.stack(b, -1)[..., None]
+            t_cr = cuda_ms(lambda: laminate._solve3(K, b), reps=5, warm=1)
+            t_ls = cuda_ms(lambda: torch.linalg.solve(Km, bm), reps=5, warm=1)
+            x_cr = torch.stack(laminate._solve3(K, b), -1)
+            err = float((x_cr - torch.linalg.solve(Km, bm)[..., 0]).abs().max()
+                        / x_cr.abs().max())
+            log(f"  {n}^3 float32 per-voxel 3x3 jump solve: Cramer's rule on "
+                f"the fields {t_cr:.3f} ms, batched torch.linalg.solve "
+                f"{t_ls:.3f} ms, max rel diff {err:.2e}")
+            del A, K, b, Km, bm, x_cr, F, view
+        del s
+        torch.cuda.empty_cache()
+    for rule in ("voigt", "reuss"):
+        s = interface_solver(n, "float32", device, "elasticity-laminate",
+                             rule=rule, geometry=geo, **opt)
+        assert not s.run()
+        sxx[rule] = s.calc_mean_stress()[0]
+        del s
+    log(f"  smooth sphere sigma_xx: reuss {sxx['reuss']:.7f} <= laminate "
+        f"{sxx['elasticity-laminate']:.7f} (collocated "
+        f"{sxx['elasticity-laminate-collocated']:.7f}) <= voigt "
+        f"{sxx['voigt']:.7f}")
+    assert sxx["reuss"] <= sxx["elasticity-laminate"] <= sxx["voigt"]
+
+    # c. heat; e. fluidity mixing, both on the smooth sphere
+    for path in ("heat-laminate", "viscosity-fluidity",
+                 "viscosity-fluidity-collocated"):
+        s = interface_solver(n, "float32", device, path, geometry=geo, **opt)
+        *_, path_launches[path] = solve(s, f"{n}^3 float32 {path} (smooth "
+                                           f"sphere)", path)
+        del s
+    del geo
+    torch.cuda.empty_cache()
+
+    # d. staggered viscosity through the generic Delta path: the maximum
+    # rule is the Voigt rule on the sharp sphere (a route oracle against
+    # phase 4's K1 tau-sum route), and phases with a lambda
+    its0, S0 = res32["viscosity"]
+    for path in ("viscosity-generic", "viscosity-lambda"):
+        s = interface_solver(n, "float32", device, path, **opt)
+        its, S, _, path_launches[path] = solve(s, f"{n}^3 float32 {path}",
+                                               path)
+        if path == "viscosity-generic":
+            d = float(np.max(np.abs(S - S0)) / np.max(np.abs(S0)))
+            log(f"  route oracle: {its} iterations (phase 4's K1/K2 "
+                f"viscosity: {its0}), mean stress rel diff {d:.3e}")
+            assert abs(its - its0) <= 1 and d <= 1e-5
+        del s
+
+    # f. Nunan-Keller at n = 64 under full_staggered: the five traceless
+    # cases in one batch, then sequentially for each case's iterations
+    V = NUNAN_KELLER["V"]
+    r = (3.0 * V / (4.0 * np.pi)) ** (1.0 / 3.0)
+    phi = smooth_sphere(2 * nk, "float32", r=r)[0]
+    mat = ft.DfgMaterial(ft.convert.material_from_numpy(
+        [("matrix", 0.5, 1.0 - phi), ("fiber", 0.0, phi)], dim=6,
+        law="scalar", device=device))
+    s = ft.LSSolver(ft.Grid(nk, nk, nk), mat, ft.SolverOptions(
+        mode="viscosity", gamma_scheme="full_staggered", tol=1e-5,
+        dtype="float32", check_every=8), device=device)
+    Es = ft.api.VISCOSITY_CASES
+    t0 = time.perf_counter()
+    fail, path_launches["viscosity-nunan-keller"] = run_counted(
+        s, f"{nk}^3 float32 Nunan-Keller run_batched B=5",
+        "viscosity-nunan-keller", lambda: s.run_batched(Es))
+    wall = time.perf_counter() - t0
+    assert not fail
+    res = ft.api.effective_viscosity(s.calc_mean_stress_batched(), 0.5)
+    its_b, S_seq, its_seq = len(s.residuals), np.zeros((5, 6)), []
+    for i, E in enumerate(Es):
+        s.set_strain(E)
+        assert not s.run()
+        S_seq[i] = s.calc_mean_stress()
+        its_seq.append(len(s.residuals))
+    seq = ft.api.effective_viscosity(S_seq, 0.5)
+    ea = abs(res.alpha - NUNAN_KELLER["alpha"]) / NUNAN_KELLER["alpha"]
+    eb = abs(res.beta - NUNAN_KELLER["beta"]) / NUNAN_KELLER["beta"]
+    log(f"  Nunan-Keller, n = {nk} ({2 * nk}^3 fine phases, V = "
+        f"{float(phi.mean()):.5f}): batched {its_b} iterations, wall "
+        f"{wall:.4f} s; alpha {res.alpha:.6f} (paper "
+        f"{NUNAN_KELLER['alpha']}, rel {ea:.2e}), beta {res.beta:.6f} "
+        f"(paper {NUNAN_KELLER['beta']}, rel {eb:.2e}); sequential "
+        f"iterations per case {its_seq}, alpha {seq.alpha:.6f} beta "
+        f"{seq.beta:.6f}")
+    assert ea <= 0.01 and eb <= 0.01
+    assert abs(seq.alpha - res.alpha) <= 1e-3 and abs(seq.beta - res.beta) \
+        <= 1e-3
+    del s, mat
+
+    # g. mixed BCs in staggered viscosity: xz stress-controlled
+    s = path_solver(nm, "float64", device, "viscosity", tol=1e-8,
+                    error_estimator="residual", check_every=4)
+    P = voigt.id4(6)
+    P[4, 4] = 0.0
+    s.set_bc_projector(P)
+    s.set_stress([0, 0, 0, 0, 0.4, 0])
+    s.set_strain([0, 0, 0, 1.0, 0, 0])
+    fail, _ = run_counted(s, f"{nm}^3 float64 viscosity, xz "
+                             f"stress-controlled", "viscosity-mixed-bc")
+    S = s.calc_mean_stress()
+    log(f"  mixed BCs in staggered viscosity: {len(s.residuals)} "
+        f"iterations, bc_error {s.bc_error():.3e} (bc_tol {s.opt.bc_tol}), "
+        f"mean stress {S.tolist()}")
+    assert not fail and s.bc_error() <= s.opt.bc_tol
+    del s
+    torch.cuda.empty_cache()
+
+    # h. the card against the CPU, nc^3 float64 (phase 3's limits)
+    copt = dict(error_estimator="residual", tol=1e-8, check_every=4,
+                maxiter=1000)
+    for path in ("elasticity-full-staggered", "elasticity-laminate",
+                 "viscosity-generic", "viscosity-lambda"):
+        kind = INTERFACE_PATHS[path][4]
+        geo = smooth_sphere(nc, "float64") if kind == "smooth" else None
+        s_cpu, s_gpu = (interface_solver(nc, "float64", dev, path,
+                                         geometry=geo, **copt)
+                        for dev in ("cpu", device))
+        assert not s_cpu.run()
+        assert not run_counted(s_gpu, f"{nc}^3 float64 {path}", path)[0]
+        rc, rg = np.asarray(s_cpu.residuals), np.asarray(s_gpu.residuals)
+        res_rel = float(np.max(np.abs(rg - rc) / np.abs(rc))) \
+            if len(rc) == len(rg) else float("inf")
+        Sc, Sg = s_cpu.calc_mean_stress(), s_gpu.calc_mean_stress()
+        s_rel = float(np.max(np.abs(Sg - Sc)) / np.max(np.abs(Sc)))
+        log(f"  {path}: iterations cpu {len(rc)} cuda {len(rg)}, residual "
+            f"history max rel diff {res_rel:.3e}, mean stress max rel diff "
+            f"{s_rel:.3e}")
+        assert len(rc) == len(rg), f"{path}: iteration counts differ"
+        assert res_rel <= 1e-9 and s_rel <= 1e-10, path
+
+
 def sync_all():
     import torch
     for i in range(torch.cuda.device_count()):
@@ -1127,6 +1487,10 @@ def main():
     check_kernels((33, 17, 29), torch.float64, timed=False)
     # power-of-two axes: the chains' register line FFT in float64
     check_kernels((64, 32, 16), torch.float64, timed=False)
+    # phase 10's 64^3 shapes: Nunan-Keller (float32) and the mixed-BC
+    # viscosity solve (float64), length 64 on every axis
+    check_kernels((64, 64, 64), torch.float32, timed=False)
+    check_kernels((64, 64, 64), torch.float64, timed=False)
     torch.cuda.empty_cache()
 
     # ---- phase 3: kernel path vs plain path on the same solve
@@ -1440,6 +1804,10 @@ def main():
     # ---- phase 9: general linear materials
     general_materials(run_counted, res32, path_launches)
 
+    # ---- phase 10: interface laminates, the doubly-fine grid, the generic
+    # staggered Delta path
+    interfaces_and_dfg(run_counted, res32, path_launches)
+
     # ---- phase 7: launches and per-kernel numbers.  The per-kernel list
     # takes the key "kernels"; the launch counts of each path's timed 256^3
     # float32 solve print on their own line as "kernel_launches".  A mode's
@@ -1510,10 +1878,16 @@ def main():
         "stress_div_beta": ("elasticity-reuss",),
         "eps_from_u_dot": ("elasticity-reuss",),
         "g0_staggered_chain": ("elasticity-general", "elasticity-tiso-field",
-                               "elasticity-reuss"),
-        "g0_staggered_heat_chain": ("heat-aniso",),
-        "gamma_collocated_chain": ("elasticity-general-collocated",),
-        "gamma_collocated_chain[heat]": ("heat-aniso-collocated",)}
+                               "elasticity-reuss",
+                               "elasticity-full-staggered",
+                               "elasticity-laminate", "viscosity-generic",
+                               "viscosity-lambda", "viscosity-fluidity",
+                               "viscosity-nunan-keller"),
+        "g0_staggered_heat_chain": ("heat-aniso", "heat-laminate"),
+        "gamma_collocated_chain": ("elasticity-general-collocated",
+                                   "elasticity-laminate-collocated"),
+        "gamma_collocated_chain[heat]": ("heat-aniso-collocated",),
+        "gamma_collocated_zt_chain": ("viscosity-fluidity-collocated",)}
     main_nums = dict(main_nums, **slab_nums)
     log(f"total {time.perf_counter() - t_start:.1f} s, the build included")
     kernels = []

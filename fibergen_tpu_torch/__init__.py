@@ -7,7 +7,9 @@ elasticity, heat, porous flow and viscosity (the Delta dual scheme), and
 finite-strain hyperelasticity by Newton-Krylov.  The linear materials are
 isotropic, general (6x6), transversely isotropic and anisotropic (3x3 for
 heat and porous flow) phases under the Voigt, Reuss, Maximum, Random,
-50-50, Split and Iso mixing rules (``materials``).  Load cases: mixed
+50-50, Split and Iso mixing rules and the interface rules (laminate,
+infinity-laminate, fluidity) (``materials``), on the voxel grid or on the
+doubly-fine grid of the half/full staggered schemes (``materials.dfg``).  Load cases: mixed
 boundary conditions (a strain-control projector and a prescribed mean
 stress), loadsteps with solution extrapolation, and the batched
 multi-right-hand-side CG (``LSSolver.run_batched``) of the effective
@@ -19,13 +21,16 @@ over a mesh of devices driven by this one process
 on the linear paths, polarization, and Newton-Krylov, for Voigt mixtures
 of isotropic or hyperelastic phases.
 """
-from . import convert, parallel
+from . import api, convert, parallel
 from .core.grid import Grid
 from .materials.laws import (GOLDBERG_LAWS, LinearGeneral, LinearIsotropic,
                              LinearTransverselyIsotropic,
                              MatrixLinearAnisotropic, NeoHooke, NeoHooke2,
                              SaintVenantKirchhoff, ScalarLinearIsotropic,
                              make_law)
+from .materials.dfg import DfgMaterial
+from .materials.laminate import (FluidityMixed, InfinityLaminateMixed,
+                                 LaminateMixed)
 from .materials.mixing import (MIXING_RULES, FiftyFiftyMixed, IsoMixed,
                                MaximumMixed, MixedMaterial, Phase,
                                RandomMixed, ReussMixed, SplitMixed,
@@ -38,4 +43,6 @@ __all__ = ["Grid", "Phase", "LinearIsotropic", "ScalarLinearIsotropic",
            "NeoHooke", "NeoHooke2", "GOLDBERG_LAWS", "MixedMaterial",
            "VoigtMixed", "ReussMixed", "MaximumMixed", "RandomMixed",
            "FiftyFiftyMixed", "SplitMixed", "IsoMixed", "MIXING_RULES",
-           "make_mixed", "SolverOptions", "LSSolver", "convert", "parallel"]
+           "LaminateMixed", "InfinityLaminateMixed", "FluidityMixed",
+           "DfgMaterial", "make_mixed", "SolverOptions", "LSSolver", "api",
+           "convert", "parallel"]

@@ -70,11 +70,19 @@ def _check_law(law):
 
 
 def material_from_numpy(phases, dim=6, device=None, law="isotropic",
-                        rule="voigt") -> MixedMaterial:
+                        rule="voigt", normals=None) -> MixedMaterial:
     """The mixed material of numpy phases under the mixing ``rule`` (any
     name of ``mixing.make_mixed``), moved to ``device`` (default ``cuda``;
     raises without a card unless ``device="cpu"``).  ``phi`` is a
-    (nx, ny, nz) numpy array and keeps its numpy dtype.  Each phase is
+    (nx, ny, nz) numpy array and keeps its numpy dtype.  ``normals``, a
+    (3, nx, ny, nz) array of interface normals pointing from the second
+    phase into the first, is the laminate, infinity-laminate and fluidity
+    rules' field; it moves to ``device`` in its numpy dtype.  The
+    ``half_staggered`` and ``full_staggered`` schemes take phases (and
+    normals) given on the doubly-fine (2nx, 2ny, 2nz) grid of the solve's
+    (nx, ny, nz) grid, in a ``dfg.DfgMaterial`` around the result:
+    ``DfgMaterial(material_from_numpy(...))``, as the JAX package's FG
+    wraps its material.  Each phase is
     ``(name, *moduli, phi)`` with the moduli of ``law``:
 
     * ``law="isotropic"``: ``(name, mu, lam, phi)``, LinearIsotropic
@@ -108,7 +116,13 @@ def material_from_numpy(phases, dim=6, device=None, law="isotropic",
             _check_law(kind)
         t = torch.as_tensor(np.array(phi, order="C"), device=dev)
         out.append(Phase(str(name), _law(kind, moduli, dim, dev), t))
-    return make_mixed(rule, out, dim=dim)
+    mat = make_mixed(rule, out, dim=dim)
+    if normals is not None:
+        if not hasattr(mat, "normals"):
+            raise ValueError(f"the {rule} mixing rule takes no normals")
+        mat.normals = torch.as_tensor(np.array(normals, order="C"),
+                                      device=dev)
+    return mat
 
 
 def options_from_dict(d) -> SolverOptions:

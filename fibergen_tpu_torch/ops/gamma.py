@@ -15,7 +15,10 @@ K2 directly):
 * :func:`fused_visc`: the viscosity Delta scheme's staggered branch of
   ``delta_operator`` on one direction build, as the JAX solver's
   ``fused_visc`` runs it: K1 tau-sum mode -> K3 with the dual constants
-  -> K2 Delta mode;
+  -> K2 Delta mode (isotropic zero-lambda phases, no mixed BC);
+* :func:`delta_staggered`: the same branch for any other stress
+  difference (``delta_operator``'s generic staggered path): the plain
+  stencils around K3 with the dual constants;
 * :func:`gamma_collocated`: the collocated branch of ``gamma_operator``
   for elasticity (K5, 6 components) and heat/porous flow (K5, 3);
 * :func:`delta_collocated`: the collocated branch of ``delta_operator``
@@ -47,6 +50,11 @@ from ..parallel import comm, slabs
 from ..solvers.bc import bc_correction
 from . import green, staggered
 from .stencil_kernels import eps_from_u_dot, stress_div_beta
+
+# the schemes that take the staggered operators: half_staggered and
+# full_staggered differ from staggered only in their material (the
+# doubly-fine grid, materials/dfg.py)
+STAGGERED = ("staggered", "half_staggered", "full_staggered")
 
 
 def _halos(slab_list):
@@ -81,15 +89,33 @@ def stress_diff_mean(x, mu_x, lam_x, mu_0, lambda_0):
     return m + torch.cat([tr.expand(3), tr.new_zeros(x.shape[0] - 3)])
 
 
-def gamma_staggered(grid, E, mu_0, lambda_0, tau, bc=None):
-    """eta = -Gamma tau with mean E on (6, nx, ny, nz) fields
-    (gamma_operator, mode elasticity, staggered scheme, alpha = -1):
+def gamma_staggered(grid, E, mu_0, lambda_0, tau, bc=None, alpha=-1.0):
+    """eta = alpha Gamma tau with mean E on (6, nx, ny, nz) fields
+    (gamma_operator, mode elasticity, staggered scheme):
     div_staggered -> K3 -> eps_staggered, whose mean E + alpha R carries
     the correction under ``bc``."""
     f = staggered.div_staggered(grid, tau)
-    u = green.g0_staggered_fused(grid, mu_0, lambda_0, f)
+    u = green.g0_staggered_fused(grid, mu_0, lambda_0, f, alpha)
     del f
-    return staggered.eps_staggered(grid, _corrected(E, bc, tau, -1.0), u)
+    return staggered.eps_staggered(grid, _corrected(E, bc, tau, alpha), u)
+
+
+def delta_staggered(grid, E, mu_0, tau, alpha=-1.0, bc=None):
+    """Viscosity dual operator on the staggered grid (delta_operator's
+    staggered branch, fibergen_tpu/ops/gamma.py:205-212; DeltaOperator*,
+    fibergen.cpp:20380-20486) for any stress difference ``tau``: eta =
+    2 alpha mu0v (tau - mu0v Gamma^0 : tau) with mean E, mu0v = 1/(4 mu_0),
+    as :func:`gamma_staggered` with the dual constants (-1/(4 mu0v), inf)
+    and the mean adj = E - 2 alpha mu0v <tau>, plus 2 alpha mu0v tau (K3
+    between the plain stencils; the correction under ``bc`` reads
+    mean(tau))."""
+    mu0v = 1.0 / (4.0 * mu_0)
+    b = 2.0 * alpha * mu0v
+    adj = torch.as_tensor(E, dtype=tau.dtype, device=tau.device) \
+        - b * fields.mean(tau)
+    eta = gamma_staggered(grid, adj, -1.0 / (4.0 * mu0v), float("inf"), tau,
+                          bc=bc, alpha=alpha)
+    return eta.add_(b * tau)
 
 
 def gamma_heat_staggered(grid, E, mu_0, tau, par=None, bc=None):
@@ -164,7 +190,7 @@ def gamma_hyper(grid, scheme, E, mu_0, lambda_0, tau, alpha=-1.0, beta=0.0,
     if scheme == "collocated":
         return green.gamma_collocated_hyper_fused(grid, E, mu_0, lambda_0,
                                                   tau, alpha, beta, par=par)
-    if scheme != "staggered":
+    if scheme not in STAGGERED:
         raise NotImplementedError(f"gamma scheme {scheme!r} is not ported "
                                   f"in hyperelasticity")
     if par is None:

@@ -19,7 +19,16 @@ twins.  Staggered grid:
 * heat and porous flow: plain stencils around the scalar K4 chain
   (ops/gamma.py gamma_heat_staggered);
 * viscosity (the Delta dual scheme): K1 tau-sum mode, K3 with the dual
-  constants, K2 Delta mode (ops/gamma.py fused_visc).
+  constants, K2 Delta mode (ops/gamma.py fused_visc) for isotropic
+  phases with lambda = 0 on the isotropic route without mixed BCs; any
+  other material, lambda phases and mixed BCs take the plain stress
+  difference and stencils around K3 with the dual constants (ops/gamma.py
+  delta_staggered).
+
+``half_staggered`` and ``full_staggered`` take the staggered operators;
+what sets them apart is their material, the doubly-fine-grid
+``materials/dfg.DfgMaterial`` (``DfgMaterial(convert.material_from_numpy(
+...))``), which the caller passes.
 
 Collocated grid: the plain stress difference, then the K5 collocated Gamma
 chain (elasticity, heat, porous flow) or the K6 zero-trace chain
@@ -34,8 +43,8 @@ reads the residual history once per ``check_every`` iterations.  The basic
 and polarization schemes read their metric once per iteration.  Under a
 projector that is not the identity every Gamma application corrects its
 mean on the device (ops/gamma.py; on the staggered elasticity path K2
-takes the corrected mean as its E); staggered viscosity (the JAX
-package's generic Delta path) and sharded solves refuse it.
+takes the corrected mean as its E, and staggered viscosity takes the
+generic Delta path); sharded solves refuse it.
 
 Sharded (``LSSolver(..., sharding=parallel.field_sharding(mesh))``, the
 x-slab solve of the JAX package's ``sharding=NamedSharding(mesh,
@@ -166,7 +175,8 @@ _FREE = {"tol", "tol_red", "abs_tol", "bc_tol", "maxiter", "update_ref",
          "loadstep_extrapolation_method", "bc_relax"}
 _ALSO = {"mode": ("heat", "porous", "viscosity", "hyperelasticity"),
          "method": ("basic", "polarization"),
-         "gamma_scheme": ("staggered", "collocated"),
+         "gamma_scheme": ("staggered", "collocated", "half_staggered",
+                          "full_staggered"),
          "newton_tangent": ("frozen_iso",),
          "adaptive_drain": ("off",),
          "low_mem": ("off",), "use_dim2": ("off",)}
@@ -237,30 +247,26 @@ class LSSolver:
             raise SolverError(
                 f"material dim {material.dim} incompatible with mode "
                 f"'{self.mode}'")
+        # half/full staggered take the staggered operators: they differ
+        # from staggered in their material only (a DfgMaterial,
+        # materials/dfg.py)
         self.scheme = self.opt.resolved_scheme()
         if self.mode == "viscosity" and self.opt.method == "polarization":
             raise NotImplementedError(
                 "the polarization method in viscosity is not ported yet")
-        # staggered elasticity and viscosity fuse the step into K1 and K2,
-        # which read the isotropic moduli planes
+        # staggered elasticity fuses the step into K1 and K2, which read
+        # the isotropic moduli planes; so does staggered viscosity when
+        # every phase has lambda = 0 (K1's tau sum and K2's Delta term are
+        # the scalar law's) and no mixed BC corrects the mean, as in the
+        # JAX package's fused viscosity sweep (ls.py:384-412).  The rest
+        # of staggered viscosity, and half/full staggered whatever the
+        # material, take the generic Delta path (gammamod.delta_staggered).
         iso = material.iso_route()
-        self._k1_route = (self.scheme == "staggered" and iso
-                          and self.mode in ("elasticity", "viscosity"))
-        if (self.mode == "viscosity" and self.scheme == "staggered"
-                and not iso):
-            raise NotImplementedError(
-                "staggered viscosity of a material off the isotropic route "
-                "(phases without isotropic moduli, or a rule other than "
-                "voigt and reuss) takes the JAX package's generic staggered "
-                "Delta path, which is not ported yet (ROADMAP.md, Queue 1 "
-                "item 4); the collocated scheme takes it")
-        if (self.mode == "viscosity" and self.scheme == "staggered"
-                and any(float(p.law.iso_moduli()[1]) != 0.0
-                        for p in material.phases)):
-            raise NotImplementedError(
-                "viscosity phases that carry a lambda take the JAX package's "
-                "generic staggered Delta path, which is not ported yet (the "
-                "collocated scheme takes them)")
+        self._k1_route = self.scheme == "staggered" and iso and (
+            self.mode == "elasticity"
+            or (self.mode == "viscosity"
+                and all(float(p.law.iso_moduli()[1]) == 0.0
+                        for p in material.phases)))
         self.dtype = resolve_dtype(self.opt.dtype)
         self._tiny = float(np.finfo(np.float64 if self.dtype == torch.float64
                                     else np.float32).tiny)
@@ -305,7 +311,7 @@ class LSSolver:
                 f"whose nx and ny divide the mesh (the port has no "
                 f"replicated fallback: sharding_fallback='warn' is not "
                 f"ported).")
-        if self.mode == "viscosity" and self.scheme == "staggered":
+        if self.mode == "viscosity" and self.scheme != "collocated":
             raise NotImplementedError(
                 "staggered viscosity (the JAX package's generic Delta path "
                 "on slabs) on a sharded mesh is not ported yet; the sharded "
@@ -474,11 +480,6 @@ class LSSolver:
                 "mixed boundary conditions (a projector other than the "
                 "identity, or a prescribed stress) on a sharded mesh are not "
                 "ported yet")
-        if self.mode == "viscosity" and self.scheme == "staggered":
-            raise NotImplementedError(
-                "mixed boundary conditions in staggered viscosity take the "
-                "JAX package's generic staggered Delta path, which is not "
-                "ported yet (the collocated scheme takes them)")
 
     def _seed(self):
         """The initial field: Id in hyperelasticity, zero otherwise."""
@@ -639,7 +640,7 @@ class LSSolver:
         if self.par is None:
             return self.mat.iso_moduli(self.dtype, self.device)
         mu_x, lam_x = self.mat.iso_moduli_slabs(self.dtype, self.par.devices)
-        if self.scheme == "staggered" and self.dim == 6:
+        if self.scheme != "collocated" and self.dim == 6:
             self._mod_halo = (comm.halo_x(mu_x), comm.halo_x(lam_x))
         return mu_x, lam_x
 
@@ -648,11 +649,13 @@ class LSSolver:
         (basic_step) and, with E = 0, the CG operator (krylovOperator,
         fibergen.cpp:20583-20587); ``bc`` corrects the mean.  Staggered
         elasticity: K1 init mode, G0, K2 no-dot mode; heat/porous: the
-        plain stress difference and the scalar Gamma; viscosity: the Delta
-        operator (its dot is not read); elasticity off the isotropic route:
-        the plain stress difference, div_staggered, K3, eps_staggered.
-        Collocated: the plain stress difference, then K5 (K6 in
-        viscosity)."""
+        plain stress difference and the scalar Gamma; viscosity: the fused
+        Delta operator (its dot is not read) on the K1 route without
+        ``bc``, else the plain stress difference and the generic Delta
+        operator (div_staggered, K3 with the dual constants,
+        eps_staggered); elasticity off the isotropic route: the plain
+        stress difference, div_staggered, K3, eps_staggered.  Collocated:
+        the plain stress difference, then K5 (K6 in viscosity)."""
         grid, mu0, lam0, par = self.grid, self.mu_0, self.lambda_0, self.par
         if self.scheme == "collocated":
             tau = self.mat.stress_diff(eps, mu0, lam0)
@@ -662,8 +665,11 @@ class LSSolver:
             return gammamod.gamma_collocated(grid, E, mu0, lam0, tau,
                                              par=par, bc=bc)
         if self.mode == "viscosity":
-            return gammamod.fused_visc(grid, eps, None, None, E, mu_x,
-                                       lam_x, mu0, lam0)[0]
+            if self._k1_route and bc is None:
+                return gammamod.fused_visc(grid, eps, None, None, E, mu_x,
+                                           lam_x, mu0, lam0)[0]
+            return gammamod.delta_staggered(
+                grid, E, mu0, self.mat.stress_diff(eps, mu0, lam0), bc=bc)
         if self.dim == 3:
             return gammamod.gamma_heat_staggered(
                 grid, E, mu0, self.mat.stress_diff(eps, mu0, lam0), par=par,
@@ -718,10 +724,10 @@ class LSSolver:
     def _cg_step(self, eps, r, p_prev, gamma, gamma_prev, mu_x, lam_x, zero,
                  bc=None):
         """One CG step; eps and r are updated in place.  The staggered
-        elasticity (on the isotropic route) and viscosity steps fuse the
-        direction update into K1; the others form p, apply the operator and
-        take the denominator <p, p - w> in PyTorch (the JAX package's
-        generic step).  Sharded, each slab takes the same step
+        elasticity and viscosity steps on the K1 route (viscosity without
+        ``bc``) fuse the direction update into K1; the others form p, apply
+        the operator and take the denominator <p, p - w> in PyTorch (the
+        JAX package's generic step).  Sharded, each slab takes the same step
         (``slabs.smap``)."""
         grid, tiny = self.grid, self._tiny
         beta = slabs.smap(lambda g, gp: (g, gp), gamma, gamma_prev)
@@ -730,7 +736,7 @@ class LSSolver:
             w, p, dot_raw = self._k1_k3_k2(r, p_prev, beta, zero, mu_x, lam_x,
                                            bc)
             denom = slabs.smap(lambda d: d / grid.nxyz, dot_raw)
-        elif fused and self.mode == "viscosity":
+        elif fused and self.mode == "viscosity" and bc is None:
             w, p, dot_raw = gammamod.fused_visc(grid, r, p_prev, beta, zero,
                                                 mu_x, lam_x, self.mu_0,
                                                 self.lambda_0)

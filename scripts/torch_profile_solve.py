@@ -28,7 +28,11 @@ of its own, with ``torch.stack``) and the halo planes as copy kernels.
 chip_smoke.EFF_VISC) instead of one solve.  ``--material=FIBRE`` solves
 a general linear material of ``chip_smoke.general_solver`` instead of the
 bench's (``tiso``, ``tiso-field``, ``general-iso`` or ``tiso-iso`` in
-elasticity, ``aniso`` in heat).
+elasticity, ``aniso`` in heat); ``--material=PATH`` with a path of
+``chip_smoke.INTERFACE_PATHS`` (``elasticity-full-staggered``,
+``elasticity-laminate``, ``viscosity-fluidity``, ...) solves that path's
+material, mode and scheme (the interface rules, the doubly-fine grid, the
+generic staggered Delta path).
 Prints one JSON line last.
 """
 import json
@@ -67,7 +71,8 @@ def main():
 
     import numpy as np
 
-    from chip_smoke import EFF_VISC, HYPER_OPT, general_solver, sphere_solver
+    from chip_smoke import (EFF_VISC, HYPER_OPT, INTERFACE_PATHS,
+                            general_solver, interface_solver, sphere_solver)
     from fibergen_tpu_torch.utils.logging import LOG
 
     if not torch.cuda.is_available():
@@ -95,7 +100,11 @@ def main():
         est = "residual" if method == "cg" else "epsilon"
         opt = dict(error_estimator=est, tol=1e-6, check_every=8,
                    maxiter=4000)
-    if material is not None:
+    if material in INTERFACE_PATHS:
+        s = interface_solver(n, "float32", "cuda", material, method=method,
+                             **opt)
+        mode, scheme = s.mode, s.scheme
+    elif material is not None:
         s = general_solver(n, "float32", "cuda", material, mode, scheme,
                            method=method, **opt)
     else:

@@ -770,3 +770,82 @@ def test_cuda_general_material_solve_matches_cpu(cuda, case):
     np.testing.assert_allclose(rg, rc, rtol=1e-9)
     np.testing.assert_allclose(Sg, Sc, rtol=0,
                                atol=1e-10 * np.max(np.abs(Sc)))
+
+
+# interface laminates, the doubly-fine grid and the generic staggered Delta
+# path: the bench's phases on a sphere with smooth (supersampled) phi
+SLICE_I_CASES = {
+    # case -> (mode, scheme, rule, doubly-fine, kernels launched)
+    "elasticity-full-staggered": ("elasticity", "full_staggered", "voigt",
+                                  True, {"g0_staggered_chain"}),
+    "elasticity-laminate": ("elasticity", "staggered", "laminate", False,
+                            {"g0_staggered_chain"}),
+    "elasticity-laminate-collocated": ("elasticity", "collocated",
+                                       "laminate", False,
+                                       {"gamma_collocated_chain"}),
+    "viscosity-generic": ("viscosity", "staggered", "maximum", False,
+                          {"g0_staggered_chain"}),
+    "viscosity-lambda": ("viscosity", "staggered", "voigt", False,
+                         {"g0_staggered_chain"}),
+}
+
+
+def _smooth_sphere(n, r=0.3, ss=4):
+    """Partial-volume phi of a centred sphere (ss^3 points a voxel) and its
+    outward normal field, as numpy."""
+    t = (np.arange(n * ss) + 0.5) / (n * ss) - 0.5
+    inside = (t[:, None, None] ** 2 + t[None, :, None] ** 2
+              + t[None, None, :] ** 2) < r * r
+    phi = inside.reshape(n, ss, n, ss, n, ss).mean(axis=(1, 3, 5))
+    c = (np.arange(n) + 0.5) / n - 0.5
+    X = np.stack(np.meshgrid(c, c, c, indexing="ij"))
+    return phi, X / np.linalg.norm(X, axis=0)
+
+
+def _slice_i_solver(dev, case, n=24):
+    mode, scheme, rule, fine, _ = SLICE_I_CASES[case]
+    phi, normals = _smooth_sphere(2 * n if fine else n)
+    if mode == "elasticity":
+        phases = [("fiber", ("isotropic", 10.0, 5.0), phi),
+                  ("matrix", ("isotropic", 1.0, 1.0), 1.0 - phi)]
+        load = [1.0, 0, 0, 0, 0, 0]
+    elif case == "viscosity-lambda":
+        phases = [("fiber", ("isotropic", 0.05, 0.01), phi),
+                  ("matrix", ("isotropic", 0.5, 0.02), 1.0 - phi)]
+        load = [0, 0, 0, 0, 1.0, 0]
+    else:
+        phases = [("fiber", ("scalar", 0.1), phi),
+                  ("matrix", ("scalar", 1.0), 1.0 - phi)]
+        load = [0, 0, 0, 0, 1.0, 0]
+    mat = ft.convert.material_from_numpy(
+        phases, device=dev, rule=rule,
+        normals=normals if rule == "laminate" else None)
+    if fine:
+        mat = ft.DfgMaterial(mat)
+    s = ft.LSSolver(Grid(n, n, n), mat, ft.SolverOptions(
+        mode=mode, gamma_scheme=scheme, tol=1e-8, error_estimator="residual",
+        check_every=4), device=dev)
+    s.set_strain(load)
+    return s
+
+
+@pytest.mark.parametrize("case", sorted(SLICE_I_CASES))
+def test_cuda_interface_and_dfg_solve_matches_cpu(cuda, case):
+    """The doubly-fine grid, the laminate on both grids and staggered
+    viscosity off the fused route, in float64 on the card against the CPU:
+    the same iterations, histories within 1e-9, mean stress within 1e-10;
+    each launches its chain and neither K1 nor K2."""
+    res = {}
+    for dev in ("cpu", "cuda"):
+        s = _slice_i_solver(dev, case)
+        before = dict(stencil_kernels.launches, **spectral_kernels.launches)
+        assert not s.run()
+        after = dict(stencil_kernels.launches, **spectral_kernels.launches)
+        res[dev] = (np.asarray(s.residuals), s.calc_mean_stress(),
+                    set(_launched(before, after)))
+    (rc, Sc, kc), (rg, Sg, kg) = res["cpu"], res["cuda"]
+    assert kc == set() and kg == SLICE_I_CASES[case][4]
+    assert len(rg) == len(rc)
+    np.testing.assert_allclose(rg, rc, rtol=1e-9)
+    np.testing.assert_allclose(Sg, Sc, rtol=0,
+                               atol=1e-10 * np.max(np.abs(Sc)))

@@ -215,18 +215,20 @@ def test_run_batched_with_a_tiso_fibre_matches_jax():
 
 def test_refusals_of_the_paths_not_ported():
     grid = ft.Grid(*SHAPE)
-    # staggered viscosity off the isotropic route (the generic Delta path)
-    _, ps = _solvers("general", mode="elasticity")
+    # staggered viscosity off the isotropic route takes the generic Delta
+    # path (tests/test_torch_dfg.py holds it against the JAX package)
     for rule, law in (("voigt", ("general", _stiffness())),
                       ("maximum", ("scalar", 1.0))):
         mat = ft.convert.material_from_numpy(
             [("a", law, _phi()), ("b", ("scalar", 2.0), 1.0 - _phi())],
             device="cpu", rule=rule)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            ft.LSSolver(grid, mat, ft.SolverOptions(mode="viscosity"),
-                        device="cpu")
-        ft.LSSolver(grid, mat, ft.SolverOptions(
-            mode="viscosity", gamma_scheme="collocated"), device="cpu")
+        for scheme in ("staggered", "collocated"):
+            s = ft.LSSolver(grid, mat, ft.SolverOptions(
+                mode="viscosity", gamma_scheme=scheme, tol=1e-6),
+                device="cpu")
+            assert not s._k1_route
+            s.set_strain([0, 0, 0, 0, 1.0, 0])
+            assert not s.run()
     # polarization: the laws' own refusal, in both packages
     js, ps = _solvers("tiso", method="polarization")
     for s in (js, ps):

@@ -299,10 +299,20 @@ def test_make_mixed_names_and_refusals():
     for rule in ("voigt", "maximum", "random", "fiftyfifty"):
         assert isinstance(mixing.make_mixed(rule, phases()),
                           mixing.MIXING_RULES[rule])
-    for rule in ("laminate", "infinity_laminate", "infinity-laminate",
-                 "fluidity"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 3b"):
-            mixing.make_mixed(rule, phases())
+    # the interface rules are not in MIXING_RULES (nor in the JAX
+    # package's dict); make_mixed builds them by name
+    fluids = [mixing.Phase(f"f{i}", laws.ScalarLinearIsotropic(mu=m, dim=6),
+                           torch.as_tensor(phi))
+              for i, (m, phi) in enumerate(zip((0.1, 1.0), _phis(2)))]
+    for rule, cls in (("laminate", "LaminateMixed"),
+                      ("infinity_laminate", "InfinityLaminateMixed"),
+                      ("infinity-laminate", "InfinityLaminateMixed"),
+                      ("fluidity", "FluidityMixed")):
+        mat = mixing.make_mixed(rule, fluids if rule == "fluidity"
+                                else phases())
+        assert type(mat).__name__ == cls and not mat.iso_route()
+        assert rule not in mixing.MIXING_RULES
+        assert rule not in jmix.MIXING_RULES
     for fn in (mixing.make_mixed, jmix.make_mixed):
         with pytest.raises(ValueError, match="Unknown mixing rule"):
             fn("harmonic", phases())

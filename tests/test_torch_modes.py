@@ -184,21 +184,27 @@ def test_heat_laminate_oracle():
 
 
 def test_unported_viscosity_variants_raise():
-    """Lambda-carrying viscosity laws on the staggered grid and the
-    half/full staggered schemes go through the JAX package's generic Delta
-    path, not ported yet; nor is the polarization method in viscosity."""
+    """Lambda-carrying viscosity laws on the staggered grid take the generic
+    Delta path, and the half/full staggered schemes the staggered
+    operators (the homogeneous fluid's exact mean stress, the fluidity
+    times the strain); the polarization method in viscosity is not ported
+    yet."""
     phi = np.ones((4, 4, 4))
     iso = ft.convert.material_from_numpy([("a", 1.0, 0.5, phi)],
                                          device="cpu")
-    with pytest.raises(NotImplementedError, match="lambda"):
-        ft.LSSolver(ft.Grid(4, 4, 4), iso,
+    s = ft.LSSolver(ft.Grid(4, 4, 4), iso,
                     ft.SolverOptions(mode="viscosity"), device="cpu")
+    assert not s._k1_route
     scal = ft.convert.material_from_numpy([("a", 1.0, phi)], device="cpu",
                                           law="scalar")
+    E = [0.0, 0.0, 0.0, 0.2, 1.0, 0.0]
     for scheme in ("half_staggered", "full_staggered"):
-        with pytest.raises(NotImplementedError):
-            ft.LSSolver(ft.Grid(4, 4, 4), scal, ft.SolverOptions(
-                mode="viscosity", gamma_scheme=scheme), device="cpu")
+        s = ft.LSSolver(ft.Grid(4, 4, 4), scal, ft.SolverOptions(
+            mode="viscosity", gamma_scheme=scheme), device="cpu")
+        assert s.scheme == scheme and not s._k1_route
+        s.set_strain(E)
+        assert not s.run()
+        np.testing.assert_allclose(s.calc_mean_stress(), E, atol=1e-14)
     with pytest.raises(NotImplementedError, match="polarization"):
         ft.LSSolver(ft.Grid(4, 4, 4), scal, ft.SolverOptions(
             mode="viscosity", method="polarization"), device="cpu")

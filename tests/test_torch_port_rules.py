@@ -78,7 +78,7 @@ def test_unported_options_raise():
                                          device="cpu")
     for kw in ({"method": "nesterov"},
                {"mode": "hyperelasticity", "method": "nl_cg"},
-               {"gamma_scheme": "full_staggered"}, {"gamma_scheme": "willot"},
+               {"g0_solver": "multigrid"}, {"gamma_scheme": "willot"},
                {"freq_hack": True}, {"cg_reinit": 3}, {"use_pallas": "on"},
                {"error_estimator": "energy"}):
         with pytest.raises(NotImplementedError):
