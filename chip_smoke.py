@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Nine paths run on the card (PATHS), six more of general linear
-materials (GENERAL_PATHS, phase 9) and eight of the interface rules, the
+materials (GENERAL_PATHS, phase 9), eight of the interface rules, the
 doubly-fine grid and the generic staggered Delta path (INTERFACE_PATHS,
-phase 10).  Staggered CG: elasticity (K1, K3,
+phase 10) and four demo projects through the XML front end (FRONT_END,
+phase 11).  Staggered CG: elasticity (K1, K3,
 K2), heat conduction (the scalar K4 chain; porous flow is the same path)
 and viscosity (K1 tau-sum mode, K3 with the dual constants, K2 Delta mode).
 Collocated: CG in elasticity and heat (the plain stress difference and the
@@ -18,9 +19,11 @@ constants) and collocated (K5 at C = 9).  Phases, each failing loudly:
 1. the card's name and power limit; build the CUDA kernels from ``csrc/``;
 2. every kernel in every mode against its plain PyTorch twin at the paths'
    shapes (256^3 float32), on an odd float64 grid, on a float64 grid of
-   power-of-two axes (the chains' register line FFT) and at phase 10's
+   power-of-two axes (the chains' register line FFT), at phase 10's
    64^3 in float32 and float64 (K3 also with the viscosity dual
-   constants), with kernel, twin and cuFFT times from CUDA events;
+   constants) and on one-voxel z axes (phase 11's 128 x 128 x 1 in
+   float32 and float64, 33 x 17 x 1 in float64), with kernel, twin and
+   cuFFT times from CUDA events;
 3. the kernel path (cuda) against the plain path (cpu) on one 48^3
    float64 solve of each linear path and one 24^3 float64 Newton solve of
    each hyperelastic path;
@@ -83,13 +86,24 @@ constants) and collocated (K5 at C = 9).  Phases, each failing loudly:
    (rigid spheres, V = 0.2, the five traceless cases batched and one by
    one) against the paper's alpha and beta; mixed BCs in staggered
    viscosity at 64^3 float64; 48^3 float64 solves on the card against
-   the CPU.
+   the CPU;
+11. the XML front end (``front_end``, FRONT_END): the demo projects
+   hashin (256^3, the coated sphere's k*), transverse_isotropy (256^3, 30
+   generated fibres, tiso on the orientation field, laminate rule), heat
+   (128^2 x 1, the three cases batched) and Nunan-Keller (n = 64, the
+   paper's alpha and beta) through ``ft.FG`` in float32, each with its
+   init_phase and solve times and peak memory, launching its path's
+   kernels and no other; float32 phi against float64 phi at 256^3; the
+   heat run's K against the CPU in float64; hashin and transverse_isotropy
+   at 32^3 and heat at 128^2 x 1, float64 through FG on the card against
+   the CPU (phi and the geometry fields, iterations, the result).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits non-zero before printing any result.
 """
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -214,6 +228,11 @@ PATH_KERNELS = {
     "viscosity-fluidity-collocated": ("gamma_collocated_zt_chain",),
     "viscosity-nunan-keller": ("g0_staggered_chain",),
     "viscosity-mixed-bc": ("g0_staggered_chain",),
+    # phase 11: the XML front end (FRONT_END)
+    "fg-hashin": ("stress_div_beta", "eps_from_u_dot", "g0_staggered_chain"),
+    "fg-transverse-isotropy": ("g0_staggered_chain",),
+    "fg-heat": ("g0_staggered_heat_chain",),
+    "fg-nunan-keller": ("g0_staggered_chain",),
 }
 
 # phase 9: the tiso demo's materials (demo/elasticity/transverse_isotropy):
@@ -1422,6 +1441,165 @@ def interfaces_and_dfg(run_counted, res32, path_launches, n=256,
         assert res_rel <= 1e-9 and s_rel <= 1e-10, path
 
 
+# phase 11: the XML front end.  Each run -> (demo project, settings, the
+# check); every run takes datatype float
+FRONT_END = {
+    "fg-hashin": ("elasticity/hashin", {"variables.res..value": 256,
+                                        "solver.tol": 1e-6}),
+    "fg-transverse-isotropy": ("elasticity/transverse_isotropy",
+                               {"variables.res..value": 256}),
+    "fg-heat": ("heat/heat", {}),
+    "fg-nunan-keller": ("viscosity/nunan_keller", {}),
+}
+DEMO_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "demo")
+HASHIN_K = 3.63867684478 + 2.0 / 3.0     # the coated sphere's exact k*
+
+
+def demo_fg(name, device="cuda", datatype="float", settings=None):
+    """ft.FG on the demo project of FRONT_END[name], its settings applied,
+    its solver built (the fibres and phases not yet)."""
+    import fibergen_tpu_torch as ft
+    path, kv = FRONT_END[name]
+    f = ft.FG(os.path.join(DEMO_DIR, path, "project.xml"), device=device)
+    f.set("datatype", datatype)
+    for k, v in dict(kv, **(settings or {})).items():
+        f.set(k, v)
+    f._init_python()
+    f.init_lss()
+    return f
+
+
+def front_end(run_counted, path_launches, device="cuda"):
+    """Phase 11: the demo projects through ft.FG on the card in float32
+    (FRONT_END), each run's launches counted around f.run() (the fibres,
+    the voxelization and the solve): a run launches its path's kernels and
+    no other.  Prints each run's init_phase time (voxelization and the
+    geometry fields it needs, fibre generation excluded), solve time,
+    wall time and peak device memory; then float32 phi against float64
+    phi at 256^3, and three demos in float64 on the card against the CPU
+    (the float32 heat run too)."""
+    import numpy as np
+    import torch
+    from fibergen_tpu_torch.geometry import discretize
+    log("phase 11: the XML front end (demo projects through ft.FG), "
+        "float32")
+    got = {}
+    cuda = device == "cuda"
+    for name in FRONT_END:
+        f = demo_fg(name, device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fail, got[name] = run_counted(f.solver, name, name, f.run)
+        wall = time.perf_counter() - t0
+        path_launches[name] = got[name]
+        s = f.solver
+        log(f"  {name}: grid {s.grid.shape}, {len(f.gen.all_fibers())} "
+            f"primitives, {len(s.residuals)} iterations, init_phase "
+            f"{f.phase_time:.4f} s (geometry fields {f.geometry_time:.4f} s), "
+            f"solve_time {s.solve_time:.4f} s, wall {wall:.3f} s, peak "
+            f"device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30 if cuda else 0:.2f} "
+            f"GiB, distance evaluations {f.get_distance_evals()}")
+        assert fail == 0, name
+        if name == "fg-hashin":
+            sig = np.array(f.get_mean_stress())
+            k_eff = sig[:3].sum() / 9.0
+            log(f"    k_eff {k_eff:.8f} vs k* {HASHIN_K:.8f} (rel "
+                f"{abs(k_eff - HASHIN_K) / HASHIN_K:.3e}, limit 2e-3)")
+            assert abs(k_eff - HASHIN_K) <= 2e-3 * HASHIN_K
+            # float32 phi against float64 phi on the same fibres: the
+            # float32 coordinates carry an error of a few ulps of the cell
+            # edge, which moves a voxel's fraction by that over the
+            # supersampled voxel edge h
+            g = s.grid
+            fib = f.gen.all_fibers()
+            p32 = [discretize.phi_field(g, fib[k:k + 1], 2, torch.float32,
+                                        device) for k in range(len(fib))]
+            p64 = [discretize.phi_field(g, fib[k:k + 1], 2, torch.float64,
+                                        device) for k in range(len(fib))]
+            d = max(float((a.double() - b).abs().max())
+                    for a, b in zip(p32, p64))
+            dm = max(abs(float(a.double().mean() - b.mean()))
+                     for a, b in zip(p32, p64))
+            lim = 8 * float(np.finfo(np.float32).eps) * (2 * g.nx)
+            log(f"    phi float32 vs float64 at {g.nx}^3 (supersample 2): "
+                f"max abs diff {d:.3e} (limit 8 eps32 / h = {lim:.3e}), "
+                f"volume fraction diff {dm:.3e}")
+            assert d <= lim and dm <= 1e-6
+            del p32, p64
+        elif name == "fg-transverse-isotropy":
+            sig = np.array(f.get_mean_stress())
+            log(f"    mean stress {sig.tolist()}")
+            assert np.all(np.isfinite(sig)) and sig[0] > sig[1] \
+                and sig[0] > sig[2]
+        elif name == "fg-heat":
+            K = np.array(f.get_effective_property())
+            log(f"    K diagonal {np.diag(K).tolist()}")
+            assert np.all(np.diag(K) > 1.0) and np.all(np.diag(K) < 10.0)
+            heat32 = (K, len(s.residuals))   # held to the CPU below
+        else:
+            alpha, beta = f._nunan_keller
+            da = abs(alpha - NUNAN_KELLER["alpha"]) / NUNAN_KELLER["alpha"]
+            db = abs(beta - NUNAN_KELLER["beta"]) / NUNAN_KELLER["beta"]
+            log(f"    alpha {alpha:.6f} (paper {NUNAN_KELLER['alpha']}, rel "
+                f"{da:.3e}), beta {beta:.6f} (paper {NUNAN_KELLER['beta']}, "
+                f"rel {db:.3e}), limit 1 %")
+            assert da <= 0.01 and db <= 0.01
+        del f, s
+        if cuda:
+            torch.cuda.empty_cache()
+
+    # the card against the CPU in float64 through FG: hashin at 32^3 (K1,
+    # K2, K3), heat at its 128^2 x 1 (K4 on the one-voxel z axis) and
+    # transverse_isotropy at 32^3 (K3 alone; the laminate rule's normals,
+    # the fibres' orientation field); phi and those fields within 1e-12,
+    # the same iterations, the mean stress or K within 1e-10
+    cross = (("fg-hashin", {"variables.res..value": 32, "solver.tol": 1e-10},
+              ()),
+             ("fg-heat", {}, ("normals",)),
+             ("fg-transverse-isotropy", {"variables.res..value": 32},
+              ("normals", "orientation")))
+    for name, kv, fields in cross:
+        runs = {}
+        for dev in ("cpu", device):
+            f = demo_fg(name, dev, "double", kv)
+            if dev == "cpu":
+                fail = f.run()
+            else:
+                fail = run_counted(f.solver, f"{name} float64", name,
+                                   f.run)[0]
+            assert fail == 0, (name, dev)
+            runs[dev] = f
+        c, g = runs["cpu"], runs[device]
+        dphi = float(np.abs(g.get_field("phi") - c.get_field("phi")).max())
+        dgeo = max([float(np.abs(g.get_field(k) - c.get_field(k)).max())
+                    for k in fields], default=0.0)
+        effective = c.get_effective_property() is not None
+        what = "K" if effective else "mean stress"
+        out = lambda f: np.array(f.get_effective_property() if effective
+                                 else f.get_mean_stress())
+        Sc, Sg = out(c), out(g)
+        s_rel = float(np.max(np.abs(Sg - Sc)) / np.max(np.abs(Sc)))
+        its = (len(c.get_residuals()), len(g.get_residuals()))
+        log(f"  {name} {g.solver.grid.shape} float64 cuda vs cpu: phi max "
+            f"abs diff {dphi:.3e}, {'/'.join(fields) or 'no other fields'} "
+            f"{dgeo:.3e} (limit 1e-12), iterations {its}, "
+            f"{what} max rel diff "
+            f"{s_rel:.3e} (limit 1e-10)")
+        assert dphi <= 1e-12 and dgeo <= 1e-12 and its[0] == its[1] \
+            and s_rel <= 1e-10, name
+        if name == "fg-heat":
+            # the float32 run on the card against the float64 CPU run
+            K32, its32 = heat32
+            k_rel = float(np.max(np.abs(K32 - Sc)) / np.max(np.abs(Sc)))
+            log(f"  fg-heat float32 on the card vs float64 on the cpu: K "
+                f"max rel diff {k_rel:.3e} (limit 1e-5), iterations "
+                f"({its32}, {its[0]})")
+            assert k_rel <= 1e-5 and its32 == its[0]
+        del runs, c, g
+
+
 def sync_all():
     import torch
     for i in range(torch.cuda.device_count()):
@@ -1491,6 +1669,12 @@ def main():
     # viscosity solve (float64), length 64 on every axis
     check_kernels((64, 64, 64), torch.float32, timed=False)
     check_kernels((64, 64, 64), torch.float64, timed=False)
+    # phase 11's heat demo (128 x 128 x 1, float32 and its float64 check
+    # against the CPU) and an odd grid, on the one-voxel z axis the chains
+    # take by their direct-DFT z lines
+    check_kernels((128, 128, 1), torch.float32, timed=False)
+    check_kernels((128, 128, 1), torch.float64, timed=False)
+    check_kernels((33, 17, 1), torch.float64, timed=False)
     torch.cuda.empty_cache()
 
     # ---- phase 3: kernel path vs plain path on the same solve
@@ -1808,6 +1992,9 @@ def main():
     # staggered Delta path
     interfaces_and_dfg(run_counted, res32, path_launches)
 
+    # ---- phase 11: the XML front end
+    front_end(run_counted, path_launches)
+
     # ---- phase 7: launches and per-kernel numbers.  The per-kernel list
     # takes the key "kernels"; the launch counts of each path's timed 256^3
     # float32 solve print on their own line as "kernel_launches".  A mode's
@@ -1875,15 +2062,17 @@ def main():
              ("g0_staggered_chain_slab[hyper]", "g0_staggered_chain_slab",
               "hyperelasticity [sharded]", ch, f"{pc_}:470")]
     more_paths = {
-        "stress_div_beta": ("elasticity-reuss",),
-        "eps_from_u_dot": ("elasticity-reuss",),
+        "stress_div_beta": ("elasticity-reuss", "fg-hashin"),
+        "eps_from_u_dot": ("elasticity-reuss", "fg-hashin"),
         "g0_staggered_chain": ("elasticity-general", "elasticity-tiso-field",
                                "elasticity-reuss",
                                "elasticity-full-staggered",
                                "elasticity-laminate", "viscosity-generic",
                                "viscosity-lambda", "viscosity-fluidity",
-                               "viscosity-nunan-keller"),
-        "g0_staggered_heat_chain": ("heat-aniso", "heat-laminate"),
+                               "viscosity-nunan-keller", "fg-hashin",
+                               "fg-transverse-isotropy", "fg-nunan-keller"),
+        "g0_staggered_heat_chain": ("heat-aniso", "heat-laminate",
+                                    "fg-heat"),
         "gamma_collocated_chain": ("elasticity-general-collocated",
                                    "elasticity-laminate-collocated"),
         "gamma_collocated_chain[heat]": ("heat-aniso-collocated",),

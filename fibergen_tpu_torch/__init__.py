@@ -20,8 +20,15 @@ over a mesh of devices driven by this one process
 (``LSSolver(..., sharding=parallel.field_sharding(mesh))``): CG and basic
 on the linear paths, polarization, and Newton-Krylov, for Voigt mixtures
 of isotropic or hyperelastic phases.
+
+``FG`` is the XML front end (``api.py``): it reads a project, evaluates its
+Python expressions, generates or places the fibres on the host, voxelizes
+them into phase fields on the solver's device (``geometry/``), builds the
+solver and runs the project's actions (load cases, effective properties);
+``python -m fibergen_tpu_torch.cli project.xml`` runs a project.
 """
 from . import api, convert, parallel
+from .api import FG, isotropic_laminate_stiffness
 from .core.grid import Grid
 from .materials.laws import (GOLDBERG_LAWS, LinearGeneral, LinearIsotropic,
                              LinearTransverselyIsotropic,
@@ -45,4 +52,4 @@ __all__ = ["Grid", "Phase", "LinearIsotropic", "ScalarLinearIsotropic",
            "FiftyFiftyMixed", "SplitMixed", "IsoMixed", "MIXING_RULES",
            "LaminateMixed", "InfinityLaminateMixed", "FluidityMixed",
            "DfgMaterial", "make_mixed", "SolverOptions", "LSSolver", "api",
-           "convert", "parallel"]
+           "convert", "parallel", "FG", "isotropic_laminate_stiffness"]

@@ -15,6 +15,12 @@ from __future__ import annotations
 
 import numpy as np
 
+# (row, column) of each Voigt component in the 3x3 matrix
+VI = {3: np.array([0, 1, 2]), 6: np.array([0, 1, 2, 1, 0, 0]),
+      9: np.array([0, 1, 2, 1, 0, 0, 2, 2, 1])}
+VJ = {3: np.array([0, 1, 2]), 6: np.array([0, 1, 2, 2, 2, 1]),
+      9: np.array([0, 1, 2, 2, 2, 1, 1, 0, 0])}
+
 
 def weights(dim: int, dtype=np.float64) -> np.ndarray:
     """Double-contraction weights (2 on shear entries for dim 6)."""
@@ -67,6 +73,38 @@ def dyad_vv(a, b):
 def norm_2(v) -> float:
     """Tensor 2-norm of a Voigt vector (fibergen.cpp:530-537)."""
     return float(np.sqrt(dyad_vv(v, v)))
+
+
+def to_matrix(v) -> np.ndarray:
+    """A Voigt vector (dim 6 or 9, leading axes kept) as a 3x3 matrix."""
+    v = np.asarray(v)
+    dim = v.shape[-1]
+    m = np.zeros(v.shape[:-1] + (3, 3), dtype=v.dtype)
+    for k in range(dim):
+        m[..., VI[dim][k], VJ[dim][k]] = v[..., k]
+        if dim == 6:
+            m[..., VJ[dim][k], VI[dim][k]] = v[..., k]
+    return m
+
+
+def from_matrix(m, dim: int) -> np.ndarray:
+    """A 3x3 matrix as a Voigt vector of ``dim`` (symmetrized for dim 6)."""
+    m = np.asarray(m)
+    out = np.zeros(m.shape[:-2] + (dim,), dtype=m.dtype)
+    for k in range(dim):
+        i, j = VI[dim][k], VJ[dim][k]
+        out[..., k] = 0.5 * (m[..., i, j] + m[..., j, i]) if dim == 6 \
+            else m[..., i, j]
+    return out
+
+
+def expand_6_to_9(v):
+    """The shear entries duplicated, [a..f] -> [a..f, d, e, f]
+    (fibergen.cpp:12117-12121), on a numpy array or a torch tensor."""
+    if isinstance(v, np.ndarray):
+        return np.concatenate([v, v[..., 3:6]], axis=-1)
+    import torch
+    return torch.cat([v, v[..., 3:6]], dim=-1)
 
 
 def expand_matrix_6_to_9(M: np.ndarray) -> np.ndarray:

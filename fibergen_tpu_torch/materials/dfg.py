@@ -76,9 +76,10 @@ def restrict(Y):
 
 
 def fine_grid(grid: Grid) -> Grid:
-    """The doubly-fine grid of ``grid``: twice the voxels, the same cell."""
+    """The doubly-fine grid of ``grid``: twice the voxels, the same cell
+    and origin."""
     return Grid(2 * grid.nx, 2 * grid.ny, 2 * grid.nz, grid.dx, grid.dy,
-                grid.dz)
+                grid.dz, grid.x0)
 
 
 class DfgMaterial:

@@ -66,7 +66,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import time
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -179,10 +179,22 @@ _ALSO = {"mode": ("heat", "porous", "viscosity", "hyperelasticity"),
                           "full_staggered"),
          "newton_tangent": ("frozen_iso",),
          "adaptive_drain": ("off",),
-         "low_mem": ("off",), "use_dim2": ("off",)}
+         "low_mem": ("off",), "use_dim2": ("off",),
+         "batch_load_cases": ("off",)}
+
+
+# options whose value is a choice: a value off the list is an error, not
+# an option still to be ported
+_CHOICES = {"refine": ("auto", "on", "off"),
+            "batch_load_cases": ("auto", "off")}
 
 
 def _check_options(opt: SolverOptions):
+    for name, allowed in _CHOICES.items():
+        v = getattr(opt, name)
+        if v not in allowed:
+            raise ValueError(f"Unknown {name} '{v}' (expected "
+                             f"{', '.join(allowed[:-1])} or {allowed[-1]})")
     hyper = opt.mode == "hyperelasticity"
     for f in dataclasses.fields(opt):
         if f.name in _FREE:
@@ -202,8 +214,6 @@ def _check_options(opt: SolverOptions):
         raise NotImplementedError(
             f"error estimator {opt.error_estimator!r} is ported for "
             f"hyperelasticity only")
-    if opt.refine not in ("auto", "on", "off"):
-        raise ValueError(f"refine must be auto/on/off, got {opt.refine!r}")
     make_estimator(opt.error_estimator)
     make_estimator(opt.outer_error_estimator)
 
@@ -223,7 +233,16 @@ class LSSolver:
     ``device="cpu"`` for the plain PyTorch path.  ``sharding`` (a
     ``parallel.NamedSharding``, e.g. ``parallel.field_sharding(mesh)``)
     splits the fields into x-slabs over its mesh, whose devices the solve
-    then runs on; a ``device`` that disagrees with them raises."""
+    then runs on; a ``device`` that disagrees with them raises.
+
+    The phases' fields may be set after construction (the front end builds
+    the solver before it voxelizes); a solve refuses phases without one.
+    ``convergence_callback`` (no arguments) is called at every convergence
+    test, on the host values of the chunk already read, and ends the solve
+    when it returns true; ``loadstep_callback`` is called after each
+    loadstep and ends the run, which then returns True, when it returns
+    true; :meth:`cancel` ends the running solve at its next convergence
+    test, and the run returns True."""
 
     def __init__(self, grid, material, options: SolverOptions = None,
                  device=None, sharding=None):
@@ -251,22 +270,13 @@ class LSSolver:
         # from staggered in their material only (a DfgMaterial,
         # materials/dfg.py)
         self.scheme = self.opt.resolved_scheme()
+        # fixed again where a solve starts, the phases' fields set by then
+        self._k1_route = None
+        if all(p.phi is not None for p in material.phases):
+            self._settle_route()    # a rule its laws cannot take raises
         if self.mode == "viscosity" and self.opt.method == "polarization":
             raise NotImplementedError(
                 "the polarization method in viscosity is not ported yet")
-        # staggered elasticity fuses the step into K1 and K2, which read
-        # the isotropic moduli planes; so does staggered viscosity when
-        # every phase has lambda = 0 (K1's tau sum and K2's Delta term are
-        # the scalar law's) and no mixed BC corrects the mean, as in the
-        # JAX package's fused viscosity sweep (ls.py:384-412).  The rest
-        # of staggered viscosity, and half/full staggered whatever the
-        # material, take the generic Delta path (gammamod.delta_staggered).
-        iso = material.iso_route()
-        self._k1_route = self.scheme == "staggered" and iso and (
-            self.mode == "elasticity"
-            or (self.mode == "viscosity"
-                and all(float(p.law.iso_moduli()[1]) == 0.0
-                        for p in material.phases)))
         self.dtype = resolve_dtype(self.opt.dtype)
         self._tiny = float(np.finfo(np.float64 if self.dtype == torch.float64
                                     else np.float32).tiny)
@@ -285,6 +295,8 @@ class LSSolver:
         self.eps: Optional[torch.Tensor] = None
         self.residuals: List[float] = []
         self.solve_time = 0.0
+        self.convergence_callback: Optional[Callable[[], bool]] = None
+        self.loadstep_callback: Optional[Callable[[], bool]] = None
         self._canceled = False
         self._diverged = False
         self.newton_iterations = [0, 0]     # outer, inner (hyperelasticity)
@@ -293,6 +305,33 @@ class LSSolver:
             self.opt.error_estimator).metric_kind
         self.par = self._slab_layout(sharding)
         self._mod_halo = None
+
+    def _settle_route(self):
+        """Refuse phases without phi; then fix ``_k1_route``, whether the
+        step fuses into K1 and K2, which read the isotropic moduli planes:
+        staggered elasticity on the isotropic route, and staggered
+        viscosity there when every phase has lambda = 0 (K1's tau sum and
+        K2's Delta term are the scalar law's), as in the JAX package's
+        fused viscosity sweep (ls.py:384-412); mixed BCs move viscosity off
+        it (_gamma).  The rest of staggered viscosity, and half/full
+        staggered whatever the material, take the generic Delta path
+        (gammamod.delta_staggered)."""
+        if any(p.phi is None for p in self.mat.phases) \
+                and not getattr(self.mat, "_phi_dropped", False):
+            raise SolverError(
+                "a phase has no volume-fraction field phi: set the phases' "
+                "fields (FG.init_phase) before solving")
+        self._k1_route = self.scheme == "staggered" \
+            and self.mat.iso_route() and (
+                self.mode == "elasticity"
+                or (self.mode == "viscosity"
+                    and all(float(p.law.iso_moduli()[1]) == 0.0
+                            for p in self.mat.phases)))
+
+    def cancel(self):
+        """End the running solve at its next convergence test; the run
+        returns True."""
+        self._canceled = True
 
     def _slab_layout(self, sharding):
         """The x-slab layout of a sharded solve (parallel.fft.SlabPar), None
@@ -438,6 +477,7 @@ class LSSolver:
         """Full solve over all loadsteps (run, fibergen.cpp:21247-21398).
         Returns True on failure or cancel, False on success, like the
         reference."""
+        self._settle_route()
         self.residuals = []
         self._canceled = False
         self._diverged = False
@@ -562,6 +602,9 @@ class LSSolver:
                 continue
             if self._canceled:
                 LOG.error("loadsteps canceled")
+                return True
+            if self.loadstep_callback and self.loadstep_callback():
+                LOG.info("Loadstep callback break request.")
                 return True
             istep += 1
         return False
@@ -830,6 +873,7 @@ class LSSolver:
         if self.par is not None:
             raise NotImplementedError(
                 "run_batched on a sharded mesh is not ported yet")
+        self._settle_route()
         self._refuse_refinement()
         t0 = time.perf_counter()
         Es = np.asarray(Es, dtype=np.float64)
@@ -974,6 +1018,12 @@ class LSSolver:
                     f"error {rel_err:g} (tolerance {tol:g}): "
                     "stopping at the precision floor.")
                 return it, True
+        if self.convergence_callback and self.convergence_callback():
+            LOG.info("Custom convergence test returned true.")
+            return it, True
+        if self._canceled:
+            LOG.info("Solve canceled.")
+            return it, True
         if it >= self.opt.maxiter:
             LOG.info("Maximum number of iterations reached.")
             return it, True

@@ -5,6 +5,7 @@
         [--slabs=D | --batched] [--material=FIBRE]
     python3 scripts/torch_profile_solve.py [n] hyperelasticity [scheme] cg
         [exact|frozen_iso]
+    python3 scripts/torch_profile_solve.py --fg=RUN
 
 Solves the bench's sphere RVE (n^3, default 256, float32, residual tol
 1e-6, check_every 8; chip_smoke.RVE) in ``mode`` (elasticity, the default,
@@ -32,7 +33,12 @@ elasticity, ``aniso`` in heat); ``--material=PATH`` with a path of
 ``chip_smoke.INTERFACE_PATHS`` (``elasticity-full-staggered``,
 ``elasticity-laminate``, ``viscosity-fluidity``, ...) solves that path's
 material, mode and scheme (the interface rules, the doubly-fine grid, the
-generic staggered Delta path).
+generic staggered Delta path).  ``--fg=RUN`` profiles one run of
+``chip_smoke.FRONT_END`` (``fg-hashin``, ``fg-transverse-isotropy``,
+``fg-heat``, ``fg-nunan-keller``) through ``ft.FG`` in float32, a fresh FG
+each time: the whole ``f.run()`` (fibre generation, ``init_phase``, the
+solve) is the wall time, and ``init_phase``'s and the solve's shares of it
+are printed beside the device time by kind.
 Prints one JSON line last.
 """
 import json
@@ -71,7 +77,7 @@ def main():
 
     import numpy as np
 
-    from chip_smoke import (EFF_VISC, HYPER_OPT, INTERFACE_PATHS,
+    from chip_smoke import (EFF_VISC, HYPER_OPT, INTERFACE_PATHS, demo_fg,
                             general_solver, interface_solver, sphere_solver)
     from fibergen_tpu_torch.utils.logging import LOG
 
@@ -86,8 +92,10 @@ def main():
     material = [a.split("=", 1)[1] for a in sys.argv
                 if a.startswith("--material=")]
     material = material[0] if material else None
+    fg_run = [a.split("=", 1)[1] for a in sys.argv if a.startswith("--fg=")]
+    fg_run = fg_run[0] if fg_run else None
     sys.argv = [a for a in sys.argv
-                if not a.startswith(("--slabs=", "--material="))
+                if not a.startswith(("--slabs=", "--material=", "--fg="))
                 and a != "--batched"]
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 256
     mode = sys.argv[2] if len(sys.argv) > 2 else "elasticity"
@@ -100,7 +108,11 @@ def main():
         est = "residual" if method == "cg" else "epsilon"
         opt = dict(error_estimator=est, tol=1e-6, check_every=8,
                    maxiter=4000)
-    if material in INTERFACE_PATHS:
+    fg = []
+    if fg_run is not None:
+        s = demo_fg(fg_run).solver
+        n, mode, scheme, method = s.grid.nx, s.mode, s.scheme, s.opt.method
+    elif material in INTERFACE_PATHS:
         s = interface_solver(n, "float32", "cuda", material, method=method,
                              **opt)
         mode, scheme = s.mode, s.scheme
@@ -114,11 +126,24 @@ def main():
     Es = EFF_VISC if mode == "viscosity" else np.eye(s.dim)
 
     def solve():
-        assert not (s.run_batched(Es) if batched else s.run())
+        nonlocal s
+        if fg_run is None:
+            assert not (s.run_batched(Es) if batched else s.run())
+            return
+        f = demo_fg(fg_run)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        assert f.run() == 0
+        torch.cuda.synchronize()
+        fg[:] = [f, time.perf_counter() - t0]
+        s = f.solver
 
     solve()
     solve()
-    wall = s.solve_time
+    wall = s.solve_time if fg_run is None else fg[1]
+    shares = None if fg_run is None else {
+        "init_phase": fg[0].phase_time / wall,
+        "solve": s.solve_time / wall}
     its = len(s.residuals)
     ref_ms = None
     if mode == "hyperelasticity":
@@ -144,6 +169,11 @@ def main():
     for us, _, name in rows:
         kinds[kind_of(name)] = kinds.get(kind_of(name), 0.0) + us / 1e3
     card = torch.cuda.get_device_name(0)
+    if fg_run is not None:
+        print(f"{card}: {fg_run} through FG, grid {s.grid.shape}: "
+              f"init_phase {fg[0].phase_time:.4f} s ({shares['init_phase']:.1%}"
+              f" of the run's wall), solve_time {s.solve_time:.4f} s "
+              f"({shares['solve']:.1%})")
     print(f"{card}: {n}^3 float32 {mode} {scheme} {method}"
           f"{'' if material is None else f' {s.mat}, fibre {material}'}"
           f"{'' if slabs is None else f' on {slabs} slabs'}"
@@ -161,7 +191,8 @@ def main():
         print(f"  {k:18s} {ms:9.3f} ms  {ms / busy_ms:6.1%} of busy")
     print(json.dumps({"n": n, "mode": mode, "scheme": scheme,
                       "method": method, "slabs": slabs,
-                      "material": material,
+                      "material": material, "fg": fg_run,
+                      "shares_of_wall": shares,
                       "batched": len(Es) if batched else None,
                       "iterations": its,
                       "newton_iterations": s.newton_iterations,

@@ -849,3 +849,93 @@ def test_cuda_interface_and_dfg_solve_matches_cpu(cuda, case):
     np.testing.assert_allclose(rg, rc, rtol=1e-9)
     np.testing.assert_allclose(Sg, Sc, rtol=0,
                                atol=1e-10 * np.max(np.abs(Sc)))
+
+
+# the XML front end: demo projects through ft.FG at test sizes, float64;
+# name -> (project, settings, the kernels its solve launches)
+FG_DEMOS = {
+    "hashin": ("elasticity/hashin", {"variables.res..value": 24},
+               {"stress_div_beta", "eps_from_u_dot", "g0_staggered_chain"}),
+    "transverse_isotropy": ("elasticity/transverse_isotropy",
+                            {"variables.res..value": 16},
+                            {"g0_staggered_chain"}),
+    "heat": ("heat/heat", {"variables.res..value": 32, "n": 10},
+             {"g0_staggered_heat_chain"}),
+    "nunan_keller": ("viscosity/nunan_keller",
+                     {"solver..n": 16, "solver.tol": 1e-4},
+                     {"g0_staggered_chain"}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FG_DEMOS))
+def test_cuda_fg_demo_matches_cpu(cuda, name):
+    """A demo project through FG on the card against the CPU in float64:
+    phi and the geometry fields within 1e-12, the same iterations, the
+    mean stress (or the effective property) within 1e-10; the card's run
+    launches its path's kernels and no other."""
+    import os
+    path, settings, kernels = FG_DEMOS[name]
+    xml = os.path.join(os.path.dirname(__file__), "..", "demo", path,
+                       "project.xml")
+    res = {}
+    for dev in ("cpu", "cuda"):
+        f = ft.FG(xml, device=dev)
+        for k, v in settings.items():
+            f.set(k, v)
+        before = dict(stencil_kernels.launches, **spectral_kernels.launches)
+        assert f.run() == 0
+        after = dict(stencil_kernels.launches, **spectral_kernels.launches)
+        C = f.get_effective_property()
+        res[dev] = (f.get_field("phi"), len(f.get_residuals()),
+                    np.asarray(f.get_mean_stress() if C is None else C),
+                    set(_launched(before, after)),
+                    None if f._gfields_cache is None
+                    else f.get_field("normals"))
+    (pc, ic, Sc, kc, nc), (pg, ig, Sg, kg, ng) = res["cpu"], res["cuda"]
+    assert kc == set() and kg == kernels
+    np.testing.assert_allclose(pg, pc, rtol=0, atol=1e-12)
+    if nc is not None:
+        np.testing.assert_allclose(ng, nc, rtol=0, atol=1e-12)
+    assert ig == ic
+    np.testing.assert_allclose(Sg, Sc, rtol=0,
+                               atol=1e-10 * np.max(np.abs(Sc)))
+
+
+def test_cuda_voxelization_matches_cpu(cuda):
+    """phi_field (supersample 2, in x-slabs and fibre groups too) and
+    geometry_fields of random capsules, cylinders and a half space on an
+    odd grid: the card against the CPU within 1e-12 in float64; float32
+    within 8 float32 epsilons over the supersampled voxel edge."""
+    from fibergen_tpu_torch.geometry import discretize, primitives
+    r = np.random.default_rng(3)
+    fibres = []
+    for i in range(9):
+        a = r.standard_normal(3)
+        cls = primitives.Cylinder if i % 3 == 0 else primitives.Capsule
+        f = cls(center=r.uniform(0, 1, 3), axis=a / np.linalg.norm(a),
+                length=float(r.uniform(0, 0.5)),
+                radius=float(r.uniform(0.05, 0.2)))
+        f.material, f.fiber_id = 1, i + 1
+        fibres.append(f)
+    h = primitives.HalfSpace(point=np.array([0.3, 0.5, 0.5]),
+                             normal=np.array([-1.0, 0.2, 0.1]))
+    h.material, h.fiber_id = 1, 10
+    fibres.append(h)
+    g = Grid(33, 17, 29, 1.0, 1.2, 0.9)
+    ref = discretize.phi_field(g, fibres, 2, torch.float64, "cpu")
+    old = discretize.PHI_SLAB_VOXELS
+    for budget in (old, 5000):
+        discretize.PHI_SLAB_VOXELS = budget
+        try:
+            got = discretize.phi_field(g, fibres, 2, torch.float64, "cuda")
+        finally:
+            discretize.PHI_SLAB_VOXELS = old
+        assert float((got.cpu() - ref).abs().max()) <= 1e-12
+    p32 = discretize.phi_field(g, fibres, 2, torch.float32, "cuda")
+    lim = 8 * float(np.finfo(np.float32).eps) * 2 * max(g.nx, g.ny, g.nz)
+    assert float((p32.double().cpu() - ref).abs().max()) <= lim
+    gc = discretize.geometry_fields(g, fibres, torch.float64, "cpu")
+    gg = discretize.geometry_fields(g, fibres, torch.float64, "cuda")
+    for k in gc:
+        np.testing.assert_allclose(gg[k].cpu().numpy(), gc[k].numpy(),
+                                   rtol=0, atol=1e-12, err_msg=k)
