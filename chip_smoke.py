@@ -6,8 +6,8 @@
 Nine paths run on the card (PATHS), six more of general linear
 materials (GENERAL_PATHS, phase 9), eight of the interface rules, the
 doubly-fine grid and the generic staggered Delta path (INTERFACE_PATHS,
-phase 10) and four demo projects through the XML front end (FRONT_END,
-phase 11).  Staggered CG: elasticity (K1, K3,
+phase 10), four demo projects through the XML front end (FRONT_END,
+phase 11) and the mesh and file I/O projects (phase 12).  Staggered CG: elasticity (K1, K3,
 K2), heat conduction (the scalar K4 chain; porous flow is the same path)
 and viscosity (K1 tau-sum mode, K3 with the dual constants, K2 Delta mode).
 Collocated: CG in elasticity and heat (the plain stress difference and the
@@ -96,7 +96,20 @@ constants) and collocated (K5 at C = 9).  Phases, each failing loudly:
    kernels and no other; float32 phi against float64 phi at 256^3; the
    heat run's K against the CPU in float64; hashin and transverse_isotropy
    at 32^3 and heat at 128^2 x 1, float64 through FG on the card against
-   the CPU (phi and the geometry fields, iterations, the result).
+   the CPU (phi and the geometry fields, iterations, the result);
+12. meshes and file I/O (``meshes_and_io``): a synthetic 256^3 CT volume
+   (smoothed, thresholded Gaussian noise: pore, calcite, quartz) written
+   as two gzip'd uint8 rasters and read by the digital_rocks demo's
+   project, its six cases one by one (K1, K2, K3) and batched, C_eff
+   symmetric and its isotropic fit inside the n-phase Hashin-Shtrikman
+   bounds; the solution VTK of a 128^3 solve read back (u one K3 launch,
+   the identity eps_staggered(<eps>, u) = eps); the recovery chains (u
+   K3, T K4, the viscosity velocity K3 and pressure K4) against their
+   plain twins at 256^3 float32 and 48^3 float64; the mesh demos (stl at
+   32^3 and 128^3, K4; tetmesh at 48 x 48 x 4 and 192 x 192 x 16, K3;
+   normals with its write_vtk) with init_phase per primitive; the 32^3
+   crop and the stl demo at n = 16 in float64 on the card against the
+   CPU, a checkpoint of the card resumed on the CPU; get_fft_time.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits non-zero before printing any result.
@@ -233,6 +246,13 @@ PATH_KERNELS = {
     "fg-transverse-isotropy": ("g0_staggered_chain",),
     "fg-heat": ("g0_staggered_heat_chain",),
     "fg-nunan-keller": ("g0_staggered_chain",),
+    # phase 12: meshes and file I/O (the raw CT volume's stiffness, the
+    # mesh demos; the recovery chains count apart, meshes_and_io)
+    "fg-digital-rocks": ("stress_div_beta", "eps_from_u_dot",
+                         "g0_staggered_chain"),
+    "fg-stl": ("g0_staggered_heat_chain",),
+    "fg-tetmesh": ("g0_staggered_chain",),
+    "fg-normals": (),
 }
 
 # phase 9: the tiso demo's materials (demo/elasticity/transverse_isotropy):
@@ -1600,6 +1620,414 @@ def front_end(run_counted, path_launches, device="cuda"):
         del runs, c, g
 
 
+# phase 12: meshes and file I/O.  The synthetic CT volume stands in for the
+# digital_rocks demo's Grosmont rasters (demo/elasticity/digital_rocks,
+# whose data is not in the repo): thresholded, smoothed Gaussian noise of
+# correlation length 8 voxels at 256^3, about 0.2 pore (the matrix), 0.5
+# calcite and 0.3 quartz
+ROCK_MODULI = {"K": (0.037, 37.0, 68.3), "mu": (0.044, 44.0, 28.4)}
+# the demo's phases in its order: matrix (pore), quartz, calcite
+MESH_DEMOS = {
+    "fg-stl": ("geometry/stl", {}),
+    "fg-tetmesh": ("geometry/tetmesh", {}),
+    "fg-normals": ("geometry/normals", {}),
+}
+
+
+def rock_volume(n, corr=8.0, seed=0):
+    """(quartz, calcite) indicator fields (float64 numpy, n^3) of the
+    thresholded Gaussian-filtered noise of ``seed`` (made on the card):
+    the lowest 20 % of the values pore, the next 50 % calcite, the rest
+    quartz; the filter's sigma is half the correlation length ``corr``
+    (voxels)."""
+    import numpy as np
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    noise = torch.randn((n, n, n), generator=g, device="cuda")
+    k = torch.fft.fftfreq(n, device="cuda") * n
+    kz = torch.fft.rfftfreq(n, device="cuda") * n
+    w = torch.exp(-2.0 * (math.pi * 0.5 * corr / n) ** 2
+                  * (k[:, None, None] ** 2 + k[None, :, None] ** 2
+                     + kz[None, None, :] ** 2))
+    v = torch.fft.irfftn(torch.fft.rfftn(noise) * w, s=(n, n, n))
+    q = torch.quantile(v.flatten()[::97].double(),
+                       torch.tensor([0.2, 0.7], dtype=torch.float64,
+                                    device="cuda")).float()
+    quartz = (v >= q[1]).cpu().numpy().astype(np.float64)
+    calcite = ((v >= q[0]) & (v < q[1])).cpu().numpy().astype(np.float64)
+    return quartz, calcite
+
+
+def write_rasters(tmp, tag, quartz, calcite):
+    """The two gzip'd uint8 rasters of the digital_rocks demo's actions, in
+    io/rawio.py's layout (column order, 0 or 255), compressed at level 1
+    (the writer's level 9 is far slower at 256^3; the reader takes
+    either)."""
+    import gzip
+    import numpy as np
+    paths = []
+    for k, d in ((1, quartz), (2, calcite)):
+        p = os.path.join(tmp, f"{tag}_{k}.raw.gz")
+        with gzip.open(p, "wb", compresslevel=1) as fp:
+            fp.write(np.ascontiguousarray(d * 255, dtype=np.uint8).tobytes())
+        paths.append(p)
+    return paths
+
+
+def rocks_fg(paths, n, device, datatype="float", load_case=False, **kv):
+    """ft.FG on demo/elasticity/digital_rocks/project.xml with its rasters
+    set to ``paths``, n and the settings ``kv``, its solver built;
+    ``load_case`` runs e11 = 1 instead of the effective properties."""
+    import fibergen_tpu_torch as ft
+    f = ft.FG(os.path.join(DEMO_DIR, "elasticity", "digital_rocks",
+                           "project.xml"), device=device)
+    f.set("datatype", datatype)
+    f.set("solver..n", n)
+    for i, p in enumerate(paths):
+        f.set(f"actions.read_raw_data[{i}]..filename", p)
+    if load_case:
+        f.erase("actions.calc_effective_properties")
+        f.set("actions.run_load_case..e11", 1)
+    for k, v in kv.items():
+        f.set(k.replace("__", "."), v)
+    f._init_python()
+    f.init_lss()
+    return f
+
+
+def hs_bounds(phis, K, mu):
+    """The n-phase Hashin-Shtrikman bounds (Berryman's form) of the bulk
+    and shear moduli: ((K_lo, K_hi), (mu_lo, mu_hi)).  With two phases
+    they are those of the calc_HS_bounds action
+    (convert.hashin_shtrikman_bounds)."""
+    import numpy as np
+    phis, K, mu = (np.asarray(a, dtype=np.float64) for a in (phis, K, mu))
+    lam = lambda z: 1.0 / np.sum(phis / (K + 4.0 / 3.0 * z)) - 4.0 / 3.0 * z
+    gam = lambda z: 1.0 / np.sum(phis / (mu + z)) - z
+    zeta = lambda k, m: m / 6.0 * (9.0 * k + 8.0 * m) / (k + 2.0 * m)
+    return ((lam(mu.min()), lam(mu.max())),
+            (gam(zeta(K.min(), mu.min())), gam(zeta(K.max(), mu.max()))))
+
+
+def iso_fit(C):
+    """(K, mu) of the isotropic fit of a Voigt stiffness whose shear
+    columns are halved (calc_effective_properties' fit)."""
+    import numpy as np
+    C = np.array(C, dtype=np.float64)
+    C[:, 3:6] *= 2.0
+    S1, S2 = C[0:3, 0:3].sum(), np.trace(C)
+    lam, mu = (2 * S1 - S2) / 15.0, (3 * S2 - S1) / 30.0
+    return lam + 2.0 / 3.0 * mu, mu
+
+
+def counted(fn):
+    """``fn()`` with every launch count set to 0 just before it; returns
+    (its result, the counts)."""
+    from fibergen_tpu_torch.ops import spectral_kernels as spk
+    from fibergen_tpu_torch.ops import stencil_kernels as sk
+    for table in (sk.launches, spk.launches):
+        for name in table:
+            table[name] = 0
+    out = fn()
+    sync_all()
+    return out, {k: v for k, v in dict(sk.launches, **spk.launches).items()
+                 if v}
+
+
+class plain_chains:
+    """Within the block the K3 and K4 wrappers compute their plain twins
+    (torch.fft around the apply) on the card: the recovery's reference."""
+
+    def __enter__(self):
+        from fibergen_tpu_torch.ops import spectral_kernels as spk
+        self.saved = (spk.g0_staggered_chain, spk.g0_staggered_heat_chain)
+        spk.g0_staggered_chain = spk.g0_staggered_chain_plain
+        spk.g0_staggered_heat_chain = spk.g0_staggered_heat_chain_plain
+
+    def __exit__(self, *exc):
+        from fibergen_tpu_torch.ops import spectral_kernels as spk
+        spk.g0_staggered_chain, spk.g0_staggered_heat_chain = self.saved
+
+
+def meshes_and_io(run_counted, path_launches, card):
+    """Phase 12: the raw CT volume in and its stiffness out at 256^3, the
+    solution VTK at 128^3, the recovery chains against their twins, the
+    mesh demos, the card against the CPU in float64, get_fft_time."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    import fibergen_tpu_torch as ft
+    from fibergen_tpu_torch.io import rawio
+    from fibergen_tpu_torch.io import vtk as vtkio
+    from fibergen_tpu_torch.ops import staggered
+    from fibergen_tpu_torch.utils.logging import TIMINGS
+
+    t_phase = time.perf_counter()
+    log(f"phase 12: meshes and file I/O ({card})")
+    tmp = tempfile.mkdtemp(prefix="fg_phase12_")
+    try:
+        # ---- 1. raw CT in, stiffness out, 256^3 float32
+        t0 = time.perf_counter()
+        quartz, calcite = rock_volume(256)
+        raw256 = write_rasters(tmp, "rock256", quartz, calcite)
+        log(f"  synthetic CT volume 256^3: quartz {quartz.mean():.4f}, "
+            f"calcite {calcite.mean():.4f}, pore "
+            f"{1 - quartz.mean() - calcite.mean():.4f}; two gzip'd uint8 "
+            f"rasters ({sum(os.path.getsize(p) for p in raw256)} bytes) in "
+            f"{time.perf_counter() - t0:.2f} s")
+        f = rocks_fg(raw256, 256, "cuda")
+        torch.cuda.reset_peak_memory_stats()
+        TIMINGS.reset()
+        t0 = time.perf_counter()
+        fail, got = run_counted(f.solver, "fg-digital-rocks 256^3 float32",
+                                "fg-digital-rocks", f.run)
+        wall = time.perf_counter() - t0
+        assert fail == 0
+        path_launches["fg-digital-rocks"] = got
+        s = f.solver
+        t_read = TIMINGS.stats["action read_raw_data"][1]
+        t_eff = TIMINGS.stats["action calc_effective_properties"][1]
+        C = np.array(f.get_effective_property())
+        sym = float(np.abs(C - C.T).max() / np.abs(C).max())
+        phis = [float(p.phi.mean()) for p in s.mat.phases]
+        (klo, khi), (mlo, mhi) = hs_bounds(phis, *ROCK_MODULI.values())
+        K, mu = iso_fit(C)
+        log(f"  fg-digital-rocks 256^3 float32: phases {phis}, "
+            f"calc_effective_properties (six cases, "
+            f"{'batched' if hasattr(s, 'eps_batch') else 'one by one'}) "
+            f"{t_eff:.3f} s, the last case {len(s.residuals)} iterations "
+            f"in {s.solve_time:.4f} s; read_raw_data x 2 {t_read:.3f} s; "
+            f"wall {wall:.3f} s; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        log(f"    C_eff diagonal {np.diag(C).tolist()}, asymmetry "
+            f"{sym:.3e} of its largest entry (limit 1e-4); K {K:.5f} in HS "
+            f"[{klo:.5f}, {khi:.5f}], mu {mu:.5f} in HS [{mlo:.5f}, "
+            f"{mhi:.5f}]")
+        assert sym <= 1e-4 and klo <= K <= khi and mlo <= mu <= mhi
+        # the six cases batched on the same solver (the front end ran them
+        # one by one at this size: its batch gate is 8e9 bytes)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        assert not s.run_batched(np.eye(6))
+        t_b = time.perf_counter() - t0
+        Cb = s.calc_mean_stress_batched().T
+        Cb[:, 3:6] *= 0.5
+        d = float(np.abs(Cb - C).max() / np.abs(C).max())
+        log(f"    run_batched(eye(6)): {len(s.residuals)} iterations, "
+            f"{t_b:.3f} s, peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; C_eff "
+            f"batched vs one by one max diff {d:.3e} of the largest entry "
+            f"(limit 1e-5)")
+        assert d <= 1e-5
+        del f, s
+        torch.cuda.empty_cache()
+
+        # ---- 2. the solution VTK of a 128^3 solve
+        raw128 = write_rasters(tmp, "rock128", quartz[::2, ::2, ::2],
+                               calcite[::2, ::2, ::2])
+        f = rocks_fg(raw128, 128, "cuda", load_case=True)
+        assert f.run() == 0
+        s = f.solver
+        _, got = counted(f._displacement_field)
+        assert got == {"g0_staggered_chain": 1}, got
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u = f._displacement_field()
+        torch.cuda.synchronize()
+        t_u = time.perf_counter() - t0
+        path = os.path.join(tmp, "rock128.vtk")
+        t0 = time.perf_counter()
+        f.write_vtk_solution(path)
+        t_w = time.perf_counter() - t0
+        header, records = vtkio.read_vtk(path)
+        names = [n for _, n, _ in records]
+        want = (["phi_matrix", "phi_quartz", "phi_calcite"]
+                + [f"epsilon_{c}" for c in ("11", "22", "33", "23", "13",
+                                            "12")]
+                + [f"sigma_{c}" for c in ("11", "22", "33", "23", "13",
+                                          "12")]
+                + ["u", "u_0", "u_1", "u_2"])
+        assert header[0] == "# vtk DataFile Version 3.0"
+        assert header[2:5] == ["BINARY", "DATASET STRUCTURED_POINTS",
+                               "DIMENSIONS 128 128 128"], header
+        assert names == want, names
+        u_file = dict((n, a) for k, n, a in records if k == "VECTORS")["u"]
+        du = rel_max(u_file, f.get_field("u"))
+        E = s.eps.mean(dim=(1, 2, 3))
+        ident = float((staggered.eps_staggered(s.grid, E, u) - s.eps)
+                      .abs().max() / s.eps.abs().max())
+        log(f"  solution VTK of a 128^3 float32 solve ({len(s.residuals)} "
+            f"iterations): u in {t_u * 1e3:.2f} ms (one K3 launch), file "
+            f"{os.path.getsize(path)} bytes written in {t_w:.3f} s, fields "
+            f"{len(names)}; u in the file vs get_field max rel diff "
+            f"{du:.3e} (limit 1e-6); "
+            f"identity eps_staggered(<eps>, u) vs eps {ident:.3e} of max "
+            f"|eps| (limit 1e-5)")
+        assert du <= 1e-6 and ident <= 1e-5
+        del f, s, u
+        torch.cuda.empty_cache()
+
+        # ---- 3. the recovery chains against their twins
+        for n, dt in ((256, "float32"), (48, "float64")):
+            for mode in ("elasticity", "heat", "viscosity"):
+                s = sphere_solver(n, dt, "cuda", mode,
+                                  error_estimator="residual", tol=1e-6,
+                                  check_every=8)
+                assert not s.run()
+                f = ft.FG(device="cuda")
+                f.solver = s
+                rec = (f._viscosity_velocity_pressure if mode == "viscosity"
+                       else lambda: (f._displacement_field(),))
+                out, got = counted(rec)
+                with plain_chains():
+                    ref, twin = counted(rec)
+                assert twin == {}, twin
+                want = {"elasticity": {"g0_staggered_chain": 1},
+                        "heat": {"g0_staggered_heat_chain": 1},
+                        "viscosity": {"g0_staggered_chain": 1,
+                                      "g0_staggered_heat_chain": 1}}[mode]
+                assert got == want, (mode, got)
+                label = f"recover-{mode}"
+                if n == 256:
+                    path_launches[label] = got
+                errs = [rel_err(o, r) for o, r in zip(out, ref)]
+                tol = 1e-5 if dt == "float32" else 1e-12
+                what = {"elasticity": ("u",), "heat": ("T",),
+                        "viscosity": ("u", "p")}[mode]
+                torch.cuda.synchronize()
+                ms = cuda_ms(rec, reps=5, warm=1)
+                log(f"  {label} {n}^3 {dt}: "
+                    + ", ".join(f"{w} max rel diff to the twin {e[0]:.3e}"
+                                for w, e in zip(what, errs))
+                    + f" (limit {tol:g}); launches {got}; {ms:.3f} ms")
+                assert all(e[0] <= tol for e in errs), (label, errs)
+                del s, f, out, ref
+            torch.cuda.empty_cache()
+
+        # ---- 4. the mesh demos (float32)
+        runs = (("fg-stl", {}), ("fg-stl", {"solver..n": 128}),
+                ("fg-tetmesh", {}),
+                ("fg-tetmesh", {"solver..nx": 192, "solver..ny": 192,
+                                "solver..nz": 16}),
+                ("fg-normals", {}))
+        for name, kv in runs:
+            f = mesh_fg(name, "cuda", "float", kv)
+            if name == "fg-normals":
+                f.set("actions.write_vtk..filename",
+                      os.path.join(tmp, "normals.vtk"))
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            fail, got = run_counted(f.solver, f"{name} {kv}", name, f.run)
+            wall = time.perf_counter() - t0
+            assert fail == 0
+            path_launches[name] = {k: path_launches.get(name, {}).get(k, 0)
+                                   + v for k, v in got.items()}
+            s = f.solver
+            prims = sum(len(getattr(p, "tets", ())) or
+                        len(getattr(p, "V0", ())) or 1
+                        for p in f.gen.all_fibers())
+            phase_s = f.phase_time if name != "fg-normals" else \
+                f.geometry_time
+            log(f"  {name} {s.grid.shape}: {prims} primitives, "
+                f"{'init_phase' if name != 'fg-normals' else 'geometry fields'}"
+                f" {phase_s:.4f} s ({1e3 * phase_s / prims:.3f} ms a "
+                f"primitive), solve_time {s.solve_time:.4f} s "
+                f"({len(s.residuals)} iterations), wall {wall:.3f} s, peak "
+                f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+                f" GiB, distance evaluations {f.get_distance_evals()}")
+            if name == "fg-stl":
+                v = f.get_volume_fraction("blob")
+                flux = f.get_mean_stress()
+                log(f"    blob volume fraction {v:.5f}, flux {flux}")
+                assert abs(v - 0.115) < 0.03 and flux[0] > 1.0
+            elif name == "fg-tetmesh":
+                v = f.get_volume_fraction("core")
+                sig = f.get_mean_stress()
+                log(f"    core volume fraction {v:.5f}, mean stress {sig}")
+                assert 0.1 < v < 0.6 and sig[0] > 0 and sig[5] > 0
+                if s.grid.nz == 16:
+                    # ---- 6. get_fft_time after this staggered elasticity
+                    # solve
+                    t_fft = f.get_fft_time()
+                    log(f"    get_fft_time {t_fft:.4f} s of solve_time "
+                        f"{s.solve_time:.4f} s (chain applications "
+                        f"{s._chain_calls})")
+                    assert 0.0 < t_fft <= s.solve_time
+            else:
+                header, records = vtkio.read_vtk(
+                    os.path.join(tmp, "normals.vtk"))
+                n = dict((nm, a) for k, nm, a in records if k == "VECTORS")
+                ln = np.sqrt((n["normals"].astype(np.float64) ** 2).sum(0))
+                dist = dict((nm, a) for k, nm, a in records)["distance"]
+                m = np.abs(dist) < 0.1
+                log(f"    normals.vtk: {[nm for _, nm, _ in records]}, unit "
+                    f"normals near the interface: mean |n| {ln[m].mean():.6f}")
+                assert abs(ln[m].mean() - 1.0) < 1e-3
+            del f, s
+            torch.cuda.empty_cache()
+
+        # ---- 5. the card against the CPU in float64
+        crop = write_rasters(tmp, "rock32", quartz[:32, :32, :32],
+                             calcite[:32, :32, :32])
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            f = rocks_fg(crop, 32, dev, "double", load_case=True,
+                         solver__tol=1e-10)
+            assert f.run() == 0
+            runs[dev] = f
+        c, g = runs["cpu"], runs["cuda"]
+        its = (len(c.get_residuals()), len(g.get_residuals()))
+        ds = rel_max(g.get_mean_stress(), c.get_mean_stress())
+        du = rel_max(g.get_field("u"), c.get_field("u"))
+        ck = os.path.join(tmp, "rock32.npz")
+        g.solver.save_state(ck)
+        r = rocks_fg(crop, 32, "cpu", "double", load_case=True)
+        r.erase("actions.run_load_case")
+        assert r.run() == 0
+        r.solver.load_state(ck)
+        dr = rel_max(r.get_mean_stress(), g.get_mean_stress())
+        log(f"  32^3 crop float64 cuda vs cpu: iterations {its}, mean "
+            f"stress max rel diff {ds:.3e}, u {du:.3e} (limit 1e-10); the "
+            f"card's checkpoint resumed on the CPU: mean stress {dr:.3e} "
+            f"(limit 1e-10)")
+        assert its[0] == its[1] and ds <= 1e-10 and du <= 1e-10 \
+            and dr <= 1e-10
+        phis = {}
+        for dev in ("cpu", "cuda"):
+            f = mesh_fg("fg-stl", dev, "double", {"solver..n": 16})
+            assert f.run() == 0
+            phis[dev] = f.get_field("phi")
+        dphi = float(np.abs(phis["cuda"] - phis["cpu"]).max())
+        log(f"  fg-stl n = 16 float64 cuda vs cpu: phi max abs diff "
+            f"{dphi:.3e} (limit 1e-12)")
+        assert dphi <= 1e-12
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  phase 12 in {time.perf_counter() - t_phase:.1f} s")
+
+
+def mesh_fg(name, device, datatype, settings):
+    """ft.FG on the mesh demo MESH_DEMOS[name] with ``settings`` applied,
+    its solver built."""
+    import fibergen_tpu_torch as ft
+    path, kv = MESH_DEMOS[name]
+    f = ft.FG(os.path.join(DEMO_DIR, path, "project.xml"), device=device)
+    f.set("datatype", datatype)
+    for k, v in dict(kv, **settings).items():
+        f.set(k, v)
+    f._init_python()
+    f.init_lss()
+    return f
+
+
+def rel_max(x, y):
+    """max |x - y| / max |y| of two arrays."""
+    import numpy as np
+    x, y = np.asarray(x, dtype=np.float64), np.asarray(y, dtype=np.float64)
+    return float(np.abs(x - y).max() / np.abs(y).max())
+
+
 def sync_all():
     import torch
     for i in range(torch.cuda.device_count()):
@@ -1995,6 +2423,9 @@ def main():
     # ---- phase 11: the XML front end
     front_end(run_counted, path_launches)
 
+    # ---- phase 12: meshes and file I/O
+    meshes_and_io(run_counted, path_launches, card)
+
     # ---- phase 7: launches and per-kernel numbers.  The per-kernel list
     # takes the key "kernels"; the launch counts of each path's timed 256^3
     # float32 solve print on their own line as "kernel_launches".  A mode's
@@ -2062,17 +2493,22 @@ def main():
              ("g0_staggered_chain_slab[hyper]", "g0_staggered_chain_slab",
               "hyperelasticity [sharded]", ch, f"{pc_}:470")]
     more_paths = {
-        "stress_div_beta": ("elasticity-reuss", "fg-hashin"),
-        "eps_from_u_dot": ("elasticity-reuss", "fg-hashin"),
+        "stress_div_beta": ("elasticity-reuss", "fg-hashin",
+                            "fg-digital-rocks"),
+        "eps_from_u_dot": ("elasticity-reuss", "fg-hashin",
+                           "fg-digital-rocks"),
         "g0_staggered_chain": ("elasticity-general", "elasticity-tiso-field",
                                "elasticity-reuss",
                                "elasticity-full-staggered",
                                "elasticity-laminate", "viscosity-generic",
                                "viscosity-lambda", "viscosity-fluidity",
                                "viscosity-nunan-keller", "fg-hashin",
-                               "fg-transverse-isotropy", "fg-nunan-keller"),
+                               "fg-transverse-isotropy", "fg-nunan-keller",
+                               "fg-digital-rocks", "fg-tetmesh",
+                               "recover-elasticity", "recover-viscosity"),
         "g0_staggered_heat_chain": ("heat-aniso", "heat-laminate",
-                                    "fg-heat"),
+                                    "fg-heat", "fg-stl", "recover-heat",
+                                    "recover-viscosity"),
         "gamma_collocated_chain": ("elasticity-general-collocated",
                                    "elasticity-laminate-collocated"),
         "gamma_collocated_chain[heat]": ("heat-aniso-collocated",),

@@ -22,10 +22,12 @@ on the linear paths, polarization, and Newton-Krylov, for Voigt mixtures
 of isotropic or hyperelastic phases.
 
 ``FG`` is the XML front end (``api.py``): it reads a project, evaluates its
-Python expressions, generates or places the fibres on the host, voxelizes
-them into phase fields on the solver's device (``geometry/``), builds the
-solver and runs the project's actions (load cases, effective properties);
-``python -m fibergen_tpu_torch.cli project.xml`` runs a project.
+Python expressions, generates or places the fibres and mesh primitives on
+the host, voxelizes them into phase fields on the solver's device
+(``geometry/``), builds the solver and runs the project's actions (load
+cases, effective properties, the raw, VTK, PNG and text readers and
+writers of ``io/``, fibre detection, checkpoints); ``python -m
+fibergen_tpu_torch.cli project.xml`` runs a project.
 """
 from . import api, convert, parallel
 from .api import FG, isotropic_laminate_stiffness

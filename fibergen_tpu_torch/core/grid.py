@@ -54,6 +54,11 @@ class Grid:
         return (self.nx, self.ny, self.nzc)
 
     @property
+    def spacing(self):
+        """Voxel edge lengths (dx/nx, dy/ny, dz/nz)."""
+        return (self.dx / self.nx, self.dy / self.ny, self.dz / self.nz)
+
+    @property
     def nxyz(self):
         return self.nx * self.ny * self.nz
 

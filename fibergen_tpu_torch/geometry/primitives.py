@@ -1,5 +1,4 @@
-"""Geometric fibre primitives (port of fibergen_tpu/geometry/primitives.py,
-up to its mesh primitives).
+"""Geometric fibre primitives (port of fibergen_tpu/geometry/primitives.py).
 
 Host-side dataclasses describing the fibres, used by the sequential RSA
 generator, and their packing into parameter arrays for the voxelizer
@@ -9,9 +8,10 @@ Fiber class hierarchy (fibergen.cpp:3011-5642).
 
 Conventions: signed distance < 0 inside the fibre; ``axis`` is a unit
 vector; the capsule/cylinder length L is that of the core segment (total
-capsule length L + 2R).  The mesh primitives (Triangle, Tetrahedron,
-TriangleSurface, TetMesh, Point) are not ported yet (ROADMAP.md, Queue 1
-item 6).
+capsule length L + 2R).  The mesh primitives (Triangle, Tetrahedron with
+its outward face planes, TriangleSurface, TetMesh, Point) are host numpy
+here as in the JAX package; the voxelizer evaluates them in PyTorch on the
+solver's device.
 """
 from __future__ import annotations
 
@@ -281,3 +281,214 @@ def pack_fibers(fibers: List[Fiber]) -> Optional[PackedFibers]:
         flat=np.array([isinstance(f, Cylinder) for f in caps]),
         ids=np.array([f.fiber_id for f in caps], dtype=np.int32),
     )
+
+
+# ---------------------------------------------------------------------------
+# Mesh-based primitives (triangle / tetrahedron / surfaces)
+# ---------------------------------------------------------------------------
+
+def _np_point_triangle(p, v0, v1, v2):
+    """Distance from points p (..., 3) to one triangle (numpy, host): the
+    smaller of the distance to the plane's foot point, where that lies in
+    the triangle, and the distances to the three edges.  (The JAX
+    package's copy clamps the barycentric coordinates one by one, so its
+    interior candidate may lie outside the triangle and the distance come
+    out too small.)"""
+    p = np.asarray(p, dtype=np.float64)
+    ab = v1 - v0
+    ac = v2 - v0
+    ap = p - v0
+    d1 = ap @ ab
+    d2 = ap @ ac
+    aa, bb, cc = float(ab @ ab), float(ab @ ac), float(ac @ ac)
+    det = aa * cc - bb * bb
+
+    def seg(a, b):
+        t = np.clip(((p - a) @ (b - a))
+                    / max(float((b - a) @ (b - a)), 1e-300), 0, 1)
+        return np.linalg.norm(p - (a + t[..., None] * (b - a)), axis=-1)
+
+    d = np.minimum(np.minimum(seg(v0, v1), seg(v1, v2)), seg(v0, v2))
+    if det > 1e-300:
+        v = (cc * d1 - bb * d2) / det
+        w = (aa * d2 - bb * d1) / det
+        inside = (v >= 0) & (w >= 0) & (v + w <= 1)
+        q = v0 + v[..., None] * ab + w[..., None] * ac
+        d = np.where(inside, np.minimum(d, np.linalg.norm(p - q, axis=-1)),
+                     d)
+    return d
+
+
+@dataclasses.dataclass
+class Triangle(Fiber):
+    """Thin triangular sheet (TriangleFiber, fibergen.cpp:4417)."""
+
+    v0: np.ndarray = None
+    v1: np.ndarray = None
+    v2: np.ndarray = None
+
+    def volume(self):
+        return 0.0
+
+    def orientation(self):
+        n = np.cross(self.v1 - self.v0, self.v2 - self.v0)
+        return n / max(np.linalg.norm(n), 1e-300)
+
+    def distance(self, p):
+        return _np_point_triangle(p, self.v0, self.v1, self.v2)
+
+    def translated(self, t):
+        t = np.asarray(t)
+        return Triangle(material=self.material, fiber_id=self.fiber_id,
+                        v0=self.v0 + t, v1=self.v1 + t, v2=self.v2 + t)
+
+    def bbox(self):
+        V = np.stack([self.v0, self.v1, self.v2])
+        return V.min(0), V.max(0)
+
+
+@dataclasses.dataclass
+class Tetrahedron(Fiber):
+    """Solid tetrahedron (TetrahedronFiber, fibergen.cpp:3988); signed
+    distance via the max of the four outward face-plane distances (exact
+    inside; slightly conservative outside edges)."""
+
+    verts: np.ndarray = None  # (4, 3)
+
+    def __post_init__(self):
+        if self.verts is not None:
+            self.verts = np.asarray(self.verts, dtype=np.float64)
+            self._faces = self._face_planes(self.verts)
+
+    @staticmethod
+    def _face_planes(V):
+        faces = [(1, 2, 3, 0), (0, 3, 2, 1), (0, 1, 3, 2), (0, 2, 1, 3)]
+        planes = []
+        for a, b, c, opp in faces:
+            n = np.cross(V[b] - V[a], V[c] - V[a])
+            nn = np.linalg.norm(n)
+            if nn < 1e-300:
+                continue
+            n = n / nn
+            if (V[opp] - V[a]) @ n > 0:
+                n = -n  # ensure outward
+            planes.append((n, V[a]))
+        return planes
+
+    def volume(self):
+        V = self.verts
+        return abs(np.linalg.det(V[1:] - V[0])) / 6.0
+
+    def distance(self, p):
+        p = np.asarray(p, dtype=np.float64)
+        d = None
+        for n, a in self._faces:
+            dk = (p - a) @ n
+            d = dk if d is None else np.maximum(d, dk)
+        return d
+
+    def translated(self, t):
+        return Tetrahedron(material=self.material, fiber_id=self.fiber_id,
+                           verts=self.verts + np.asarray(t))
+
+    def bbox(self):
+        return self.verts.min(0), self.verts.max(0)
+
+
+@dataclasses.dataclass
+class TriangleSurface(Fiber):
+    """Closed triangle-mesh surface (STL) filled solid
+    (STLFiber, fibergen.cpp:4973): signed distance = unsigned distance to
+    the closest triangle, sign from that triangle's outward normal."""
+
+    V0: np.ndarray = None  # (n, 3)
+    V1: np.ndarray = None
+    V2: np.ndarray = None
+    fill: bool = True
+
+    def __post_init__(self):
+        for k in ("V0", "V1", "V2"):
+            setattr(self, k, np.asarray(getattr(self, k), dtype=np.float64))
+        n = np.cross(self.V1 - self.V0, self.V2 - self.V0)
+        self.normals = n / np.maximum(
+            np.linalg.norm(n, axis=-1, keepdims=True), 1e-300)
+
+    def volume(self):
+        # divergence theorem over the closed surface
+        cross = np.cross(self.V1 - self.V0, self.V2 - self.V0)
+        return abs((self.V0 * cross).sum() / 6.0)
+
+    def distance(self, p):
+        p = np.atleast_2d(np.asarray(p, dtype=np.float64))
+        best = np.full(p.shape[0], np.inf)
+        sign = np.ones(p.shape[0])
+        for i in range(self.V0.shape[0]):
+            d = _np_point_triangle(p, self.V0[i], self.V1[i], self.V2[i])
+            m = d < best
+            best = np.where(m, d, best)
+            s = np.sign(((p - self.V0[i]) @ self.normals[i]))
+            sign = np.where(m, np.where(s == 0, 1.0, s), sign)
+        out = best * sign if self.fill else best
+        return out[0] if out.shape[0] == 1 else out
+
+    def translated(self, t):
+        t = np.asarray(t)
+        return TriangleSurface(material=self.material, fiber_id=self.fiber_id,
+                               V0=self.V0 + t, V1=self.V1 + t, V2=self.V2 + t,
+                               fill=self.fill)
+
+    def bbox(self):
+        V = np.concatenate([self.V0, self.V1, self.V2])
+        return V.min(0), V.max(0)
+
+
+@dataclasses.dataclass
+class TetMesh(Fiber):
+    """Filled tetrahedral mesh (TetFiber hierarchy, fibergen.cpp:4668-4971)."""
+
+    points: np.ndarray = None  # (n, 3)
+    tets: np.ndarray = None    # (m, 4) int
+
+    def volume(self):
+        P, T = self.points, self.tets
+        a = P[T[:, 1]] - P[T[:, 0]]
+        b = P[T[:, 2]] - P[T[:, 0]]
+        c = P[T[:, 3]] - P[T[:, 0]]
+        return float(np.abs(np.einsum("ij,ij->i", a, np.cross(b, c))).sum() / 6.0)
+
+    def distance(self, p):
+        d = None
+        for t in self.tets:
+            tet = Tetrahedron(verts=self.points[t])
+            dk = tet.distance(p)
+            d = dk if d is None else np.minimum(d, dk)
+        return d
+
+    def translated(self, t):
+        return TetMesh(material=self.material, fiber_id=self.fiber_id,
+                       points=self.points + np.asarray(t), tets=self.tets)
+
+    def bbox(self):
+        return self.points.min(0), self.points.max(0)
+
+
+@dataclasses.dataclass
+class Point(Fiber):
+    """Point marker (PointFiber, fibergen.cpp:5125): zero-volume sphere used
+    for distance maps and seeding."""
+
+    center: np.ndarray = None
+
+    def volume(self):
+        return 0.0
+
+    def distance(self, p):
+        d = np.asarray(p, dtype=np.float64) - self.center
+        return np.sqrt((d * d).sum(-1))
+
+    def translated(self, t):
+        return Point(material=self.material, fiber_id=self.fiber_id,
+                     center=self.center + np.asarray(t))
+
+    def bbox(self):
+        return self.center.copy(), self.center.copy()

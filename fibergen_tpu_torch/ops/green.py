@@ -4,7 +4,7 @@ strain, fibergen.cpp:19768-19774, and the scalar heat form,
 fibergen.cpp:19778-19830) with the modified wavenumbers k+, and the
 collocated Gamma (GammaOperatorFourierCollocated, its heat form and its
 finite-strain form, fibergen.cpp:19302-19745) with the continuous
-wavenumbers xi.
+wavenumbers xi, and the periodic Poisson solve of the viscosity pressure.
 
 The hat-space operators are plain PyTorch; the ``*_fused`` entry points
 take real-space fields and dispatch to the chain kernels of
@@ -212,3 +212,14 @@ def gamma_collocated_hyper_fused(grid, E, mu_0, lambda_0, tau, alpha=-1.0,
             par, grid, tau, A, B, E, beta)
     return spectral_kernels.gamma_collocated_hyper_chain(grid, tau, A, B, E,
                                                          beta)
+
+
+def poisson_solve(grid, f):
+    """p with Laplace(p) = f and zero mean on the periodic grid
+    (LSSolver::poisson_solve, fibergen.cpp:23454-23500), ``f`` a real (1,
+    nx, ny, nz) field: the 7-point Laplacian's symbol is
+    sum_a 2 (cos(2 pi f_a / n_a) - 1) (n_a / d_a)^2 = -|k+|^2 of the
+    staggered tables, so p = ifftn(-fftn(f) / |k+|^2), the DC bin zeroed:
+    the K4 chain with c10 = -1 on the card, its plain twin on the CPU."""
+    return spectral_kernels.g0_staggered_heat_chain(grid, f.contiguous(),
+                                                    -1.0)

@@ -40,11 +40,14 @@ the plain apply, ``*_apply_plain``); given CUDA tensors it launches the
 kernel or raises, with the tensors' device current.  ``launches`` counts
 kernel launches only (a slab chain counts each of its per-slab z, middle
 and z-inverse launches); K5 counts every component count (6, 3 and 9)
-under one name, and its slab forms under another.
+under one name, and its slab forms under another.  ``calls`` counts the
+applications of each chain wrapper, by (wrapper, components), on any
+device (LSSolver.get_fft_time reads it).
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -57,6 +60,10 @@ launches = {"g0_staggered_chain": 0, "g0_staggered_heat_chain": 0,
             "g0_staggered_chain_slab": 0, "g0_staggered_heat_chain_slab": 0,
             "gamma_collocated_chain_slab": 0,
             "gamma_collocated_zt_chain_slab": 0}
+
+# applications of each chain (a kernel launch or a plain twin's call), by
+# (wrapper name, components)
+calls: dict = {}
 
 _COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 _SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
@@ -291,6 +298,20 @@ def g0_staggered_heat_chain_plain(grid, f, c10):
                      grid.shape)
 
 
+def _applied(fn):
+    """Count each call of the chain wrapper ``fn`` in ``calls``; the field
+    is its second argument (its third on x-slabs)."""
+    slab = fn.__name__.endswith("_slab")
+
+    @functools.wraps(fn)
+    def wrapper(*args):
+        f = args[2][0] if slab else args[1]
+        key = (fn.__name__, int(f.shape[0]))
+        calls[key] = calls.get(key, 0) + 1
+        return fn(*args)
+    return wrapper
+
+
 def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
@@ -332,6 +353,7 @@ def _chain(fn_name, counter, grid, f, ncomp, tables, consts, ptrs=(),
     return out
 
 
+@_applied
 def g0_staggered_chain(grid, f, c10, c20):
     """K3: u = irfftn(G0 rfftn f) for a real (3, nx, ny, nz) contiguous
     ``f``; returns a new field.  ``c10``/``c20`` are numbers."""
@@ -341,6 +363,7 @@ def g0_staggered_chain(grid, f, c10, c20):
                   staggered_tables(grid, f.dtype, f.device), (c10, c20))
 
 
+@_applied
 def g0_staggered_heat_chain(grid, f, c10):
     """K4: u = irfftn(c10/|k+|^2 rfftn f) for a real (1, nx, ny, nz)
     contiguous ``f``; returns a new field.  ``c10`` is a number."""
@@ -350,6 +373,7 @@ def g0_staggered_heat_chain(grid, f, c10):
                   f, 1, staggered_tables(grid, f.dtype, f.device), (c10,))
 
 
+@_applied
 def gamma_collocated_chain(grid, tau, A, B, E, beta):
     """K5: eta = irfftn(Gamma rfftn tau + beta rfftn tau), DC bin = E, for a
     real contiguous ``tau`` of shape (6, nx, ny, nz) (elasticity: A and B
@@ -368,6 +392,7 @@ def gamma_collocated_chain(grid, tau, A, B, E, beta):
                   (A, B, beta), ptrs=(_vector(E, tau, ncomp),))
 
 
+@_applied
 def gamma_collocated_hyper_chain(grid, tau, A, B, E, beta):
     """K5 at C = 9: eta = irfftn(Gamma rfftn tau + beta rfftn tau), DC bin =
     E (9 values), for a real contiguous (9, nx, ny, nz) deformation-gradient
@@ -382,6 +407,7 @@ def gamma_collocated_hyper_chain(grid, tau, A, B, E, beta):
                   (A, B, beta), ptrs=(_vector(E, tau, 9),))
 
 
+@_applied
 def gamma_collocated_zt_chain(grid, tau, A, B, E, beta):
     """K6: the zero-trace collocated Gamma of a real contiguous traceless
     ``tau`` of shape (6, nx, ny, nz): components 1..5 go through the chain
@@ -574,6 +600,7 @@ def _on_cpu(f):
     return f[0].device.type == "cpu"
 
 
+@_applied
 def g0_staggered_chain_slab(par, grid, f, c10, c20):
     """K3 on the x-slabs of a sharded 3-component force field (parallel.
     fft.SlabPar ``par``); returns new slabs."""
@@ -585,6 +612,7 @@ def g0_staggered_chain_slab(par, grid, f, c10, c20):
                        (c10, c20))
 
 
+@_applied
 def g0_staggered_heat_chain_slab(par, grid, f, c10):
     """K4 on the x-slabs of a sharded 1-component source field."""
     if _on_cpu(f):
@@ -595,6 +623,7 @@ def g0_staggered_heat_chain_slab(par, grid, f, c10):
                        (c10,))
 
 
+@_applied
 def gamma_collocated_chain_slab(par, grid, tau, A, B, E, beta):
     """K5 (C = 6 or 3) on the x-slabs of a sharded field; ``E`` is C values
     or a list of them replicated over the slabs (each on its device)."""
@@ -613,6 +642,7 @@ def gamma_collocated_chain_slab(par, grid, tau, A, B, E, beta):
                        vector=lambda j, like: _slab_vector(E, j, like, ncomp))
 
 
+@_applied
 def gamma_collocated_hyper_chain_slab(par, grid, tau, A, B, E, beta):
     """K5 at C = 9 (the finite-strain collocated Gamma) on the x-slabs of a
     sharded deformation-gradient field; ``E`` is 9 values or a list of them
@@ -629,6 +659,7 @@ def gamma_collocated_hyper_chain_slab(par, grid, tau, A, B, E, beta):
                        vector=lambda j, like: _slab_vector(E, j, like, 9))
 
 
+@_applied
 def gamma_collocated_zt_chain_slab(par, grid, tau, A, B, E, beta):
     """K6 on the x-slabs of a sharded traceless 6-component field: each
     slab's components 1..5 go through the slab chain, then out[0] =

@@ -75,10 +75,10 @@ from ..core import fields, voigt
 from ..core.device import resolve_device, resolve_dtype
 from ..materials import laws
 from ..ops import gamma as gammamod
-from ..ops import green
+from ..ops import green, spectral_kernels
 from ..ops.stencil_kernels import (eps_from_u_dot, eps_from_u_dot_slabs,
                                    stress_div_beta, stress_div_beta_slabs)
-from ..parallel import comm, slabs
+from ..parallel import comm, shard_field, slabs
 from ..parallel.fft import slab_fft_for, slab_reject_reason
 from ..utils.logging import LOG
 from . import bc as bcmod
@@ -241,8 +241,10 @@ class LSSolver:
     test, on the host values of the chunk already read, and ends the solve
     when it returns true; ``loadstep_callback`` is called after each
     loadstep and ends the run, which then returns True, when it returns
-    true; :meth:`cancel` ends the running solve at its next convergence
-    test, and the run returns True."""
+    true; ``loadstep_writer`` (the loadstep's index) is called after each
+    loadstep before it (the solution VTK of <write_loadsteps>);
+    :meth:`cancel` ends the running solve at its next convergence test, and
+    the run returns True."""
 
     def __init__(self, grid, material, options: SolverOptions = None,
                  device=None, sharding=None):
@@ -297,6 +299,9 @@ class LSSolver:
         self.solve_time = 0.0
         self.convergence_callback: Optional[Callable[[], bool]] = None
         self.loadstep_callback: Optional[Callable[[], bool]] = None
+        self.loadstep_writer: Optional[Callable[[int], None]] = None
+        # applications of each spectral chain in the last solve
+        self._chain_calls = {}
         self._canceled = False
         self._diverged = False
         self.newton_iterations = [0, 0]     # outer, inner (hyperelasticity)
@@ -507,10 +512,12 @@ class LSSolver:
         if np.isfinite(self.mu_0) and self._bc is None:
             self._make_bc()
         t0 = time.perf_counter()
+        calls0 = dict(spectral_kernels.calls)
         self._reset_stall()
         failed = self._run_loadstepping(self.E, self.S)
         self._sync()
         self.solve_time = time.perf_counter() - t0
+        self._chain_calls = _since(calls0)
         return failed
 
     def _refuse_mixed(self):
@@ -603,6 +610,10 @@ class LSSolver:
             if self._canceled:
                 LOG.error("loadsteps canceled")
                 return True
+            # the loadstep's solution VTK (performLoadstepActions,
+            # fibergen.cpp:21434-21439)
+            if self.loadstep_writer is not None:
+                self.loadstep_writer(istep)
             if self.loadstep_callback and self.loadstep_callback():
                 LOG.info("Loadstep callback break request.")
                 return True
@@ -876,6 +887,7 @@ class LSSolver:
         self._settle_route()
         self._refuse_refinement()
         t0 = time.perf_counter()
+        calls0 = dict(spectral_kernels.calls)
         Es = np.asarray(Es, dtype=np.float64)
         B = Es.shape[0]
         self.residuals = []
@@ -936,7 +948,91 @@ class LSSolver:
         self.eps = eps_b[-1]
         self._sync()
         self.solve_time = time.perf_counter() - t0
+        self._chain_calls = _since(calls0)
         return bool(self._canceled or self._diverged)
+
+    # ------------------------------------------------------- the FFT time
+    def get_fft_time(self) -> float:
+        """The seconds the last solve (run or run_batched) spent in its
+        spectral chains, estimated (the reference keeps FFTW's seconds,
+        fibergen.cpp:15392-15393): one application of each chain the solve
+        ran (K3, K4, K5, K6 or their kz-slab forms) is timed on a field of
+        the solve's shape, dtype and device, and multiplied by the chain's
+        applications in that solve (``spectral_kernels.calls``).  On the
+        card the application is a kernel launch timed with CUDA events (the
+        mean of three after a warm-up); on the CPU it is the plain twin
+        (``torch.fft`` around the apply) on the host clock.  A chain holds
+        the transforms and the spectral apply together: its time is both."""
+        return sum(n * self._chain_seconds(name, ncomp)
+                   for (name, ncomp), n in self._chain_calls.items())
+
+    def _chain_seconds(self, name, ncomp, reps=3):
+        """Seconds of one application of the chain wrapper ``name`` on an
+        ``ncomp``-component field of the solve's layout."""
+        fn = getattr(spectral_kernels, name)
+        gen = torch.Generator().manual_seed(0)
+        f = torch.randn((ncomp,) + self.grid.shape, generator=gen,
+                        dtype=self.dtype).to(self.device)
+        args = (self.grid, f)
+        if self.par is not None:
+            args = (self.par, self.grid, shard_field(f, self.sharding.mesh))
+        if "gamma" in name:
+            E = torch.zeros(ncomp, dtype=self.dtype, device=self.device)
+            if self.par is not None:
+                E = comm.replicate(E, self.par.devices)
+            consts = (0.5, -0.25, E, 0.0)
+        else:
+            consts = (-1.0,) if "heat" in name else (-1.0, -0.5)
+        run = lambda: fn(*args, *consts)
+        run()                                   # warm-up (and the build)
+        if self.device.type == "cuda":
+            self._sync()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(reps):
+                run()
+            b.record()
+            b.synchronize()
+            return a.elapsed_time(b) / 1e3 / reps
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            run()
+        return (time.perf_counter() - t0) / reps
+
+    # ---------------------------------------------------------- checkpoint
+    def save_state(self, path: str):
+        """Checkpoint the solver state (the field, the BCs and the reference
+        material) in the JAX package's ``.npz`` keys, so that either package
+        loads the other's."""
+        eps = np.zeros(0) if self.eps is None else \
+            slabs.whole(self.eps, "cpu").numpy()
+        np.savez_compressed(
+            path if path.endswith(".npz") else path + ".npz",
+            eps=eps, E=self.E, S=self.S, P=self.P,
+            mu_0=self.mu_0, lambda_0=self.lambda_0,
+            residuals=np.asarray(self.residuals, dtype=np.float64),
+            mode=np.array(self.mode), scheme=np.array(self.scheme))
+
+    def load_state(self, path: str):
+        """Resume from a checkpoint of :meth:`save_state` (of either
+        package); a checkpoint of another mode raises."""
+        d = np.load(path if path.endswith(".npz") else path + ".npz",
+                    allow_pickle=False)
+        if str(d["mode"]) != self.mode:
+            raise SolverError(
+                f"checkpoint mode '{d['mode']}' != solver mode '{self.mode}'")
+        if d["eps"].size:
+            eps = torch.as_tensor(d["eps"], dtype=self.dtype,
+                                  device=self.device)
+            self.eps = eps if self.par is None else \
+                shard_field(eps, self.sharding.mesh)
+        self.E, self.S, self.P = d["E"], d["S"], d["P"]
+        self.mu_0 = float(d["mu_0"])
+        self.lambda_0 = float(d["lambda_0"])
+        self.residuals = [float(v) for v in d["residuals"]]
+        if np.isfinite(self.mu_0):
+            self._make_bc()
 
     def calc_mean_stress_batched(self):
         """(B, dim) mean stresses of the last run_batched."""
@@ -1060,6 +1156,13 @@ class LSSolver:
         err_S = voigt.norm_2(Q_S - self._current_S) / (
             1.0 if norm_S < self.opt.bc_tol else norm_S)
         return float(max(err_F, err_S))
+
+
+def _since(calls0):
+    """The chain applications counted since the snapshot ``calls0``."""
+    return {k: v - calls0.get(k, 0)
+            for k, v in spectral_kernels.calls.items()
+            if v > calls0.get(k, 0)}
 
 
 # ------------------------------------------------------ extrapolation

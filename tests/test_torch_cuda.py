@@ -939,3 +939,157 @@ def test_cuda_voxelization_matches_cpu(cuda):
     for k in gc:
         np.testing.assert_allclose(gg[k].cpu().numpy(), gc[k].numpy(),
                                    rtol=0, atol=1e-12, err_msg=k)
+
+
+# mode -> (the recovery's kernels on the card, its fields)
+RECOVERY = {"elasticity": ({"g0_staggered_chain": 1}, ("u",)),
+            "heat": ({"g0_staggered_heat_chain": 1}, ("T",)),
+            "viscosity": ({"g0_staggered_chain": 1,
+                           "g0_staggered_heat_chain": 1}, ("u", "p"))}
+
+
+def _sphere_fg(mode, dtype, device, n=20):
+    """FG on a solved two-phase sphere RVE of ``mode`` (the recovery reads
+    its solver only)."""
+    from fibergen_tpu_torch import convert
+    x = (np.arange(n) + 0.5) / n - 0.5
+    phi = ((x[:, None, None] ** 2 + x[None, :, None] ** 2
+            + x[None, None, :] ** 2) < 0.09).astype(dtype)
+    if mode == "elasticity":
+        ph = [("f", 10.0, 5.0, phi), ("m", 1.0, 1.0, 1 - phi)]
+        mat = convert.material_from_numpy(ph, device=device)
+        E = [1.0, 0, 0, 0, 0.3, 0]
+    else:
+        dim = 3 if mode == "heat" else 6
+        ph = [("f", 10.0 if dim == 3 else 0.1, phi), ("m", 1.0, 1 - phi)]
+        mat = convert.material_from_numpy(ph, dim=dim, law="scalar",
+                                          device=device)
+        E = [1.0, 0.2, 0] if dim == 3 else [0, 0, 0, 0, 1.0, 0]
+    s = ft.LSSolver(Grid(n, n, n), mat, ft.SolverOptions(
+        mode=mode, tol=1e-8 if dtype == "float64" else 1e-6, dtype=dtype),
+        device=device)
+    s.set_strain(E)
+    assert not s.run()
+    f = ft.FG(device=device)
+    f.solver = s
+    return f
+
+
+@pytest.mark.parametrize("mode", sorted(RECOVERY))
+def test_cuda_recovery_launches_and_matches_twins(cuda, mode):
+    """The displacement, temperature and viscosity velocity and pressure
+    recovered on the card: one K3 (u), one K4 (T), one K3 and one K4
+    (velocity, pressure), within 1e-12 of the plain twins on the card and
+    of the CPU's recovery of the same field in float64."""
+    kernels, names = RECOVERY[mode]
+    f = _sphere_fg(mode, "float64", "cuda")
+    rec = (f._viscosity_velocity_pressure if mode == "viscosity"
+           else lambda: (f._displacement_field(),))
+    before = dict(stencil_kernels.launches, **spectral_kernels.launches)
+    out = rec()
+    torch.cuda.synchronize()
+    after = dict(stencil_kernels.launches, **spectral_kernels.launches)
+    assert _launched(before, after) == kernels
+    saved = (spectral_kernels.g0_staggered_chain,
+             spectral_kernels.g0_staggered_heat_chain)
+    spectral_kernels.g0_staggered_chain = \
+        spectral_kernels.g0_staggered_chain_plain
+    spectral_kernels.g0_staggered_heat_chain = \
+        spectral_kernels.g0_staggered_heat_chain_plain
+    try:
+        ref = rec()
+    finally:
+        (spectral_kernels.g0_staggered_chain,
+         spectral_kernels.g0_staggered_heat_chain) = saved
+    c = _sphere_fg(mode, "float64", "cpu")
+    host = (c._viscosity_velocity_pressure() if mode == "viscosity"
+            else (c._displacement_field(),))
+    for name, o, r, h in zip(names, out, ref, host):
+        assert o.device.type == "cuda"
+        assert _rel(o, r) <= 1e-12, name
+        assert _rel(o, h) <= 1e-10, name
+
+
+def test_cuda_solution_vtk_round_trip(cuda, tmp_path):
+    """write_vtk_solution on the card, read back: the header, the field
+    names, u equal to get_field("u") and eps_staggered(<eps>, u) = eps."""
+    from fibergen_tpu_torch.io import vtk
+    from fibergen_tpu_torch.ops import staggered
+    f = _sphere_fg("elasticity", "float32", "cuda", n=24)
+    path = str(tmp_path / "s.vtk")
+    f.write_vtk_solution(path)
+    header, records = vtk.read_vtk(path)
+    assert header[2:5] == ["BINARY", "DATASET STRUCTURED_POINTS",
+                           "DIMENSIONS 24 24 24"]
+    names = [n for _, n, _ in records]
+    assert names[:3] == ["phi_f", "phi_m", "epsilon_11"]
+    assert names[-4:] == ["u", "u_0", "u_1", "u_2"]
+    u = {n: a for _, n, a in records}["u"]
+    np.testing.assert_allclose(u, f.get_field("u"), rtol=0,
+                               atol=1e-6 * np.abs(u).max())
+    s = f.solver
+    E = s.eps.mean(dim=(1, 2, 3))
+    err = staggered.eps_staggered(s.grid, E, torch.as_tensor(u, device=cuda)
+                                  ) - s.eps
+    assert float(err.abs().max() / s.eps.abs().max()) <= 1e-5
+
+
+def test_cuda_checkpoint_loads_on_the_cpu(cuda, tmp_path):
+    """A checkpoint of a solve on the card resumed on the CPU: the same
+    field, the same mean stress within 1e-12 and a CPU solve from it
+    taking the card's iterations."""
+    g = _sphere_fg("elasticity", "float64", "cuda").solver
+    path = str(tmp_path / "c.npz")
+    g.save_state(path)
+    c = _sphere_fg("elasticity", "float64", "cpu").solver
+    c.eps = None
+    c.load_state(path)
+    assert c.eps.device.type == "cpu" and c.mu_0 == g.mu_0
+    np.testing.assert_array_equal(c.eps.numpy(), g.eps.cpu().numpy())
+    np.testing.assert_allclose(c.calc_mean_stress(), g.calc_mean_stress(),
+                               rtol=1e-12)
+    assert not c.run()
+    assert len(c.residuals) == len(g.residuals)
+
+
+def test_cuda_mesh_voxelization_matches_cpu(cuda):
+    """A tetrahedron, a tet mesh, a thin triangle and a filled cube
+    surface: phi and the geometry fields on the card within 1e-12 of the
+    CPU in float64, in groups of one primitive and of many."""
+    from fibergen_tpu_torch.geometry import discretize, primitives
+    v = np.array([[x, y, z] for x in (0.3, 0.7) for y in (0.3, 0.7)
+                  for z in (0.3, 0.7)])
+    tris = [(0, 1, 3), (0, 3, 2), (4, 6, 7), (4, 7, 5), (0, 4, 5), (0, 5, 1),
+            (2, 3, 7), (2, 7, 6), (0, 2, 6), (0, 6, 4), (1, 5, 7), (1, 7, 3)]
+    V = np.array([[v[a], v[b], v[c]] for a, b, c in tris])
+    n = np.cross(V[:, 1] - V[:, 0], V[:, 2] - V[:, 0])
+    flip = np.einsum("ij,ij->i", n, V[:, 0] - 0.5) < 0
+    V[flip] = V[flip][:, [0, 2, 1]]
+    fibres = [primitives.TriangleSurface(V0=V[:, 0], V1=V[:, 1], V2=V[:, 2]),
+              primitives.Tetrahedron(verts=np.array(
+                  [[0.05, 0.05, 0.1], [0.5, 0.1, 0.1], [0.1, 0.6, 0.2],
+                   [0.2, 0.2, 0.7]])),
+              primitives.TetMesh(points=np.array(
+                  [[0.6, 0.6, 0.6], [0.95, 0.6, 0.6], [0.6, 0.95, 0.6],
+                   [0.6, 0.6, 0.95], [0.95, 0.95, 0.95]]),
+                  tets=np.array([[0, 1, 2, 3], [1, 2, 3, 4]])),
+              primitives.Triangle(v0=np.array([0.1, 0.8, 0.1]),
+                                  v1=np.array([0.5, 0.9, 0.3]),
+                                  v2=np.array([0.2, 0.7, 0.9]))]
+    for i, f in enumerate(fibres):
+        f.material, f.fiber_id = 1, i + 1
+    g = Grid(17, 13, 11)
+    ref = discretize.phi_field(g, fibres, 2, torch.float64, "cpu")
+    gc = discretize.geometry_fields(g, fibres, torch.float64, "cpu")
+    old = dict(discretize.MESH_VOXELS)
+    for budget in (1, old["cuda"]):
+        discretize.MESH_VOXELS["cuda"] = budget
+        try:
+            got = discretize.phi_field(g, fibres, 2, torch.float64, "cuda")
+            gg = discretize.geometry_fields(g, fibres, torch.float64, "cuda")
+        finally:
+            discretize.MESH_VOXELS.update(old)
+        assert float((got.cpu() - ref).abs().max()) <= 1e-12
+        for k in gc:
+            np.testing.assert_allclose(gg[k].cpu().numpy(), gc[k].numpy(),
+                                       rtol=0, atol=1e-12, err_msg=k)

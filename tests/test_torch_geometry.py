@@ -318,10 +318,21 @@ def test_geometry_fields_match_jax(budget, monkeypatch):
 
 
 def test_mesh_primitives_are_refused():
-    class Triangle(primitives.Fiber):
+    """The mesh primitives were refused before the mesh slice (the test
+    keeps its name); now a tetrahedron is voxelized and its distance field
+    is its own, while a primitive of no known kind adds nothing, as in the
+    JAX package."""
+    tet = primitives.Tetrahedron(verts=np.array(
+        [[0.1, 0.1, 0.1], [0.9, 0.1, 0.1], [0.1, 0.9, 0.1], [0.1, 0.1, 0.9]]))
+    g = ft.Grid(4, 4, 4)
+    assert float(discretize.phi_field(g, [tet]).max()) > 0.5
+    c = (np.arange(4) + 0.5) / 4
+    p = np.stack(np.meshgrid(c, c, c, indexing="ij"), -1)
+    np.testing.assert_allclose(
+        discretize.geometry_fields(g, [tet], torch.float64)["distance"],
+        tet.distance(p), rtol=0, atol=1e-15)
+
+    class Other(primitives.Fiber):
         pass
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        discretize.phi_field(ft.Grid(4, 4, 4), [Triangle()])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        discretize.geometry_fields(ft.Grid(4, 4, 4), [Triangle()])
+    assert float(discretize.phi_field(g, [Other()]).abs().max()) == 0.0
