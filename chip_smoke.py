@@ -7,7 +7,8 @@ Nine paths run on the card (PATHS), six more of general linear
 materials (GENERAL_PATHS, phase 9), eight of the interface rules, the
 doubly-fine grid and the generic staggered Delta path (INTERFACE_PATHS,
 phase 10), four demo projects through the XML front end (FRONT_END,
-phase 11) and the mesh and file I/O projects (phase 12).  Staggered CG: elasticity (K1, K3,
+phase 11), the mesh and file I/O projects (phase 12) and the remaining
+methods and Gamma schemes (METHOD_PATHS, phase 13).  Staggered CG: elasticity (K1, K3,
 K2), heat conduction (the scalar K4 chain; porous flow is the same path)
 and viscosity (K1 tau-sum mode, K3 with the dual constants, K2 Delta mode).
 Collocated: CG in elasticity and heat (the plain stress difference and the
@@ -109,7 +110,17 @@ constants) and collocated (K5 at C = 9).  Phases, each failing loudly:
    32^3 and 128^3, K4; tetmesh at 48 x 48 x 4 and 192 x 192 x 16, K3;
    normals with its write_vtk) with init_phase per primitive; the 32^3
    crop and the stl demo at n = 16 in float64 on the card against the
-   CPU, a checkpoint of the card resumed on the CPU; get_fft_time.
+   CPU, a checkpoint of the card resumed on the CPU; get_fft_time;
+13. the remaining methods and schemes (``remaining_methods``,
+   METHOD_PATHS) at 256^3 float32 on the bench's sphere: nesterov and
+   basic+el on both grids, CG with cg_reinit and with the sigma
+   estimator (K1, K3, K2; K5), Willot in elasticity and viscosity and
+   freq_hack on the collocated grid (torch.fft: no launch), polarization
+   in viscosity (K6); on the hyperelastic bench nl_cg on both grids (K3;
+   K5 at C = 9) and basic (K3), and Newton over the Maximum rule on phase
+   10's partial-volume sphere; each against phase 4's CG or Newton
+   solve of the same cell, then in float64 on the card against the CPU
+   (48^3 linear, 31^3 hyperelastic).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits non-zero before printing any result.
@@ -253,6 +264,26 @@ PATH_KERNELS = {
     "fg-stl": ("g0_staggered_heat_chain",),
     "fg-tetmesh": ("g0_staggered_chain",),
     "fg-normals": (),
+    # phase 13: the remaining methods and schemes (METHOD_PATHS); Willot
+    # and freq_hack run torch.fft, no kernel of the port
+    "elasticity-nesterov": ("stress_div_beta", "eps_from_u_dot",
+                            "g0_staggered_chain"),
+    "elasticity-nesterov-collocated": ("gamma_collocated_chain",),
+    "elasticity-basic-el": ("stress_div_beta", "eps_from_u_dot",
+                            "g0_staggered_chain"),
+    "elasticity-basic-el-collocated": ("gamma_collocated_chain",),
+    "elasticity-cg-reinit": ("stress_div_beta", "eps_from_u_dot",
+                             "g0_staggered_chain"),
+    "elasticity-sigma": ("stress_div_beta", "eps_from_u_dot",
+                         "g0_staggered_chain"),
+    "elasticity-willot": (),
+    "viscosity-willot": (),
+    "elasticity-freq-hack": (),
+    "viscosity-polarization": ("gamma_collocated_zt_chain",),
+    "hyperelasticity-nl-cg": ("g0_staggered_chain",),
+    "hyperelasticity-nl-cg-collocated": ("gamma_collocated_chain",),
+    "hyperelasticity-basic": ("g0_staggered_chain",),
+    "hyperelasticity-maximum": ("g0_staggered_chain",),
 }
 
 # phase 9: the tiso demo's materials (demo/elasticity/transverse_isotropy):
@@ -2034,6 +2065,157 @@ def sync_all():
         torch.cuda.synchronize(i)
 
 
+# phase 13: the remaining methods and schemes.  path -> (mode, gamma_scheme,
+# options, the phase-4 solve it is held to, the limit on the mean stress's
+# max-abs relative difference).  The fixed-point methods (nesterov,
+# basic+el, polarization) and the sigma estimator stop a few 1e-5 away
+# from CG, as phase 4's polarization does; Willot and freq_hack are other
+# discretizations (freq_hack differs at the Nyquist bins only); Maximum
+# runs on phase 10's partial-volume sphere, which it turns into the sharp
+# sphere of phase 4's Newton solve up to the voxels cut in half.  On an
+# even grid the collocated Gamma is not symmetric at the Nyquist bins, and
+# nl_cg's gradient there levels off (near 2e-5 of its first value at 24^3
+# float64): nl_cg stops at 1e-4 (P11 within 2e-5 of Newton's at 48^3
+# float64) and is compared on an odd grid.  The epsilon estimator of the
+# hyperelastic basic scheme weighs the change of F against |F| ~ sqrt(3)
+# and stops it 3 % off at 1e-6; it runs on the sigma estimator.
+_FIXED = dict(error_estimator="epsilon", tol=1e-6, maxiter=4000)
+_CG = dict(error_estimator="residual", tol=1e-6, check_every=8, maxiter=4000)
+METHOD_PATHS = {
+    "elasticity-nesterov": ("elasticity", "staggered",
+                            dict(_FIXED, method="nesterov"), "elasticity",
+                            5e-4),
+    "elasticity-nesterov-collocated": ("elasticity", "collocated",
+                                       dict(_FIXED, method="nesterov"),
+                                       "elasticity-collocated", 5e-4),
+    "elasticity-basic-el": ("elasticity", "staggered",
+                            dict(_FIXED, method="basic+el"), "elasticity",
+                            5e-4),
+    "elasticity-basic-el-collocated": ("elasticity", "collocated",
+                                       dict(_FIXED, method="basic+el"),
+                                       "elasticity-collocated", 5e-4),
+    "elasticity-cg-reinit": ("elasticity", "staggered",
+                             dict(_CG, cg_reinit=8), "elasticity", 1e-5),
+    "elasticity-sigma": ("elasticity", "staggered",
+                         dict(_CG, error_estimator="sigma"), "elasticity",
+                         5e-4),
+    "elasticity-willot": ("elasticity", "willot", _CG, "elasticity", 2e-2),
+    "viscosity-willot": ("viscosity", "willot", _CG, "viscosity", 2e-2),
+    "elasticity-freq-hack": ("elasticity", "collocated",
+                             dict(_CG, freq_hack=True),
+                             "elasticity-collocated", 1e-2),
+    "viscosity-polarization": ("viscosity", "collocated",
+                               dict(_FIXED, method="polarization"),
+                               "viscosity-collocated", 5e-4),
+    "hyperelasticity-nl-cg": ("hyperelasticity", "staggered",
+                              dict(method="nl_cg", tol=1e-4, maxiter=2000),
+                              "hyperelasticity", 5e-4),
+    "hyperelasticity-nl-cg-collocated": (
+        "hyperelasticity", "collocated",
+        dict(method="nl_cg", tol=1e-4, maxiter=2000),
+        "hyperelasticity-collocated", 5e-4),
+    "hyperelasticity-basic": ("hyperelasticity", "staggered",
+                              dict(method="basic", error_estimator="sigma",
+                                   tol=1e-5, maxiter=2000),
+                              "hyperelasticity", 5e-4),
+    "hyperelasticity-maximum": ("hyperelasticity", "staggered",
+                                dict(HYPER_OPT, rule="maximum"),
+                                "hyperelasticity", 5e-3),
+}
+
+
+def method_solver(n, dtype, device, path, **opt):
+    """The bench's RVE (the SVK sphere in hyperelasticity) on ``path`` of
+    METHOD_PATHS at n^3 in ``dtype``; ``opt`` overrides the path's
+    options.  The Maximum path takes phase 10's partial-volume sphere."""
+    import fibergen_tpu_torch as ft
+    mode, scheme, popt, _, _ = METHOD_PATHS[path]
+    o = dict(popt, **opt)
+    rule = o.pop("rule", None)
+    if rule is None:
+        return sphere_solver(n, dtype, device, mode, scheme, **o)
+    c = RVE[mode]
+    phi, _ = smooth_sphere(n, "float32" if dtype == "float32" else "float64")
+    mat = ft.convert.material_from_numpy(
+        [("fiber", *c["fiber"], phi), ("matrix", *c["matrix"], 1.0 - phi)],
+        dim=c["dim"], device=device, law=c["law"], rule=rule)
+    s = ft.LSSolver(ft.Grid(n, n, n), mat, ft.SolverOptions(
+        mode=mode, gamma_scheme=scheme, dtype=dtype, **o), device=device)
+    s.set_strain(c["load"])
+    return s
+
+
+def remaining_methods(run_counted, res32, hyper, path_launches, n=256,
+                      nc=48, nh=31):
+    """Phase 13: the remaining methods and schemes (METHOD_PATHS) at n^3
+    float32, each solve once (its kernels warmed by the earlier phases)
+    with its iterations, wall, peak memory, launches (its path's kernels
+    and no other) and its mean stress against phase 4's solve of the same
+    cell (``res32``; ``hyper``'s Newton P11 in hyperelasticity); then each
+    path in float64 on the card against the CPU: the linear ones at nc^3
+    (tol 1e-8; 1e-6 on the epsilon estimator), the hyperelastic ones at
+    the odd nh^3 at their own tol: the same
+    iterations, histories within 1e-9 relative or 1e-14 absolute (1e-7
+    relative for basic+el, whose step length carries the rounding of its
+    reductions from one iteration to the next), mean stress within
+    1e-10."""
+    import numpy as np
+    import torch
+    t_phase = time.perf_counter()
+    log(f"phase 13: the remaining methods and schemes, {n}^3 float32")
+    for path, (mode, scheme, popt, ref, limit) in METHOD_PATHS.items():
+        s = method_solver(n, "float32", "cuda", path)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fail, got = run_counted(s, f"{n}^3 float32 {path}", path)
+        wall = time.perf_counter() - t0
+        path_launches[path] = got
+        S = s.calc_mean_stress()
+        if mode == "hyperelasticity":
+            S0 = hyper[(ref, "exact")][2]
+            d = abs(float(S[0]) - float(S0[0])) / abs(float(S0[0]))
+            what = f"P11 {S[0]:.6f} vs Newton's {S0[0]:.6f}"
+        else:
+            S0 = res32[ref][1]
+            d = float(np.max(np.abs(S - S0)) / np.max(np.abs(S0)))
+            what = f"mean stress {S.tolist()}"
+        its = len(s.residuals)
+        log(f"  {n}^3 float32 {path}: {its} iterations, wall {wall:.4f} s "
+            f"({1e3 * wall / its:.2f} ms an iteration), peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, {what}; "
+            f"rel diff to phase 4's {ref} {d:.3e} (limit {limit:g})")
+        assert not fail and its < popt.get("maxiter", 4000), path
+        assert np.all(np.isfinite(S)) and d <= limit, (path, d)
+        del s
+        torch.cuda.empty_cache()
+    log(f"  phase 13 at {n}^3 in {time.perf_counter() - t_phase:.1f} s")
+    for path, (mode, _, popt, _, _) in METHOD_PATHS.items():
+        hyper_path = mode == "hyperelasticity"
+        m = nh if hyper_path else nc
+        tol = popt["tol"] if hyper_path else {
+            "residual": 1e-8, "sigma": 1e-8}.get(
+                popt.get("error_estimator"), 1e-6)
+        s_cpu = method_solver(m, "float64", "cpu", path, tol=tol)
+        s_gpu = method_solver(m, "float64", "cuda", path, tol=tol)
+        assert not s_cpu.run()
+        assert not run_counted(s_gpu, f"{m}^3 float64 {path}", path)[0]
+        rc, rg = np.asarray(s_cpu.residuals), np.asarray(s_gpu.residuals)
+        same = len(rc) == len(rg)
+        res_rel = float(np.max(np.abs(rg - rc) / np.abs(rc))) if same \
+            else float("inf")
+        Sc, Sg = s_cpu.calc_mean_stress(), s_gpu.calc_mean_stress()
+        s_rel = float(np.max(np.abs(Sg - Sc)) / np.max(np.abs(Sc)))
+        log(f"  {m}^3 float64 {path}: iterations cpu {len(rc)} cuda "
+            f"{len(rg)}, residual history max rel diff {res_rel:.3e}, mean "
+            f"stress max rel diff {s_rel:.3e}")
+        rtol = 1e-7 if popt.get("method") == "basic+el" else 1e-9
+        assert same, f"{path}: iteration counts differ"
+        assert np.all(np.abs(rg - rc) <= rtol * np.abs(rc) + 1e-14), path
+        assert s_rel <= 1e-10, (path, s_rel)
+        del s_cpu, s_gpu
+    log(f"  phase 13 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2426,6 +2608,9 @@ def main():
     # ---- phase 12: meshes and file I/O
     meshes_and_io(run_counted, path_launches, card)
 
+    # ---- phase 13: the remaining methods and schemes
+    remaining_methods(run_counted, res32, hyper, path_launches)
+
     # ---- phase 7: launches and per-kernel numbers.  The per-kernel list
     # takes the key "kernels"; the launch counts of each path's timed 256^3
     # float32 solve print on their own line as "kernel_launches".  A mode's
@@ -2492,11 +2677,13 @@ def main():
               "hyperelasticity-collocated [sharded]", ch, f"{pc_}:470"),
              ("g0_staggered_chain_slab[hyper]", "g0_staggered_chain_slab",
               "hyperelasticity [sharded]", ch, f"{pc_}:470")]
+    k1k2_paths = ("elasticity-nesterov", "elasticity-basic-el",
+                  "elasticity-cg-reinit", "elasticity-sigma")
     more_paths = {
         "stress_div_beta": ("elasticity-reuss", "fg-hashin",
-                            "fg-digital-rocks"),
+                            "fg-digital-rocks") + k1k2_paths,
         "eps_from_u_dot": ("elasticity-reuss", "fg-hashin",
-                           "fg-digital-rocks"),
+                           "fg-digital-rocks") + k1k2_paths,
         "g0_staggered_chain": ("elasticity-general", "elasticity-tiso-field",
                                "elasticity-reuss",
                                "elasticity-full-staggered",
@@ -2505,14 +2692,23 @@ def main():
                                "viscosity-nunan-keller", "fg-hashin",
                                "fg-transverse-isotropy", "fg-nunan-keller",
                                "fg-digital-rocks", "fg-tetmesh",
-                               "recover-elasticity", "recover-viscosity"),
+                               "recover-elasticity", "recover-viscosity")
+        + k1k2_paths,
         "g0_staggered_heat_chain": ("heat-aniso", "heat-laminate",
                                     "fg-heat", "fg-stl", "recover-heat",
                                     "recover-viscosity"),
         "gamma_collocated_chain": ("elasticity-general-collocated",
-                                   "elasticity-laminate-collocated"),
+                                   "elasticity-laminate-collocated",
+                                   "elasticity-nesterov-collocated",
+                                   "elasticity-basic-el-collocated"),
         "gamma_collocated_chain[heat]": ("heat-aniso-collocated",),
-        "gamma_collocated_zt_chain": ("viscosity-fluidity-collocated",)}
+        "gamma_collocated_zt_chain": ("viscosity-fluidity-collocated",
+                                      "viscosity-polarization"),
+        "gamma_collocated_chain[hyper]": (
+            "hyperelasticity-nl-cg-collocated",),
+        "g0_staggered_chain[hyper]": ("hyperelasticity-nl-cg",
+                                      "hyperelasticity-basic",
+                                      "hyperelasticity-maximum")}
     main_nums = dict(main_nums, **slab_nums)
     log(f"total {time.perf_counter() - t_start:.1f} s, the build included")
     kernels = []

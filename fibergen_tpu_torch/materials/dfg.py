@@ -7,7 +7,8 @@ stores the shear components at edge-centred positions, so the phases are
 voxelized at twice the resolution, each Voigt component of the strain is
 prolongated with its own half-voxel shift (nearest with shift), the law is
 evaluated on the fine grid, and the stress is restricted back by a shifted
-8-point average.  Dims 3 and 6.
+8-point average.  Dims 3, 6 and 9 (the deformation gradient's off-diagonal
+components shifted as the matching shears).
 """
 from __future__ import annotations
 
@@ -21,6 +22,9 @@ from .mixing import MixedMaterial
 _SHIFTS = {
     3: [(0, 0, 0)] * 3,
     6: [(0, 0, 0), (0, 0, 0), (0, 0, 0),
+        (0, 1, 1), (1, 0, 1), (1, 1, 0)],
+    9: [(0, 0, 0), (0, 0, 0), (0, 0, 0),
+        (0, 1, 1), (1, 0, 1), (1, 1, 0),
         (0, 1, 1), (1, 0, 1), (1, 1, 0)],
 }
 
@@ -53,9 +57,8 @@ def _restrict_comp(y, shift):
 
 def _check_dim(dim):
     if dim not in _SHIFTS:
-        raise NotImplementedError(
-            f"the doubly-fine grid of dim-{dim} fields is not ported yet "
-            f"(ROADMAP.md, Queue 1 item 5); dims 3 and 6 are")
+        raise ValueError(f"the doubly-fine grid takes dim 3, 6 or 9 fields, "
+                         f"not dim {dim}")
 
 
 def prolong(F):

@@ -23,6 +23,10 @@ K2 directly):
   for elasticity (K5, 6 components) and heat/porous flow (K5, 3);
 * :func:`delta_collocated`: the collocated branch of ``delta_operator``
   (K6, the zero-trace chain with the dual constants);
+* :func:`gamma_willot` and :func:`delta_willot`: Willot's rotated Gamma
+  in elasticity and in the viscosity Delta scheme (``torch.fft`` around
+  the plain apply of ``green.gamma_willot``: the JAX package runs no Pallas
+  kernel there either);
 * :func:`gamma_hyper`: the hyperelasticity branch of ``gamma_operator``
   (div_staggered_hyper -> K3 with the full-gradient constants ->
   eps_staggered_hyper on the staggered grid; K5 at C = 9 on the
@@ -48,7 +52,7 @@ import torch
 from ..core import fields
 from ..parallel import comm, slabs
 from ..solvers.bc import bc_correction
-from . import green, staggered
+from . import fft, green, staggered
 from .stencil_kernels import eps_from_u_dot, stress_div_beta
 
 # the schemes that take the staggered operators: half_staggered and
@@ -152,30 +156,65 @@ def fused_visc(grid, r, p_prev, beta, E, mu_x, lam_x, mu0, lam0):
 
 
 def gamma_collocated(grid, E, mu_0, lambda_0, tau, alpha=-1.0, beta=0.0,
-                     par=None, bc=None):
+                     par=None, bc=None, freq_hack=False):
     """eta = alpha Gamma : tau + beta tau with mean E on the collocated grid
     (gamma_operator, scheme "collocated"): a 6-component ``tau`` takes the
-    elasticity Gamma, a 3-component one the heat/porous Gamma."""
+    elasticity Gamma (symmetrized at the Nyquist bins under
+    ``freq_hack``), a 3-component one the heat/porous Gamma."""
     E = _corrected(E, bc, tau, alpha)
     if slabs.local(tau).shape[0] == 6:
         return green.gamma_collocated_fused(grid, E, mu_0, lambda_0, tau,
-                                            alpha, beta, par=par)
+                                            alpha, beta, freq_hack=freq_hack,
+                                            par=par)
     return green.gamma_collocated_heat_fused(grid, E, mu_0, lambda_0, tau,
                                              alpha, beta, par=par)
 
 
-def delta_collocated(grid, E, mu_0, tau, alpha=-1.0, par=None, bc=None):
+def delta_collocated(grid, E, mu_0, tau, alpha=-1.0, par=None, bc=None,
+                     beta=0.0):
     """Viscosity dual operator on the collocated grid (delta_operator,
     scheme "collocated", fibergen.cpp:19075-19080, 20464-20471): eta =
-    2 alpha mu0v (tau - mu0v Gamma^0 : tau) with mean E, mu0v = 1/(4 mu_0),
-    as the zero-trace collocated Gamma with the dual constants
-    (-1/(4 mu0v), inf) and beta = 2 alpha mu0v.  Under ``bc`` the
-    correction reads the zero-trace reconstruction of mean(tau)."""
+    2 alpha mu0v (tau - mu0v Gamma^0 : tau) + beta tau with mean E,
+    mu0v = 1/(4 mu_0), as the zero-trace collocated Gamma with the dual
+    constants (-1/(4 mu0v), inf) and its beta 2 alpha mu0v + beta.  Under
+    ``bc`` the correction reads the zero-trace reconstruction of
+    mean(tau).  ``beta`` is the Eyre-Milton step's + tau (alpha = -4 mu_0,
+    beta = 1), which the JAX package's delta_operator drops."""
     mu0v = 1.0 / (4.0 * mu_0)
     E = _corrected(E, bc, tau, alpha, mean=_zero_trace_mean)
     return green.gamma_collocated_zt_fused(
         grid, E, -1.0 / (4.0 * mu0v), float("inf"), tau, alpha,
-        2.0 * alpha * mu0v, par=par)
+        2.0 * alpha * mu0v + beta, par=par)
+
+
+def gamma_willot(grid, E, mu_0, lambda_0, tau, alpha=-1.0, beta=0.0,
+                 bc=None):
+    """eta = alpha Gamma_W tau + beta tau with mean E on (6, nx, ny, nz)
+    fields (gamma_operator, mode elasticity, scheme "willot",
+    fibergen_tpu/ops/gamma.py:81-89): ``torch.fft`` around
+    ``green.gamma_willot``; under ``bc`` the DC bin takes E + alpha R with
+    R from the DC bin of the transformed tau."""
+    tau_hat = fft.fftn(tau)
+    E = torch.as_tensor(E, dtype=tau.dtype, device=tau.device)
+    if bc is not None:
+        E = E + alpha * bc_correction(bc, tau_hat[:, 0, 0, 0].real)
+    return fft.ifftn(green.gamma_willot(grid, E, mu_0, lambda_0, tau_hat,
+                                        alpha, beta), grid.shape)
+
+
+def delta_willot(grid, E, mu_0, tau, alpha=-1.0, beta=0.0, bc=None):
+    """Viscosity dual operator with Willot's Gamma (delta_operator, scheme
+    "willot", fibergen_tpu/ops/gamma.py:205-212): eta = 2 alpha mu0v
+    (tau - mu0v Gamma_W^0 : tau) + beta tau with mean E, mu0v =
+    1/(4 mu_0), Gamma_W^0 at the dual constants (-1/(4 mu0v), lambda_0 ->
+    inf)."""
+    mu0v = 1.0 / (4.0 * mu_0)
+    b = 2.0 * alpha * mu0v
+    adj = torch.as_tensor(E, dtype=tau.dtype, device=tau.device) \
+        - b * fields.mean(tau)
+    eta = gamma_willot(grid, adj, -1.0 / (4.0 * mu0v), float("inf"), tau,
+                       alpha, bc=bc)
+    return eta.add_((b + beta) * tau)
 
 
 def gamma_hyper(grid, scheme, E, mu_0, lambda_0, tau, alpha=-1.0, beta=0.0,
@@ -191,8 +230,8 @@ def gamma_hyper(grid, scheme, E, mu_0, lambda_0, tau, alpha=-1.0, beta=0.0,
         return green.gamma_collocated_hyper_fused(grid, E, mu_0, lambda_0,
                                                   tau, alpha, beta, par=par)
     if scheme not in STAGGERED:
-        raise NotImplementedError(f"gamma scheme {scheme!r} is not ported "
-                                  f"in hyperelasticity")
+        raise ValueError(f"Unknown gamma scheme '{scheme}' for mode "
+                         f"'hyperelasticity'")
     if par is None:
         f = staggered.div_staggered_hyper(grid, tau)
         u = green.g0_staggered_hyper_fused(grid, mu_0, lambda_0, f, alpha)

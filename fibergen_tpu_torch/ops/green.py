@@ -8,18 +8,23 @@ wavenumbers xi, and the periodic Poisson solve of the viscosity pressure.
 
 The hat-space operators are plain PyTorch; the ``*_fused`` entry points
 take real-space fields and dispatch to the chain kernels of
-``spectral_kernels`` (their plain twins on the CPU).  With ``par`` (a
+``spectral_kernels`` (their plain twins on the CPU).  Two operators run no
+chain, as in the JAX package, which takes XLA's FFT for them outside its
+Pallas kernels: Willot's rotated Gamma (:func:`gamma_willot`) and the
+collocated Gamma with the even-grid Nyquist symmetrization
+(``freq_hack``); both go through ``torch.fft`` on any device.  With ``par`` (a
 parallel.fft.SlabPar) the field is a list of x-slabs and the chain runs on
 them (``*_chain_slab``; green.py:217-236, :336-345, :499-590 of the JAX
 package pass ``par`` the same way)."""
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
+import torch
 
-from . import spectral_kernels
+from . import fft, spectral_kernels
 
-_FREQ_HACK = ("freq_hack (the even-grid Nyquist symmetrization of the "
-              "collocated Gamma) is not ported yet")
 
 
 def g0_constants(mu_0, lambda_0, alpha=-1.0):
@@ -126,12 +131,52 @@ def gamma_collocated(grid, E, mu_0, lambda_0, tau_hat, alpha=-1.0, beta=0.0,
         t_i = tau_ij xi_j,  s = xi . t
         (Gamma tau)_ij = (xi_i t_j + xi_j t_i) / (2 mu0 |xi|^2)
                          - (lam0+mu0)/(mu0(lam0+2mu0)) xi_i xi_j s / |xi|^4
-    """
-    if freq_hack:
-        raise NotImplementedError(_FREQ_HACK)
+
+    ``freq_hack`` is the reference's even-grid Nyquist fix
+    (fibergen.cpp:19396-19398, 19459-19472): at a bin where axes sit on
+    their sign-ambiguous Nyquist frequency, Gamma is the average of the
+    applications over the 2^m sign choices of those components."""
     A, B = collocated_constants(mu_0, lambda_0, alpha)
-    return spectral_kernels.gamma_collocated_apply_plain(
-        tau_hat, _tables_of(grid, tau_hat), A, B, E, beta)
+    tables = _tables_of(grid, tau_hat)
+    if not freq_hack:
+        return spectral_kernels.gamma_collocated_apply_plain(
+            tau_hat, tables, A, B, E, beta)
+    tx, ty, tz = tables
+    xis = (tx.reshape(-1, 1, 1), ty.reshape(-1, 1), tz)
+    ind = torch.zeros(tau_hat.shape[1:], dtype=tx.dtype, device=tx.device)
+    ind[0, 0, 0] = 1.0
+    eta = None
+    combos = _nyquist_sign_combos(grid, xis)
+    for x in combos:
+        k2 = x[0] * x[0] + x[1] * x[1] + x[2] * x[2] + ind
+        part = torch.stack(spectral_kernels._gamma_part(list(tau_hat), x, k2,
+                                                        A, B))
+        eta = part if eta is None else eta + part
+    eta = eta / float(len(combos))
+    if beta != 0.0:
+        eta = eta + beta * tau_hat
+    E = spectral_kernels._vector(E, tx, tau_hat.shape[0])
+    return eta * (1.0 - ind) + E.reshape(-1, 1, 1, 1) * ind
+
+
+def _nyquist_sign_combos(grid, xis):
+    """The sign-flip variants of the wavenumbers ``xis`` over the Nyquist
+    bins of the even axes (the JAX package's ``_nyquist_sign_combos``):
+    2^m tuples for m even axes, ``[xis]`` when no axis is even.  Off the
+    Nyquist bins every variant equals ``xis``."""
+    flips = []
+    for axis, (f, n) in enumerate(zip(grid.freq_index, grid.shape)):
+        if n % 2 == 0:
+            m = torch.as_tensor(np.abs(f) == n // 2, device=xis[0].device)
+            flips.append((axis, m))
+    combos = []
+    for signs in itertools.product((1.0, -1.0), repeat=len(flips)):
+        var = list(xis)
+        for (axis, m), sgn in zip(flips, signs):
+            if sgn < 0:
+                var[axis] = torch.where(m, -var[axis], var[axis])
+        combos.append(tuple(var))
+    return combos
 
 
 def gamma_collocated_heat(grid, E, mu_0, lambda_0, tau_hat, alpha=-1.0,
@@ -150,9 +195,17 @@ def gamma_collocated_fused(grid, E, mu_0, lambda_0, tau, alpha=-1.0,
     """eta = ifftn(gamma_collocated(fftn(tau))) on a real 6-component
     ``tau`` in one dispatch: the K5 chain on the card, its plain twin on the
     CPU.  ``E`` may be a device tensor (it is not read on the host), on
-    x-slabs a list of them, one per slab."""
+    x-slabs a list of them, one per slab.  ``freq_hack`` takes the separate
+    transforms (``torch.fft``) around the symmetrized apply, as the JAX
+    package does; not on x-slabs."""
     if freq_hack:
-        raise NotImplementedError(_FREQ_HACK)
+        if par is not None:
+            raise NotImplementedError(
+                "freq_hack on a sharded mesh is not ported yet (ROADMAP.md, "
+                "Queue 1 item 8)")
+        return fft.ifftn(gamma_collocated(grid, E, mu_0, lambda_0,
+                                          fft.fftn(tau), alpha, beta,
+                                          freq_hack=True), grid.shape)
     A, B = collocated_constants(mu_0, lambda_0, alpha)
     if par is not None:
         return spectral_kernels.gamma_collocated_chain_slab(par, grid, tau, A,
@@ -212,6 +265,106 @@ def gamma_collocated_hyper_fused(grid, E, mu_0, lambda_0, tau, alpha=-1.0,
             par, grid, tau, A, B, E, beta)
     return spectral_kernels.gamma_collocated_hyper_chain(grid, tau, A, B, E,
                                                          beta)
+
+
+# ------------------------------------------------------------- Willot
+_willot_cache: dict = {}
+
+
+def _willot_entries(grid, mu_0, lambda_0, dtype, device):
+    """The 21 upper-triangle entries g(iv, jv), iv <= jv, of Willot's
+    rotated Gamma on the half-spectrum (GammaOperatorFourierWillotR,
+    fibergen.cpp:19083-19299; the JAX package's green.gamma_willot), in
+    the complex type of ``dtype`` on ``device``.  Built in float64 and kept
+    for the last (grid, mu_0, lambda_0, dtype, device): a solve applies the
+    same operator at every iteration."""
+    key = (grid, float(mu_0), None if lambda_0 is None else float(lambda_0),
+           dtype, torch.device(device))
+    hit = _willot_cache.get(key)
+    if hit is not None:
+        return hit
+    _willot_cache.clear()
+    f64, c128 = torch.float64, torch.complex128
+    fx, fy, fz = grid.freq_index
+    qs = [torch.as_tensor(f * (2.0 * np.pi / n), dtype=f64, device=device)
+          for f, n in zip((fx, fy, fz), grid.shape)]
+    w = grid.spacing
+    e012 = 1.0
+    for q in qs:
+        e012 = e012 * (1.0 + torch.exp(1j * q.to(c128)))
+    kv = [(1j * 0.25 / w[a]) * torch.tan(0.5 * qs[a]) * e012
+          for a in range(3)]
+    tiny = float(np.finfo(np.float64).tiny)
+    mag = torch.sqrt(sum(k.abs() ** 2 for k in kv)) + tiny
+    r = [k / mag for k in kv]
+    rc = [x.conj() for x in r]
+    r2 = (r[0] * r[0] + r[1] * r[1] + r[2] * r[2]).abs() ** 2
+    # lambda_0-scaled coefficients (fibergen.cpp:19242-19250); the
+    # lambda_0 -> inf limit (fibergen.cpp:19231-19240)
+    if lambda_0 is None or np.isinf(lambda_0):
+        a1, a2, a3, b1, b2 = 1.0, 1.0, 0.0, 2.0, 1.0
+    else:
+        a1, a2, a3 = lambda_0 + 2.0 * mu_0, lambda_0, -mu_0
+        b1, b2 = 2.0 * (lambda_0 + mu_0), lambda_0
+    den = mu_0 * (b1 - b2 * r2)
+    vi, vj = [0, 1, 2, 1, 0, 0], [0, 1, 2, 2, 2, 1]
+
+    def im(a, b):
+        return (a * b.conj()).imag
+
+    def s_term(i, j, k):
+        # s_jk with row indices (i, j) (fibergen.cpp:19181-19214)
+        if k == j:
+            v = im(r[i], r[k])
+            return 4.0 * v * v
+        return -4.0 * im(r[k], r[j]) * im(r[k], r[i])
+
+    def d(a, b):
+        return 1.0 if a == b else 0.0
+
+    out = {}
+    for iv in range(6):
+        for jv in range(iv, 6):
+            i, j, k, l = vi[iv], vj[iv], vi[jv], vj[jv]
+            A = 0.25 * (r[i] * rc[l] * d(j, k) + r[j] * rc[l] * d(i, k)
+                        + r[i] * rc[k] * d(j, l) + r[j] * rc[k] * d(i, l))
+            B = 0.25 * (r[i] * rc[l] * s_term(i, j, k)
+                        + r[j] * rc[l] * s_term(j, i, k)
+                        + r[i] * rc[k] * s_term(i, j, l)
+                        + r[j] * rc[k] * s_term(j, i, l)) \
+                - (r[i] * rc[j]).real * (r[k] * rc[l]).real
+            C = r[i] * r[j] * rc[k] * rc[l]
+            out[iv, jv] = ((a1 * A + a2 * B + a3 * C) / den).to(
+                spectral_kernels._COMPLEX[dtype])
+    _willot_cache[key] = out
+    return out
+
+
+def gamma_willot(grid, E, mu_0, lambda_0, tau_hat, alpha=-1.0, beta=0.0):
+    """eta_hat = alpha Gamma_W : tau_hat + beta tau_hat with the DC bin = E
+    on 6-component hat fields: Willot's rotated discrete Green operator
+    (GammaOperatorFourierWillotR, fibergen.cpp:19083-19299), plain
+    PyTorch.  The discrete wavevector is
+        kvec_a = i/4 tan(q_a/2) prod_b (1 + e^{i q_b}) / w_a,
+        q_a = 2 pi f_a / n_a,  w_a = d_a / n_a,
+    normalized to r = kvec/|kvec|; ``lambda_0=None`` (or inf) is the
+    lambda_0 -> infinity limit of the viscosity Delta scheme.  The lower
+    triangle of the 6x6 map is the conjugate of the upper one; shear
+    columns weigh 2."""
+    g = _willot_entries(grid, mu_0, lambda_0, tau_hat.real.dtype,
+                        tau_hat.device)
+    outs = []
+    for iv in range(6):
+        acc = 0.0
+        for jv in range(6):
+            gij = g[iv, jv] if iv <= jv else g[jv, iv].conj()
+            acc = acc + (2.0 if jv >= 3 else 1.0) * gij * tau_hat[jv]
+        outs.append(alpha * acc + (beta * tau_hat[iv] if beta != 0.0
+                                   else 0.0))
+    eta = torch.stack(outs)
+    E = spectral_kernels._vector(E, tau_hat.real, 6)
+    eta[:, 0, 0, 0] = E.to(eta.dtype)
+    return eta
 
 
 def poisson_solve(grid, f):

@@ -191,10 +191,17 @@ def test_collocated_constants_are_finite_for_the_dual_scheme():
         A, B = green.collocated_constants(-mu0, float("inf"))
         assert A == 0.5 / mu0 and B == -1.0 / mu0
         assert np.isfinite(np.float32(B)) and np.isfinite(np.float32(A))
-    with pytest.raises(NotImplementedError, match="freq_hack"):
-        green.gamma_collocated_fused(Grid(4, 4, 4), np.zeros(6), 1.0, 0.0,
-                                     torch.zeros((6, 4, 4, 4)),
-                                     freq_hack=True)
+    # freq_hack symmetrizes the Nyquist bins of even axes: a no-op on an
+    # odd grid, a change on an even one (test_torch_methods.py holds it to
+    # the JAX package)
+    tau = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (6, 5, 4, 3)))
+    for g, same in ((Grid(5, 4, 3), False), (Grid(5, 3, 3), True)):
+        t = tau[:, :, :g.ny]
+        a = green.gamma_collocated_fused(g, np.zeros(6), 1.0, 0.0, t,
+                                         freq_hack=True)
+        b = green.gamma_collocated_fused(g, np.zeros(6), 1.0, 0.0, t)
+        assert (_rel(a.numpy(), b.numpy()) <= 1e-14) == same
 
 
 @contextlib.contextmanager

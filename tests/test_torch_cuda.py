@@ -1093,3 +1093,93 @@ def test_cuda_mesh_voxelization_matches_cpu(cuda):
         for k in gc:
             np.testing.assert_allclose(gg[k].cpu().numpy(), gc[k].numpy(),
                                        rtol=0, atol=1e-12, err_msg=k)
+
+
+# the remaining methods and Gamma schemes: case -> (mode, scheme, options,
+# kernels launched).  Willot and freq_hack run torch.fft (no kernel).
+METHOD_CASES = {
+    "nesterov": ("elasticity", "staggered", dict(method="nesterov"),
+                 {"stress_div_beta", "eps_from_u_dot", "g0_staggered_chain"}),
+    "nesterov-collocated": ("elasticity", "collocated",
+                            dict(method="nesterov"),
+                            {"gamma_collocated_chain"}),
+    "basic-el": ("elasticity", "staggered", dict(method="basic+el"),
+                 {"stress_div_beta", "eps_from_u_dot", "g0_staggered_chain"}),
+    "cg-reinit": ("elasticity", "staggered",
+                  dict(cg_reinit=4, error_estimator="residual", tol=1e-8),
+                  {"stress_div_beta", "eps_from_u_dot", "g0_staggered_chain"}),
+    "sigma": ("elasticity", "staggered",
+              dict(error_estimator="sigma", tol=1e-8),
+              {"stress_div_beta", "eps_from_u_dot", "g0_staggered_chain"}),
+    "willot": ("elasticity", "willot",
+               dict(error_estimator="residual", tol=1e-8), set()),
+    "willot-viscosity": ("viscosity", "willot",
+                         dict(error_estimator="residual", tol=1e-8), set()),
+    "freq-hack": ("elasticity", "collocated",
+                  dict(freq_hack=True, error_estimator="residual", tol=1e-8),
+                  set()),
+    "polarization-viscosity": ("viscosity", "collocated",
+                               dict(method="polarization"),
+                               {"gamma_collocated_zt_chain"}),
+    "nl-cg": ("hyperelasticity", "staggered", dict(method="nl_cg"),
+              {"g0_staggered_chain"}),
+    "nl-cg-collocated": ("hyperelasticity", "collocated",
+                         dict(method="nl_cg"), {"gamma_collocated_chain"}),
+    "basic-hyper": ("hyperelasticity", "staggered", dict(method="basic"),
+                    {"g0_staggered_chain"}),
+    "maximum-hyper": ("hyperelasticity", "staggered",
+                      dict(error_estimator="residual",
+                           outer_error_estimator="epsilon", rule="maximum"),
+                      {"g0_staggered_chain"}),
+}
+
+
+def _method_solver(dev, case, n=21):
+    """The bench's sphere (the SVK sphere at F = diag(1.02, 1, 1) in
+    hyperelasticity; Maximum on the partial-volume sphere) on an odd n^3
+    grid, an even one for freq_hack, in float64."""
+    mode, scheme, kw, _ = METHOD_CASES[case]
+    kw = dict(kw)
+    rule = kw.pop("rule", "voigt")
+    if case == "freq-hack":
+        n += 1
+    phi = _smooth_sphere(n)[0] if rule == "maximum" else (
+        _smooth_sphere(n)[0] >= 0.5).astype(np.float64)
+    laws = {"elasticity": ("isotropic", (10.0, 5.0), (1.0, 1.0), 6),
+            "viscosity": ("scalar", (0.1,), (1.0,), 6),
+            "hyperelasticity": ("svk", (10.0, 5.0), (1.0, 1.0), 9)}
+    law, fib, mat_, dim = laws[mode]
+    mat = ft.convert.material_from_numpy(
+        [("fiber", *fib, phi), ("matrix", *mat_, 1.0 - phi)], dim=dim,
+        law=law, device=dev, rule=rule)
+    opt = dict(dict(error_estimator="epsilon", tol=1e-6), **kw)
+    s = ft.LSSolver(Grid(n, n, n), mat, ft.SolverOptions(
+        mode=mode, gamma_scheme=scheme, maxiter=2000, **opt), device=dev)
+    s.set_strain({"elasticity": [1.0, 0, 0, 0, 0, 0],
+                  "viscosity": [0, 0, 0, 0, 1.0, 0],
+                  "hyperelasticity": [1.02, 1, 1, 0, 0, 0, 0, 0, 0]}[mode])
+    return s
+
+
+@pytest.mark.parametrize("case", sorted(METHOD_CASES))
+def test_cuda_method_solve_matches_cpu(cuda, case):
+    """Each remaining method and scheme in float64 on the card against the
+    CPU: the same iterations, histories within 1e-9 relative or 1e-14
+    absolute (1e-7 relative for basic+el, whose step length carries its
+    reductions' rounding on), mean stress within 1e-10; each launches its
+    kernels and no other."""
+    res = {}
+    for dev in ("cpu", "cuda"):
+        s = _method_solver(dev, case)
+        before = dict(stencil_kernels.launches, **spectral_kernels.launches)
+        assert not s.run()
+        after = dict(stencil_kernels.launches, **spectral_kernels.launches)
+        res[dev] = (np.asarray(s.residuals), s.calc_mean_stress(),
+                    set(_launched(before, after)))
+    (rc, Sc, kc), (rg, Sg, kg) = res["cpu"], res["cuda"]
+    assert kc == set() and kg == METHOD_CASES[case][3]
+    assert len(rg) == len(rc)
+    rtol = 1e-7 if case == "basic-el" else 1e-9
+    np.testing.assert_allclose(rg, rc, rtol=rtol, atol=1e-14)
+    np.testing.assert_allclose(Sg, Sc, rtol=0,
+                               atol=1e-10 * np.max(np.abs(Sc)))

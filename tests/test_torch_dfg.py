@@ -150,13 +150,18 @@ def test_dfg_responses_match_jax(material):
 
 def test_refusals():
     phi = np.full(FINE, 0.5)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        dfg.prolong(torch.zeros((9,) + SHAPE))
+    # dim 9 fields take the shears' shifts on their off-diagonal
+    # components (test_torch_hyper_rules.py solves with them)
+    F = torch.as_tensor(np.random.default_rng(2).standard_normal(
+        (9,) + SHAPE))
+    np.testing.assert_array_equal(dfg.restrict(dfg.prolong(F)).numpy(),
+                                  F.numpy())
+    with pytest.raises(ValueError, match="dim 3, 6 or 9"):
+        dfg.prolong(torch.zeros((5,) + SHAPE))
     mat = ft.convert.material_from_numpy(
         [("a", 1.0, 1.0, phi), ("b", 2.0, 1.0, 1.0 - phi)], dim=9,
         law="svk", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        dfg.DfgMaterial(mat)
+    assert dfg.DfgMaterial(mat).dim == 9
     # staggered viscosity on slabs stays refused (Queue 1 item 8)
     from fibergen_tpu_torch import parallel
     _, pmat = _materials("visc", fine=False)

@@ -257,11 +257,16 @@ def test_refusals_of_the_paths_not_ported():
         with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
             ft.LSSolver(ft.Grid(8, 4, 4), ps.mat, ft.SolverOptions(),
                         sharding=parallel.field_sharding(mesh))
-    # hyperelastic phases under a rule other than Voigt
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    # hyperelastic phases: Maximum takes them (test_torch_hyper_rules.py),
+    # Reuss needs isotropic laws, as in the JAX package
+    ft.convert.material_from_numpy(
+        [("a", 1.0, 1.0, _phi()), ("b", 2.0, 1.0, 1.0 - _phi())], dim=9,
+        law="svk", device="cpu", rule="maximum")
+    with pytest.raises(NotImplementedError,
+                       match="reuss mixing needs isotropic laws"):
         ft.convert.material_from_numpy(
             [("a", 1.0, 1.0, _phi()), ("b", 2.0, 1.0, 1.0 - _phi())], dim=9,
-            law="svk", device="cpu", rule="maximum")
+            law="svk", device="cpu", rule="reuss")
 
 
 def test_reference_material_follows_the_material_state():

@@ -529,16 +529,30 @@ def test_hyper_options():
     mat = ft.convert.material_from_numpy(
         [("a", 1.0, 1.0, np.ones((4, 4, 4)))], dim=9, law="svk",
         device="cpu")
-    for kw in ({"method": "basic"}, {"method": "polarization"},
-               {"method": "nl_cg"}, {"gamma_scheme": "willot"}):
-        with pytest.raises(NotImplementedError):
-            ft.LSSolver(ft.Grid(4, 4, 4), mat, ft.SolverOptions(
-                mode="hyperelasticity", **kw), device="cpu")
+    # basic, nesterov, basic+el and nl_cg run in hyperelasticity
+    # (test_torch_hyper_methods.py); polarization stays refused (the
+    # hyperelastic laws have none) and Willot is not a finite-strain
+    # scheme, as in the JAX package
+    for kw in ({"method": "basic"}, {"method": "nesterov"},
+               {"method": "basic+el"}, {"method": "nl_cg"}):
+        ft.LSSolver(ft.Grid(4, 4, 4), mat, ft.SolverOptions(
+            mode="hyperelasticity", **kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="no polarization"):
+        ft.LSSolver(ft.Grid(4, 4, 4), mat, ft.SolverOptions(
+            mode="hyperelasticity", method="polarization"), device="cpu")
+    with pytest.raises(ValueError, match="Unknown gamma scheme 'willot'"):
+        ft.LSSolver(ft.Grid(4, 4, 4), mat, ft.SolverOptions(
+            mode="hyperelasticity", gamma_scheme="willot"), device="cpu")
+    # the sigma estimator runs in the linear modes too: a homogeneous
+    # material converges at once to its stress
     lin = ft.convert.material_from_numpy(
         [("a", 1.0, 1.0, np.ones((4, 4, 4)))], device="cpu")
-    with pytest.raises(NotImplementedError):
-        ft.LSSolver(ft.Grid(4, 4, 4), lin, ft.SolverOptions(
-            error_estimator="sigma"), device="cpu")
+    s = ft.LSSolver(ft.Grid(4, 4, 4), lin, ft.SolverOptions(
+        error_estimator="sigma"), device="cpu")
+    s.set_strain([1.0, 0, 0, 0, 0, 0])
+    assert not s.run()
+    np.testing.assert_allclose(s.calc_mean_stress(), [3.0, 1, 1, 0, 0, 0],
+                               atol=1e-14)
     # the loadstep options run in every mode (one loadstep loop)
     for m, mode in ((lin, "elasticity"), (mat, "hyperelasticity")):
         for kw in ({"loadsteps": 2}, {"first_loadstep": 0},

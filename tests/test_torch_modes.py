@@ -187,8 +187,9 @@ def test_unported_viscosity_variants_raise():
     """Lambda-carrying viscosity laws on the staggered grid take the generic
     Delta path, and the half/full staggered schemes the staggered
     operators (the homogeneous fluid's exact mean stress, the fluidity
-    times the strain); the polarization method in viscosity is not ported
-    yet."""
+    times the strain); the polarization method in viscosity runs
+    (test_torch_methods.py holds it to the collocated CG), here on the
+    homogeneous fluid."""
     phi = np.ones((4, 4, 4))
     iso = ft.convert.material_from_numpy([("a", 1.0, 0.5, phi)],
                                          device="cpu")
@@ -205,9 +206,12 @@ def test_unported_viscosity_variants_raise():
         s.set_strain(E)
         assert not s.run()
         np.testing.assert_allclose(s.calc_mean_stress(), E, atol=1e-14)
-    with pytest.raises(NotImplementedError, match="polarization"):
-        ft.LSSolver(ft.Grid(4, 4, 4), scal, ft.SolverOptions(
-            mode="viscosity", method="polarization"), device="cpu")
+    s = ft.LSSolver(ft.Grid(4, 4, 4), scal, ft.SolverOptions(
+        mode="viscosity", method="polarization"), device="cpu")
+    assert s.scheme == "collocated"
+    s.set_strain(E)
+    assert not s.run()
+    np.testing.assert_allclose(s.calc_mean_stress(), E, atol=1e-14)
     with pytest.raises(ft.solvers.ls.SolverError):
         ft.LSSolver(ft.Grid(4, 4, 4), scal, ft.SolverOptions(mode="heat"),
                     device="cpu")

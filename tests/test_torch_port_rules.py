@@ -76,14 +76,17 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 def test_unported_options_raise():
     mat = ft.convert.material_from_numpy([("a", 1.0, 1.0, np.ones((4, 4, 4)))],
                                          device="cpu")
-    for kw in ({"method": "nesterov"},
-               {"mode": "hyperelasticity", "method": "nl_cg"},
-               {"g0_solver": "multigrid"}, {"gamma_scheme": "willot"},
-               {"freq_hack": True}, {"cg_reinit": 3}, {"use_pallas": "on"},
-               {"error_estimator": "energy"}):
+    for kw in ({"g0_solver": "multigrid"}, {"use_pallas": "on"},
+               {"fft_backend": "matmul"}):
         with pytest.raises(NotImplementedError):
             ft.LSSolver(ft.Grid(4, 4, 4), mat, ft.SolverOptions(**kw),
                         device="cpu")
+    # every method and gamma scheme of the JAX package is ported
+    for kw in ({"method": "nesterov"}, {"method": "basic+el"},
+               {"gamma_scheme": "willot"}, {"freq_hack": True},
+               {"cg_reinit": 3}, {"error_estimator": "energy"}):
+        ft.LSSolver(ft.Grid(4, 4, 4), mat, ft.SolverOptions(**kw),
+                    device="cpu")
     s = ft.LSSolver(ft.Grid(4, 4, 4), mat, ft.SolverOptions(
         dtype="float32", tol=1e-8), device="cpu")
     s.set_strain([1.0, 0, 0, 0, 0, 0])
