@@ -7,8 +7,10 @@ Nine paths run on the card (PATHS), six more of general linear
 materials (GENERAL_PATHS, phase 9), eight of the interface rules, the
 doubly-fine grid and the generic staggered Delta path (INTERFACE_PATHS,
 phase 10), four demo projects through the XML front end (FRONT_END,
-phase 11), the mesh and file I/O projects (phase 12) and the remaining
-methods and Gamma schemes (METHOD_PATHS, phase 13).  Staggered CG: elasticity (K1, K3,
+phase 11), the mesh and file I/O projects (phase 12), the remaining
+methods and Gamma schemes (METHOD_PATHS, phase 13) and mixed-precision
+refinement, the low-memory CG, the multigrid G0 and the sweep harness
+(phase 14).  Staggered CG: elasticity (K1, K3,
 K2), heat conduction (the scalar K4 chain; porous flow is the same path)
 and viscosity (K1 tau-sum mode, K3 with the dual constants, K2 Delta mode).
 Collocated: CG in elasticity and heat (the plain stress difference and the
@@ -120,7 +122,17 @@ constants) and collocated (K5 at C = 9).  Phases, each failing loudly:
    K5 at C = 9) and basic (K3), and Newton over the Maximum rule on phase
    10's partial-volume sphere; each against phase 4's CG or Newton
    solve of the same cell, then in float64 on the card against the CPU
-   (48^3 linear, 31^3 hyperelastic).
+   (48^3 linear, 31^3 hyperelastic);
+14. mixed-precision refinement, the low-memory CG, the multigrid G0 and
+   the sweep harness (``mixed_precision_low_memory``): the bench's sphere
+   at 256^3 float32 refined to 1e-10 on both grids (K1, K3, K2; K5)
+   against a float64 solve on the card, the hashin demo at its shipped
+   tol in float32 through FG against float64, lm6 (K3 alone) at 512^3 in
+   elasticity and viscosity against the plain route with both peaks, lm6
+   on 1024 x 1024 x 512 (which the plain layout cannot hold), the
+   multigrid G0 at 64^3 (no kernel) against the FFT G0, a three-point
+   Experiment sweep, and the new paths in float64 at 32^3 on the card
+   against the CPU.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits non-zero before printing any result.
@@ -284,6 +296,22 @@ PATH_KERNELS = {
     "hyperelasticity-nl-cg-collocated": ("gamma_collocated_chain",),
     "hyperelasticity-basic": ("g0_staggered_chain",),
     "hyperelasticity-maximum": ("g0_staggered_chain",),
+    # phase 14: refinement (its float64 residual runs the same kernels in
+    # their double instances), the low-memory CG (lm6: K3 alone; the
+    # stacked step's init runs the plain K1 / K3 / K2 operator), the
+    # multigrid G0 (no kernel), the sweep harness
+    "elasticity-refined": ("stress_div_beta", "eps_from_u_dot",
+                           "g0_staggered_chain"),
+    "elasticity-collocated-refined": ("gamma_collocated_chain",),
+    "fg-hashin-refined": ("stress_div_beta", "eps_from_u_dot",
+                          "g0_staggered_chain"),
+    "elasticity-lm6": ("g0_staggered_chain",),
+    "viscosity-lm6": ("g0_staggered_chain",),
+    "elasticity-lowmem-stacked": ("stress_div_beta", "eps_from_u_dot",
+                                  "g0_staggered_chain"),
+    "elasticity-multigrid": (),
+    "fg-experiment": ("stress_div_beta", "eps_from_u_dot",
+                      "g0_staggered_chain"),
 }
 
 # phase 9: the tiso demo's materials (demo/elasticity/transverse_isotropy):
@@ -2216,6 +2244,310 @@ def remaining_methods(run_counted, res32, hyper, path_launches, n=256,
     log(f"  phase 13 in {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 14: mixed-precision refinement, the low-memory CG, the multigrid G0
+# and the sweep harness.  REF_OPT: the options of its CG solves; LM6_BIG:
+# the grid the plain layout cannot hold, run on the lm6 route when its
+# reckoned peak stays under LM6_BUDGET bytes; HASHIN_K64: the JAX package's
+# float64 k_eff of the hashin demo at n = 64 (PARITY.md:648-654)
+REF_OPT = dict(error_estimator="residual", check_every=8, maxiter=4000)
+LM6_BIG = (1024, 1024, 512)
+LM6_BUDGET = 72e9
+HASHIN_K64 = 4.306751
+SWEEP_XML = """<settings>
+  <solver n="64">
+    <materials><matrix mu="1" lambda="1" /><fiber mu="10" lambda="5" /></materials>
+    <mode>elasticity</mode><tol>1e-4</tol>
+  </solver>
+  <actions>
+    <select_material name="fiber" />
+    <place_fiber R="0.3" />
+    <run_load_case e11="1" />
+  </actions>
+</settings>"""
+
+
+def box_sphere(shape, dtype):
+    """bench.py's sphere of radius 0.3 in the unit cell on a grid of any
+    ``shape`` (a numpy array)."""
+    import numpy as np
+    a = [((np.arange(n) + 0.5) / n - 0.5) ** 2 for n in shape]
+    return ((a[0][:, None, None] + a[1][None, :, None] + a[2][None, None, :])
+            < 0.09).astype(dtype)
+
+
+def reckoned_gb(grid, route, material_planes, itemsize=4):
+    """The peak of a staggered elasticity CG the code reckons
+    (solvers/lowmem.py): the material's planes and the step's fields."""
+    import math
+    from fibergen_tpu_torch.solvers import lowmem
+    step = lowmem.lm6_solve_bytes(grid, itemsize) if route == "lm6" else \
+        lowmem.plain_solve_bytes(grid, 6, itemsize)
+    return (material_planes * math.prod(grid.shape) * itemsize + step) / 1e9
+
+
+def mixed_precision_low_memory(run_counted, path_launches, n=256, nl=512,
+                               nm=64, nc=32):
+    """Phase 14: refinement, the low-memory CG, the multigrid G0 and the
+    sweep harness on the card, each solve's launches counted (a path
+    launches its kernels and no other):
+
+    a. the bench's sphere at n^3 float32 refined to tol 1e-10 on the
+       staggered (K1, K3, K2) and the collocated grid (K5): sweeps, inner
+       iterations, the final float64 residual, the mean stress within 1e-9
+       of a float64 solve on the card to 1e-11;
+    b. the hashin demo at its shipped tol 1e-10 through ft.FG in float32
+       (refined) against float64: k_eff within 1e-8;
+    c. lm6 (low_mem="on") at nl^3 float32 in elasticity and viscosity (K3
+       alone) against the plain route: iterations within 1, mean stress
+       within 1e-5, a lower peak (torch.cuda.max_memory_allocated), both
+       peaks beside the code's reckoning;
+    d. lm6 on LM6_BIG, which the plain layout cannot hold, where its
+       reckoned peak stays under LM6_BUDGET (K3 first held to its twin on
+       the grid's axis lengths);
+    e. the multigrid G0 (no kernel) at nm^3 float32 against the FFT G0:
+       mean stress within 1e-5;
+    f. a three-point tol sweep of ft.experiment.Experiment on the card,
+       its .dat table printed;
+    g. nc^3 float64 on the card against the CPU: lm6 in elasticity and
+       viscosity, the stacked low-memory step, the multigrid G0 (the same
+       iterations, histories within 1e-9, mean stress within 1e-10), and
+       the float32 refinement (both within 1e-9 of each other)."""
+    import tempfile
+    import types
+    import numpy as np
+    import torch
+    import fibergen_tpu_torch as ft
+    t_phase = time.perf_counter()
+    log(f"phase 14: mixed-precision refinement, the low-memory CG, the "
+        f"multigrid G0, the sweep harness")
+
+    def free():
+        torch.cuda.empty_cache()
+
+    # a. refinement on the sphere
+    for scheme, path in (("staggered", "elasticity-refined"),
+                         ("collocated", "elasticity-collocated-refined")):
+        s64 = sphere_solver(n, "float64", "cuda", scheme=scheme, tol=1e-11,
+                            **REF_OPT)
+        assert not s64.run()
+        S64, its64 = s64.calc_mean_stress(), len(s64.residuals)
+        del s64
+        free()
+        s = sphere_solver(n, "float32", "cuda", scheme=scheme, tol=1e-10,
+                          **REF_OPT)
+        t0 = time.perf_counter()
+        fail, got = run_counted(s, f"{n}^3 float32 {path}", path)
+        wall = time.perf_counter() - t0
+        path_launches[path] = got
+        S = s.calc_mean_stress()
+        r_true = s._refiner.residual(s.eps64, s.E)[1]
+        d = rel_max(S, S64)
+        log(f"  {n}^3 float32 {scheme}, tol 1e-10: "
+            f"{len(s.residuals) - s.refine_sweeps} float32 iterations to "
+            f"1e-6, {s.refine_sweeps} sweeps, {s.refine_inner_iters} inner "
+            f"iterations, wall {wall:.3f} s; final float64 residual "
+            f"sqrt(<r, r>) {r_true:.3e} (|E| 1); mean stress {S.tolist()}, "
+            f"rel diff to the float64 solve to 1e-11 ({its64} iterations) "
+            f"{d:.3e} (limit 1e-9)")
+        for k, (rel, rn, inner) in enumerate(s.refine_log, 1):
+            log(f"    sweep {k}: correction rel {rel:.3e}, float64 residual "
+                f"before it {rn:.3e}, {inner} inner iterations")
+        assert not fail and s.eps64 is not None and s.refine_sweeps >= 1
+        assert s.residuals[-1] <= 1e-10 and d <= 1e-9, (path, d)
+        del s
+        free()
+
+    # b. the hashin demo at its shipped tol, float32 refined against float64
+    ks = {}
+    for dt in ("float", "double"):
+        f = ft.FG(os.path.join(DEMO_DIR, "elasticity/hashin/project.xml"),
+                  device="cuda")
+        f.set("datatype", dt)
+        f._init_python()
+        f.init_lss()
+        t0 = time.perf_counter()
+        fail, got = run_counted(f.solver, f"fg-hashin {dt}",
+                                "fg-hashin-refined", f.run)
+        wall = time.perf_counter() - t0
+        if dt == "float":
+            path_launches["fg-hashin-refined"] = got
+        s = f.solver
+        ks[dt] = np.array(f.get_mean_stress())[:3].sum() / 9.0
+        log(f"  fg-hashin {dt}, tol {s.opt.tol:g}, grid {s.grid.shape}: "
+            f"{len(s.residuals)} entries, {s.refine_sweeps} sweeps, wall "
+            f"{wall:.3f} s, k_eff {ks[dt]:.10f}")
+        assert fail == 0 and (dt == "double" or s.eps64 is not None)
+        del f, s
+        free()
+    d = abs(ks["float"] - ks["double"]) / abs(ks["double"])
+    log(f"  fg-hashin k_eff float32 refined vs float64 rel {d:.3e} (limit "
+        f"1e-8); the JAX package's float64 k_eff at n = 64 {HASHIN_K64} "
+        f"(PARITY.md)")
+    assert d <= 1e-8
+
+    # c. lm6 at nl^3 against the plain route
+    lm6_S = None
+    for mode in ("elasticity", "viscosity"):
+        res = {}
+        for lm in ("off", "on"):
+            path = f"{mode}-lm6" if lm == "on" else mode
+            s = sphere_solver(nl, "float32", "cuda", mode=mode, low_mem=lm,
+                              tol=1e-6, **REF_OPT)
+            free()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            fail, got = run_counted(s, f"{nl}^3 float32 {path}", path)
+            wall = time.perf_counter() - t0
+            if lm == "on":
+                path_launches[path] = got
+                assert s._route == "lm6"
+            res[lm] = (len(s.residuals), s.calc_mean_stress(),
+                       torch.cuda.max_memory_allocated(), wall)
+            assert not fail and s.residuals[-1] <= 1e-6, path
+            del s
+            free()
+        (i0, S0, p0, w0), (i1, S1, p1, w1) = res["off"], res["on"]
+        g = ft.Grid(nl, nl, nl)
+        d = rel_max(S1, S0)
+        log(f"  {nl}^3 float32 {mode}: plain {i0} iterations, wall "
+            f"{w0:.3f} s, peak {p0 / 1e9:.2f} GB (reckoned "
+            f"{reckoned_gb(g, 'plain', 4):.2f}); lm6 {i1} iterations, wall "
+            f"{w1:.3f} s, peak {p1 / 1e9:.2f} GB (reckoned "
+            f"{reckoned_gb(g, 'lm6', 4):.2f}); mean stress rel diff {d:.3e}")
+        assert abs(i1 - i0) <= 1 and d <= 1e-5 and p1 < p0, (mode, d)
+        if mode == "elasticity":
+            lm6_S = S1
+
+    # d. lm6 on a grid the plain layout cannot hold
+    g = ft.Grid(*LM6_BIG)
+    plain_gb, lm6_gb = reckoned_gb(g, "plain", 2), reckoned_gb(g, "lm6", 2)
+    log(f"  {LM6_BIG} float32 (the moduli alone kept): reckoned peak plain "
+        f"{plain_gb:.1f} GB, lm6 {lm6_gb:.1f} GB (budget "
+        f"{LM6_BUDGET / 1e9:.0f} GB, card "
+        f"{torch.cuda.get_device_properties(0).total_memory / 1e9:.1f} GB)")
+    if lm6_gb * 1e9 <= LM6_BUDGET:
+        nx, ny, nz = LM6_BIG
+        for shape in ((nx, 64, 32), (64, ny, 32), (64, 32, nz)):
+            check_kernels(shape, torch.float32, timed=False)
+        free()
+        phi = box_sphere(LM6_BIG, np.float32)
+        mat = ft.convert.material_from_numpy(
+            [("fiber", 10.0, 5.0, phi), ("matrix", 1.0, 1.0, 1.0 - phi)],
+            device="cuda")
+        del phi
+        mat._all_iso()
+        mat.drop_phi()
+        s = ft.LSSolver(g, mat, ft.SolverOptions(
+            low_mem="on", dtype="float32", tol=1e-6, **REF_OPT),
+            device="cuda")
+        s.set_strain([1.0, 0, 0, 0, 0, 0])
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        fail, got = run_counted(s, f"{LM6_BIG} float32 lm6", "elasticity-lm6")
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        S = s.calc_mean_stress()
+        d = rel_max(S, lm6_S)
+        log(f"  {LM6_BIG} float32 lm6: {len(s.residuals)} iterations, wall "
+            f"{wall:.3f} s ({1e3 * wall / len(s.residuals):.1f} ms an "
+            f"iteration), peak {peak / 1e9:.2f} GB, mean stress {S.tolist()}, "
+            f"rel diff to {nl}^3 {d:.3e}")
+        assert not fail and s._route == "lm6" and s.residuals[-1] <= 1e-6
+        assert np.all(np.isfinite(S)) and d <= 2e-2
+        del s, mat
+        free()
+    else:
+        m = nl
+        while reckoned_gb(ft.Grid(m + 64, m + 64, m + 64), "lm6", 2) * 1e9 \
+                <= LM6_BUDGET:
+            m += 64
+        log(f"  not run: the largest m^3 grid (m a multiple of 64) under the "
+            f"budget has m = {m}")
+
+    # e. the multigrid G0 against the FFT G0
+    res = {}
+    for g0 in ("multigrid", "fft"):
+        path = "elasticity-multigrid" if g0 == "multigrid" else "elasticity"
+        s = sphere_solver(nm, "float32", "cuda", g0_solver=g0, tol=1e-6,
+                          **REF_OPT)
+        t0 = time.perf_counter()
+        fail, got = run_counted(s, f"{nm}^3 float32 {g0}", path)
+        res[g0] = (len(s.residuals), s.calc_mean_stress(),
+                   time.perf_counter() - t0)
+        assert not fail, g0
+    d = rel_max(res["multigrid"][1], res["fft"][1])
+    log(f"  {nm}^3 float32 multigrid G0: {res['multigrid'][0]} iterations, "
+        f"wall {res['multigrid'][2]:.3f} s; FFT G0 {res['fft'][0]} "
+        f"iterations, wall {res['fft'][2]:.3f} s; mean stress rel diff "
+        f"{d:.3e} (limit 1e-5)")
+    assert d <= 1e-5
+
+    # f. the sweep harness
+    with tempfile.TemporaryDirectory() as tmp:
+        ex = ft.experiment.Experiment(
+            SWEEP_XML, results_dat=os.path.join(tmp, "sweep.json"),
+            cache_dir=os.path.join(tmp, "cache"), device="cuda")
+        ex.add_param("solver.tol", [1e-3, 1e-5, 1e-7])
+        ex.add_results(["num_iterations", "mean_stress"])
+        t0 = time.perf_counter()
+        rows, got = run_counted(types.SimpleNamespace(par=None),
+                                "experiment sweep", "fg-experiment", ex.run)
+        wall = time.perf_counter() - t0
+        path_launches["fg-experiment"] = got
+        dat = os.path.join(tmp, "sweep.dat")
+        ft.experiment.write_dat(dat, rows)
+        with open(dat) as fh:
+            text = fh.read()
+        log(f"  experiment: {len(rows)} points in {wall:.3f} s, "
+            f"{len(os.listdir(os.path.join(tmp, 'cache')))} cache files; "
+            f"sweep.dat:")
+        for line in text.strip().splitlines():
+            log(f"    {line}")
+        its = [r["num_iterations"] for r in rows]
+        assert len(rows) == 3 and its == sorted(its) and its[0] < its[-1]
+        assert all(np.all(np.isfinite(r["mean_stress"])) for r in rows)
+
+    # g. float64 on the card against the CPU
+    cases = {
+        "elasticity-lm6": dict(low_mem="on", check_every=4),
+        "viscosity-lm6": dict(mode="viscosity", low_mem="on", check_every=4),
+        "elasticity-lowmem-stacked": dict(low_mem="on", check_every=1),
+        "elasticity-multigrid": dict(g0_solver="multigrid", check_every=4),
+    }
+    for path, o in cases.items():
+        kw = dict(dict(error_estimator="residual", tol=1e-8,
+                       maxiter=1000), **o)
+        s_cpu = sphere_solver(nc, "float64", "cpu", **kw)
+        s_gpu = sphere_solver(nc, "float64", "cuda", **kw)
+        assert not s_cpu.run()
+        assert not run_counted(s_gpu, f"{nc}^3 float64 {path}", path)[0]
+        assert s_gpu._route == s_cpu._route
+        rc, rg = np.asarray(s_cpu.residuals), np.asarray(s_gpu.residuals)
+        same = len(rc) == len(rg)
+        res_rel = float(np.max(np.abs(rg - rc) / np.abs(rc))) if same \
+            else float("inf")
+        s_rel = rel_max(s_gpu.calc_mean_stress(), s_cpu.calc_mean_stress())
+        log(f"  {nc}^3 float64 {path}: iterations cpu {len(rc)} cuda "
+            f"{len(rg)}, residual history max rel diff {res_rel:.3e}, mean "
+            f"stress max rel diff {s_rel:.3e}")
+        assert same and res_rel <= 1e-9 and s_rel <= 1e-10, path
+    out = {}
+    for dev in ("cpu", "cuda"):
+        s = sphere_solver(nc, "float32", dev, tol=1e-10, **REF_OPT)
+        if dev == "cuda":
+            assert not run_counted(s, f"{nc}^3 float32 refined",
+                                   "elasticity-refined")[0]
+        else:
+            assert not s.run()
+        out[dev] = (s.refine_sweeps, s.calc_mean_stress())
+    d = rel_max(out["cuda"][1], out["cpu"][1])
+    log(f"  {nc}^3 float32 refined to 1e-10: sweeps cpu {out['cpu'][0]} "
+        f"cuda {out['cuda'][0]}, mean stress rel diff {d:.3e} (limit 1e-9)")
+    assert d <= 1e-9
+    log(f"  phase 14 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2611,6 +2943,10 @@ def main():
     # ---- phase 13: the remaining methods and schemes
     remaining_methods(run_counted, res32, hyper, path_launches)
 
+    # ---- phase 14: refinement, the low-memory CG, the multigrid G0, the
+    # sweep harness
+    mixed_precision_low_memory(run_counted, path_launches)
+
     # ---- phase 7: launches and per-kernel numbers.  The per-kernel list
     # takes the key "kernels"; the launch counts of each path's timed 256^3
     # float32 solve print on their own line as "kernel_launches".  A mode's
@@ -2678,7 +3014,8 @@ def main():
              ("g0_staggered_chain_slab[hyper]", "g0_staggered_chain_slab",
               "hyperelasticity [sharded]", ch, f"{pc_}:470")]
     k1k2_paths = ("elasticity-nesterov", "elasticity-basic-el",
-                  "elasticity-cg-reinit", "elasticity-sigma")
+                  "elasticity-cg-reinit", "elasticity-sigma",
+                  "elasticity-refined", "fg-hashin-refined", "fg-experiment")
     more_paths = {
         "stress_div_beta": ("elasticity-reuss", "fg-hashin",
                             "fg-digital-rocks") + k1k2_paths,
@@ -2692,7 +3029,8 @@ def main():
                                "viscosity-nunan-keller", "fg-hashin",
                                "fg-transverse-isotropy", "fg-nunan-keller",
                                "fg-digital-rocks", "fg-tetmesh",
-                               "recover-elasticity", "recover-viscosity")
+                               "recover-elasticity", "recover-viscosity",
+                               "elasticity-lm6", "viscosity-lm6")
         + k1k2_paths,
         "g0_staggered_heat_chain": ("heat-aniso", "heat-laminate",
                                     "fg-heat", "fg-stl", "recover-heat",
@@ -2700,7 +3038,8 @@ def main():
         "gamma_collocated_chain": ("elasticity-general-collocated",
                                    "elasticity-laminate-collocated",
                                    "elasticity-nesterov-collocated",
-                                   "elasticity-basic-el-collocated"),
+                                   "elasticity-basic-el-collocated",
+                                   "elasticity-collocated-refined"),
         "gamma_collocated_chain[heat]": ("heat-aniso-collocated",),
         "gamma_collocated_zt_chain": ("viscosity-fluidity-collocated",
                                       "viscosity-polarization"),

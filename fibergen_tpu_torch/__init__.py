@@ -27,9 +27,15 @@ the host, voxelizes them into phase fields on the solver's device
 (``geometry/``), builds the solver and runs the project's actions (load
 cases, effective properties, the raw, VTK, PNG and text readers and
 writers of ``io/``, fibre detection, checkpoints); ``python -m
-fibergen_tpu_torch.cli project.xml`` runs a project.
+fibergen_tpu_torch.cli project.xml`` runs a project, and ``experiment``
+sweeps a project's settings over value grids.
+
+A float32 CG below tol 3e-7 ends with mixed-precision refinement
+(``solvers/refine.py``); ``low_mem`` solves grids the plain CG's fields
+would not fit (``solvers/lowmem.py``); ``g0_solver="multigrid"`` applies
+the staggered G0 by multigrid Poisson solves (``solvers/multigrid.py``).
 """
-from . import api, convert, parallel
+from . import api, convert, experiment, parallel
 from .api import FG, isotropic_laminate_stiffness
 from .core.grid import Grid
 from .materials.laws import (GOLDBERG_LAWS, LinearGeneral, LinearIsotropic,
@@ -54,4 +60,5 @@ __all__ = ["Grid", "Phase", "LinearIsotropic", "ScalarLinearIsotropic",
            "FiftyFiftyMixed", "SplitMixed", "IsoMixed", "MIXING_RULES",
            "LaminateMixed", "InfinityLaminateMixed", "FluidityMixed",
            "DfgMaterial", "make_mixed", "SolverOptions", "LSSolver", "api",
-           "convert", "parallel", "FG", "isotropic_laminate_stiffness"]
+           "convert", "experiment", "parallel", "FG",
+           "isotropic_laminate_stiffness"]

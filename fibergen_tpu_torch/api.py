@@ -10,8 +10,9 @@ solved there.  ``<datatype>double</datatype>``, the default, is float64 on
 any device; ``float`` is float32.
 
 The TPU-only solver knobs of a project (``fft_backend``, ``use_pallas``,
-``use_sweep``, ``adaptive_drain``, ``low_mem``, ``use_dim2``) are checked as
-the JAX package checks them and have no effect.  Every action of the JAX
+``use_sweep``, ``adaptive_drain``, ``use_dim2``) are checked as the JAX
+package checks them and have no effect; ``<low_mem>`` goes to the solver
+(solvers/lowmem.py).  Every action of the JAX
 package's FG runs: the mesh primitives (read on the host by
 ``geometry/mesh.py``, voxelized on the device), fibre detection on the host
 (``geometry/detect.py``), the raw, VTK, PNG and text readers and writers
@@ -125,7 +126,6 @@ NOT_PORTED: Dict[str, str] = {}
 _KNOBS = {"use_pallas": ("auto", "on", "off"),
           "use_sweep": ("auto", "on", "off"),
           "adaptive_drain": ("auto", "on", "off"),
-          "low_mem": ("auto", "on", "off"),
           "use_dim2": ("auto", "off"),
           "fft_backend": ("auto", "xla", "matmul")}
 
@@ -334,6 +334,7 @@ class FG:
             refine=sol.value("refine", "auto", str),
             refine_max_sweeps=sol.value("refine_max_sweeps", 10, int),
             refine_inner_tol=sol.value("refine_inner_tol", 1e-5),
+            low_mem=sol.value("low_mem", "auto", str),
             dtype=self._dtype_str(),
         )
         opt.loadsteps = max(1, sol.value("loadsteps", 1, int))

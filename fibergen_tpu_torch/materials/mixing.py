@@ -186,6 +186,8 @@ class MixedMaterial:
         if self._all_iso() is None:
             raise ValueError("drop_phi requires all-isotropic linear phases")
         self._phi_dropped = True
+        # the cache key held the phi tensors: with it they would stay
+        self._iso_key = ()
         for p in self.phases:
             p.phi = None
 

@@ -9,7 +9,8 @@ K2 directly):
   ``gamma_operator`` on the staggered grid for any other material,
   div_staggered -> K3 -> eps_staggered around a stress difference formed
   in PyTorch (the JAX package forms the stencils outside any Pallas
-  kernel there too);
+  kernel there too); with ``g0_solver="multigrid"`` the multigrid
+  Poisson solves of solvers/multigrid.py in place of K3;
 * :func:`gamma_heat_staggered`: the heat/porous branch of
   ``gamma_operator``, div_staggered_heat -> K4 -> eps_staggered_heat;
 * :func:`fused_visc`: the viscosity Delta scheme's staggered branch of
@@ -93,13 +94,21 @@ def stress_diff_mean(x, mu_x, lam_x, mu_0, lambda_0):
     return m + torch.cat([tr.expand(3), tr.new_zeros(x.shape[0] - 3)])
 
 
-def gamma_staggered(grid, E, mu_0, lambda_0, tau, bc=None, alpha=-1.0):
+def gamma_staggered(grid, E, mu_0, lambda_0, tau, bc=None, alpha=-1.0,
+                    g0_solver="fft"):
     """eta = alpha Gamma tau with mean E on (6, nx, ny, nz) fields
     (gamma_operator, mode elasticity, staggered scheme):
     div_staggered -> K3 -> eps_staggered, whose mean E + alpha R carries
-    the correction under ``bc``."""
+    the correction under ``bc``.  ``g0_solver="multigrid"`` applies G0 by
+    the multigrid Poisson solves (solvers/multigrid.py, plain PyTorch)
+    instead of K3, as the JAX package's gamma_operator does
+    (fibergen_tpu/ops/gamma.py:101-103)."""
     f = staggered.div_staggered(grid, tau)
-    u = green.g0_staggered_fused(grid, mu_0, lambda_0, f, alpha)
+    if g0_solver == "multigrid":
+        from ..solvers.multigrid import g0_multigrid_staggered
+        u = g0_multigrid_staggered(grid, mu_0, lambda_0, f, alpha)
+    else:
+        u = green.g0_staggered_fused(grid, mu_0, lambda_0, f, alpha)
     del f
     return staggered.eps_staggered(grid, _corrected(E, bc, tau, alpha), u)
 

@@ -80,6 +80,43 @@ def div_staggered(grid, tau, halo=None):
     ])
 
 
+def eps_staggered_comp(grid, u, c):
+    """Voigt component ``c`` of ``eps_staggered(grid, 0, u)``, without the
+    other five (the low-memory CG reads the gradient one component at a
+    time, so no 6-component field is formed)."""
+    hx, hy, hz = hs(grid)
+    ux, uy, uz = u[0], u[1], u[2]
+    if c == 0:
+        return _dp(ux, 0, hx)
+    if c == 1:
+        return _dp(uy, 1, hy)
+    if c == 2:
+        return _dp(uz, 2, hz)
+    if c == 3:
+        return 0.5 * (_dm(uz, 1, hy) + _dm(uy, 2, hz))
+    if c == 4:
+        return 0.5 * (_dm(uz, 0, hx) + _dm(ux, 2, hz))
+    return 0.5 * (_dm(uy, 0, hx) + _dm(ux, 1, hy))
+
+
+def div_stress_diff_comp(grid, p, two_dmu, ltr, i):
+    """Row ``i`` of ``div_staggered((C(x) - C0) : p)`` for per-voxel
+    isotropic moduli, the 6-component stress never formed: ``two_dmu`` =
+    2 (mu(x) - mu_0), ``ltr`` = (lam(x) - lam_0) tr(p) (0.0 when both
+    lambdas vanish); ``p`` a sequence of six components."""
+    hx, hy, hz = hs(grid)
+
+    def t(c):
+        s = two_dmu * p[c]
+        return s + ltr if c < 3 else s
+
+    if i == 0:
+        return _dm(t(0), 0, hx) + _dp(t(5), 1, hy) + _dp(t(4), 2, hz)
+    if i == 1:
+        return _dp(t(5), 0, hx) + _dm(t(1), 1, hy) + _dp(t(3), 2, hz)
+    return _dp(t(4), 0, hx) + _dp(t(3), 1, hy) + _dm(t(2), 2, hz)
+
+
 def eps_staggered_heat(grid, E, u, halo=None):
     """Staggered gradient of a scalar potential + mean gradient E
     (fibergen.cpp:18697-18758).  u: (1,nx,ny,nz), E: (3,), returns (3,...)."""

@@ -1183,3 +1183,100 @@ def test_cuda_method_solve_matches_cpu(cuda, case):
     np.testing.assert_allclose(rg, rc, rtol=rtol, atol=1e-14)
     np.testing.assert_allclose(Sg, Sc, rtol=0,
                                atol=1e-10 * np.max(np.abs(Sc)))
+
+
+def _sphere_solver(dev, n=24, dtype="float64", mode="elasticity", **opt):
+    """The bench's sphere at n^3 (viscosity: fluidities 0.1 / 1)."""
+    a = ((np.arange(n) + 0.5) / n - 0.5) ** 2
+    phi = ((a[:, None, None] + a[None, :, None] + a[None, None, :])
+           < 0.09).astype(dtype)
+    if mode == "viscosity":
+        rows, kw = [("f", 0.1, phi), ("m", 1.0, 1.0 - phi)], dict(
+            law="scalar")
+    else:
+        rows, kw = [("f", 10.0, 5.0, phi), ("m", 1.0, 1.0, 1.0 - phi)], {}
+    mat = ft.convert.material_from_numpy(rows, dim=6, device=dev, **kw)
+    s = ft.LSSolver(Grid(n, n, n), mat, ft.SolverOptions(
+        mode=mode, dtype=dtype, maxiter=2000, **opt), device=dev)
+    s.set_strain([0, 0, 0, 0, 1.0, 0] if mode == "viscosity"
+                 else [1.0, 0, 0, 0, 0, 0])
+    return s
+
+
+# low-memory and multigrid cases -> (options, the kernels a card solve
+# launches): lm6 runs K3 alone, the stacked step's init the plain K1 / K3 /
+# K2 operator, the multigrid G0 none
+LOWMEM_CASES = {
+    "lm6": (dict(low_mem="on", check_every=4), {"g0_staggered_chain"}),
+    "lm6-viscosity": (dict(low_mem="on", check_every=4, mode="viscosity"),
+                      {"g0_staggered_chain"}),
+    "stacked": (dict(low_mem="on", check_every=1),
+                {"stress_div_beta", "eps_from_u_dot", "g0_staggered_chain"}),
+    "multigrid": (dict(g0_solver="multigrid", check_every=4), set()),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LOWMEM_CASES))
+def test_cuda_low_memory_and_multigrid_match_cpu(cuda, case):
+    """The low-memory routes and the multigrid G0 in float64 on the card
+    against the CPU: the same route and iterations, histories within 1e-9,
+    mean stress within 1e-10, the case's kernels and no other."""
+    opt, want = LOWMEM_CASES[case]
+    res = {}
+    for dev in ("cpu", "cuda"):
+        s = _sphere_solver(dev, error_estimator="residual", tol=1e-8, **opt)
+        before = dict(stencil_kernels.launches, **spectral_kernels.launches)
+        assert not s.run()
+        after = dict(stencil_kernels.launches, **spectral_kernels.launches)
+        res[dev] = (np.asarray(s.residuals), s.calc_mean_stress(),
+                    set(_launched(before, after)), s._route)
+    (rc, Sc, kc, routec), (rg, Sg, kg, routeg) = res["cpu"], res["cuda"]
+    assert routec == routeg and kc == set() and kg == want
+    assert len(rg) == len(rc)
+    np.testing.assert_allclose(rg, rc, rtol=1e-9)
+    np.testing.assert_allclose(Sg, Sc, rtol=0,
+                               atol=1e-10 * np.max(np.abs(Sc)))
+
+
+@pytest.mark.parametrize("scheme,want", [
+    ("staggered", {"stress_div_beta", "eps_from_u_dot", "g0_staggered_chain"}),
+    ("collocated", {"gamma_collocated_chain"})])
+def test_cuda_refinement_meets_float64(cuda, scheme, want):
+    """A float32 solve at tol 1e-10 refines on the card (float64 residuals
+    through the kernels' double instances, float32 corrections) and lands
+    within 1e-9 of the float64 solve on the card and of the CPU's refined
+    solve."""
+    opt = dict(gamma_scheme=scheme, error_estimator="residual",
+               check_every=8)
+    s64 = _sphere_solver(cuda, tol=1e-11, **opt)
+    assert not s64.run()
+    S64 = s64.calc_mean_stress()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        s = _sphere_solver(dev, dtype="float32", tol=1e-10, **opt)
+        before = dict(stencil_kernels.launches, **spectral_kernels.launches)
+        assert not s.run()
+        after = dict(stencil_kernels.launches, **spectral_kernels.launches)
+        assert s.eps64 is not None and s.eps64.device.type == dev
+        assert s.residuals[-1] <= 1e-10
+        out[dev] = (s.calc_mean_stress(), set(_launched(before, after)))
+    assert out["cpu"][1] == set() and out["cuda"][1] == want
+    for S, _ in out.values():
+        assert np.max(np.abs(S - S64)) <= 1e-9 * np.max(np.abs(S64))
+
+
+def test_cuda_experiment_sweep(cuda, tmp_path):
+    """A sweep of the port's Experiment on the card: cached, and its .dat
+    written."""
+    xml = """<settings><solver n="16">
+      <materials><matrix mu="1" lambda="1" /><fiber mu="10" lambda="5" />
+      </materials><tol>1e-4</tol></solver>
+      <actions><select_material name="fiber" /><place_fiber R="0.3" />
+      <run_load_case e11="1" /></actions></settings>"""
+    ex = ft.experiment.Experiment(xml, cache_dir=str(tmp_path / "c"))
+    ex.add_param("solver.tol", [1e-3, 1e-6])
+    ex.add_result("num_iterations")
+    rows = ex.run()
+    assert rows[0]["num_iterations"] < rows[1]["num_iterations"]
+    ft.experiment.write_dat(str(tmp_path / "s.dat"), rows)
+    assert len((tmp_path / "s.dat").read_text().splitlines()) == 3

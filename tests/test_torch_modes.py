@@ -218,3 +218,36 @@ def test_unported_viscosity_variants_raise():
     with pytest.raises(ValueError, match="law"):
         ft.convert.material_from_numpy([("a", 1.0, phi)], device="cpu",
                                        law="general")
+
+
+@pytest.mark.parametrize("phases,warns", [
+    ((("fiber", 0.05, 0.02), ("matrix", 0.5, 0.2)), True),
+    ((("fiber", 0.1 / 2, 0.0), ("matrix", 1.0 / 2, 0.0)), False)])
+def test_singular_trace_viscosity_phase_warns(phases, warns):
+    """The port keeps the JAX package's mu_0, whose bounds leave out the
+    trace, and warns where a phase's 2 mu + 3 lambda >= 4 mu_0 (ROADMAP.md
+    Queue 3 item 2): the sphere with a matrix lambda of 0.2 (2 mu + 3 lam =
+    1.6 against 4 mu_0 = 1.5) warns, the bench's fluidity phases (lambda 0)
+    do not."""
+    import io
+    shape = (9, 7, 5)
+    phi = _sphere(shape)
+    (nf, mf, lf), (nm, mm, lm) = phases
+    mat = ft.convert.material_from_numpy(
+        [(nf, mf, lf, phi), (nm, mm, lm, 1.0 - phi)], dim=6, device="cpu")
+    s = ft.LSSolver(ft.Grid(*shape), mat, ft.SolverOptions(
+        mode="viscosity", tol=1e-6, maxiter=60,
+        error_estimator="residual"), device="cpu")
+    s.set_strain([0.0, 0.0, 0.0, 0.0, 1.0, 0.0])
+    buf = io.StringIO()
+    LOG.enabled, LOG.stream = True, buf
+    try:
+        s.run()
+    finally:
+        LOG.enabled, LOG.stream = False, None
+    said = "singular or indefinite on the trace" in buf.getvalue()
+    assert said == warns
+    if warns:
+        assert s.mu_0 == pytest.approx(0.375)
+        assert f"viscosity phase '{nm}'" in buf.getvalue()
+        assert f"viscosity phase '{nf}'" not in buf.getvalue()

@@ -74,10 +74,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 
 def test_unported_options_raise():
+    """use_pallas and fft_backend pick TPU programs and raise; the multigrid
+    G0, the low-memory CG and a float32 solve below tol 3e-7 (refinement)
+    are ported and run."""
     mat = ft.convert.material_from_numpy([("a", 1.0, 1.0, np.ones((4, 4, 4)))],
                                          device="cpu")
-    for kw in ({"g0_solver": "multigrid"}, {"use_pallas": "on"},
-               {"fft_backend": "matmul"}):
+    for kw in ({"use_pallas": "on"}, {"fft_backend": "matmul"}):
         with pytest.raises(NotImplementedError):
             ft.LSSolver(ft.Grid(4, 4, 4), mat, ft.SolverOptions(**kw),
                         device="cpu")
@@ -87,11 +89,17 @@ def test_unported_options_raise():
                {"cg_reinit": 3}, {"error_estimator": "energy"}):
         ft.LSSolver(ft.Grid(4, 4, 4), mat, ft.SolverOptions(**kw),
                     device="cpu")
-    s = ft.LSSolver(ft.Grid(4, 4, 4), mat, ft.SolverOptions(
-        dtype="float32", tol=1e-8), device="cpu")
-    s.set_strain([1.0, 0, 0, 0, 0, 0])
-    with pytest.raises(NotImplementedError, match="refinement"):
-        s.run()
+    for kw in ({"g0_solver": "multigrid"}, {"low_mem": "on"},
+               {"dtype": "float32", "tol": 1e-8}):
+        s = ft.LSSolver(ft.Grid(4, 4, 4), mat, ft.SolverOptions(**kw),
+                        device="cpu")
+        s.set_strain([1.0, 0, 0, 0, 0, 0])
+        assert not s.run(), kw
+    assert s.eps64 is not None and s.refine_sweeps >= 1
+    for kw in ({"g0_solver": "fourier"}, {"low_mem": "yes"}):
+        with pytest.raises(ValueError, match="Unknown"):
+            ft.LSSolver(ft.Grid(4, 4, 4), mat, ft.SolverOptions(**kw),
+                        device="cpu")
 
 
 def test_cpu_tensors_take_the_twins_and_count_no_launch():
