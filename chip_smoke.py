@@ -10,7 +10,8 @@ phase 10), four demo projects through the XML front end (FRONT_END,
 phase 11), the mesh and file I/O projects (phase 12), the remaining
 methods and Gamma schemes (METHOD_PATHS, phase 13) and mixed-precision
 refinement, the low-memory CG, the multigrid G0 and the sweep harness
-(phase 14).  Staggered CG: elasticity (K1, K3,
+(phase 14), and the linear paths last ported to the x-slab mesh
+(SLAB_PATHS, phase 15).  Staggered CG: elasticity (K1, K3,
 K2), heat conduction (the scalar K4 chain; porous flow is the same path)
 and viscosity (K1 tau-sum mode, K3 with the dual constants, K2 Delta mode).
 Collocated: CG in elasticity and heat (the plain stress difference and the
@@ -41,12 +42,13 @@ constants) and collocated (K5 at C = 9).  Phases, each failing loudly:
    staggered and the collocated grid, and the SVK laminate at a small
    strain against the linear C11;
 6. sharded: the x-slab solve on four slabs of one card
-   (``make_mesh(["cuda:0"] * 4)``): each slab kernel (K1, K2 in halo mode;
-   the kz-slab K3, K4, K5 and K6 chains, and the finite-strain K5 at C = 9
-   and K3 with the full-gradient constants, these two also against their
-   whole-field chains) against its twin at 256^3 float32 with times and
-   the time of the two spectrum exchanges, K1/K2 halo mode bitwise against
-   the periodic kernels on one slab; a 48^3 float64 sharded solve of each
+   (``make_mesh(["cuda:0"] * 4)``): each slab kernel (K1, K2 in halo mode,
+   K1 tau-sum and K2 Delta mode among them; the kz-slab K3, K4, K5 and K6
+   chains, and the finite-strain K5 at C = 9 and K3 with the full-gradient
+   constants, these two also against their whole-field chains) against
+   its twin at 256^3 float32 with times and the time of the two spectrum
+   exchanges, K1/K2 halo mode in every mode bitwise against the periodic
+   kernels on one slab; a 48^3 float64 sharded solve of each
    linear sharded path (SHARDED_PATHS, polarization included) and a 24^3
    float64 sharded Newton solve of each hyperelastic path with kernels
    against the plain twins on CPU slabs; the 256^3 float32 sharded solve
@@ -132,7 +134,18 @@ constants) and collocated (K5 at C = 9).  Phases, each failing loudly:
    on 1024 x 1024 x 512 (which the plain layout cannot hold), the
    multigrid G0 at 64^3 (no kernel) against the FFT G0, a three-point
    Experiment sweep, and the new paths in float64 at 32^3 on the card
-   against the CPU.
+   against the CPU;
+15. the linear paths last ported to the x-slab mesh (``sharded_paths``,
+   SLAB_PATHS) on four slabs of one card at 256^3 float32: staggered
+   viscosity on both routes (K1 tau-sum and K2 Delta mode in halo mode;
+   the generic Delta path under Maximum, K3 alone), uniaxial stress under
+   mixed BCs on both grids, the B = 6 effective stiffness in one
+   run_batched, Willot's Gamma and freq_hack (torch.fft on the kz-slabs),
+   the tiso fibre, Reuss, the laminate and the 512^3 doubly-fine sphere,
+   each warm with its wall, peak memory and launches, held to its
+   unsharded solve of phases 4, 8, 9, 10 and 13; then each at 48^3
+   float64 on the card's slabs against CPU slabs; with two or more cards,
+   staggered viscosity and uniaxial stress over min(4, count) cards.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits non-zero before printing any result.
@@ -345,6 +358,20 @@ SHARDED_KERNELS = {
     "elasticity-polarization": ("gamma_collocated_chain_slab",),
     "hyperelasticity": ("g0_staggered_chain_slab",),
     "hyperelasticity-collocated": ("gamma_collocated_chain_slab",),
+    # phase 15 (SLAB_PATHS): staggered viscosity (K1 tau-sum and K2 Delta
+    # in halo mode; the generic Delta path K3 alone), the generic
+    # elasticity route (K3 alone), Reuss (K1/K2); Willot and freq_hack run
+    # torch.fft around their apply on kz-slabs, no kernel of the port
+    "viscosity": ("stress_div_beta_halo", "eps_from_u_dot_halo",
+                  "g0_staggered_chain_slab"),
+    "viscosity-generic": ("g0_staggered_chain_slab",),
+    "elasticity-general": ("g0_staggered_chain_slab",),
+    "elasticity-reuss": ("stress_div_beta_halo", "eps_from_u_dot_halo",
+                         "g0_staggered_chain_slab"),
+    "elasticity-laminate": ("g0_staggered_chain_slab",),
+    "elasticity-full-staggered": ("g0_staggered_chain_slab",),
+    "elasticity-willot": (),
+    "elasticity-freq-hack": (),
 }
 SLABS = 4
 
@@ -371,8 +398,20 @@ def sphere_solver(n, dtype, device, mode="elasticity", scheme="staggered",
     return s
 
 
+def placement(device, mesh):
+    """(the material's device, the LSSolver keywords) of a solve on
+    ``device``, or sharded into x-slabs over ``mesh`` (a list of
+    devices)."""
+    from fibergen_tpu_torch import parallel
+    if mesh is None:
+        return device, dict(device=device)
+    return mesh[0], dict(sharding=parallel.field_sharding(
+        parallel.make_mesh(mesh)))
+
+
 def general_solver(n, dtype, device, fibre, mode="elasticity",
-                   scheme="staggered", rule="voigt", blur=None, **opt):
+                   scheme="staggered", rule="voigt", blur=None, mesh=None,
+                   **opt):
     """A general linear material on the bench's sphere (n^3, ``dtype``),
     loaded by e_xx = 1 (elasticity) or a unit x gradient (heat).  The
     ``fibre``:
@@ -388,7 +427,8 @@ def general_solver(n, dtype, device, fibre, mode="elasticity",
       about z, in a matrix of conductivity 1.
 
     ``blur`` (voxels) smooths the sphere's surface into interface voxels
-    (a logistic profile), for the rules that treat them apart."""
+    (a logistic profile), for the rules that treat them apart.  ``mesh``
+    (a list of devices) shards the solve into x-slabs over it."""
     import numpy as np
     import fibergen_tpu_torch as ft
     from fibergen_tpu_torch.materials.convert import elastic_constants
@@ -430,11 +470,12 @@ def general_solver(n, dtype, device, fibre, mode="elasticity",
                 "general-iso": iso_c, "tiso-iso": tiso_iso}[fibre]
         f, matrix = make(10.0, 5.0), make(1.0, 1.0)
     dim = 3 if mode == "heat" else 6
+    mdev, where = placement(device, mesh)
     mat = ft.convert.material_from_numpy(
         [("fiber", f, phi), ("matrix", matrix, 1.0 - phi)], dim=dim,
-        device=device, rule=rule)
+        device=mdev, rule=rule)
     s = ft.LSSolver(ft.Grid(n, n, n), mat, ft.SolverOptions(
-        mode=mode, gamma_scheme=scheme, dtype=dtype, **opt), device=device)
+        mode=mode, gamma_scheme=scheme, dtype=dtype, **opt), **where)
     s.set_strain([1.0, 0.0, 0.0, 0.0, 0.0, 0.0][:dim])
     return s
 
@@ -492,12 +533,13 @@ def smooth_sphere(n, dtype, r=0.3, ss=4):
 
 
 def interface_solver(n, dtype, device, path, rule=None, geometry=None,
-                     **opt):
+                     mesh=None, **opt):
     """The material of ``path`` (INTERFACE_PATHS; its rule replaced by
     ``rule``) on the bench's sphere at n^3 in ``dtype``, loaded as the
     bench loads its mode.  ``geometry`` (phi, normals) replaces the
     path's phi (both solvers of a comparison then read the same arrays;
-    on the doubly-fine grid phi is 2n^3)."""
+    on the doubly-fine grid phi is 2n^3).  ``mesh`` as in
+    :func:`general_solver`."""
     import fibergen_tpu_torch as ft
     mode, scheme, rule0, phases, kind = INTERFACE_PATHS[path]
     rule = rule or rule0
@@ -516,14 +558,15 @@ def interface_solver(n, dtype, device, path, rule=None, geometry=None,
     else:
         fibre, matrix = (c["law"], *c["fiber"]), (c["law"], *c["matrix"])
     takes_normals = rule in ("laminate", "infinity_laminate", "fluidity")
+    mdev, where = placement(device, mesh)
     mat = ft.convert.material_from_numpy(
         [("fiber", fibre, phi), ("matrix", matrix, 1.0 - phi)],
-        dim=c["dim"], device=device, rule=rule,
+        dim=c["dim"], device=mdev, rule=rule,
         normals=normals if takes_normals else None)
     if kind == "fine":
         mat = ft.DfgMaterial(mat)
     s = ft.LSSolver(ft.Grid(n, n, n), mat, ft.SolverOptions(
-        mode=mode, gamma_scheme=scheme, dtype=dtype, **opt), device=device)
+        mode=mode, gamma_scheme=scheme, dtype=dtype, **opt), **where)
     s.set_strain(c["load"])
     return s
 
@@ -578,7 +621,9 @@ WORK = {
 WORK.update({
     "stress_div_beta[halo]": WORK["stress_div_beta"],
     "stress_div_beta[halo,init]": WORK["stress_div_beta[init]"],
+    "stress_div_beta[halo,tau_sum]": WORK["stress_div_beta[tau_sum]"],
     "eps_from_u_dot[halo]": WORK["eps_from_u_dot"],
+    "eps_from_u_dot[halo,delta]": WORK["eps_from_u_dot[delta]"],
     "eps_from_u_dot[halo,nodot]": WORK["eps_from_u_dot[nodot]"],
     "g0_staggered_chain_slab": WORK["g0_staggered_chain"],
     "g0_staggered_heat_chain_slab": WORK["g0_staggered_heat_chain"],
@@ -873,19 +918,71 @@ def check_slab_kernels(shape, dtype, devices, timed):
     report("eps_from_u_dot[halo,nodot]", [rel_err(G(wn), G(p2n()))], k2n,
            p2n, call=c2n)
 
+    # K1 tau-sum mode (step and init) and K2 Delta mode in halo mode, the
+    # staggered viscosity path on slabs: the tau sum is the slabs' sums
+    # added in slab order (compared relative to the largest sum), the
+    # Delta term reads mu without halo planes
+    k1t = lambda: [sk.stress_div_beta(g, rs[i], ps[i], beta[i], ms[i], ls[i],
+                                      mu0, lam0, want_tau_sum=True,
+                                      halo=h1[i]) for i in range(d)]
+    c1t = lambda: sk.stress_div_beta_slabs(g, rs, ps, beta, ms, ls, mu0,
+                                           lam0, mh, want_tau_sum=True)
+    p1t = lambda: [sk.stress_div_beta_plain(g, rs[i], ps[i], gam / gam_prev,
+                                            ms[i], ls[i], mu0, lam0,
+                                            want_tau_sum=True, halo=h1[i])
+                   for i in range(d)]
+    ft_, pt_, ts = c1t()
+    ref = p1t()
+    fti, _, tsi = sk.stress_div_beta_slabs(g, rs, None, None, ms, ls, mu0,
+                                           lam0, mh, want_tau_sum=True)
+    refi = [sk.stress_div_beta_plain(g, rs[i], None, None, ms[i], ls[i], mu0,
+                                     lam0, want_tau_sum=True, halo=h1i[i])
+            for i in range(d)]
+    report("stress_div_beta[halo,tau_sum]",
+           [rel_err(G(ft_), G([x[0] for x in ref])),
+            rel_err(G(pt_), G([x[1] for x in ref])),
+            rel_err(ts[0], sum(x[2] for x in ref)),
+            rel_err(G(fti), G([x[0] for x in refi])),
+            rel_err(tsi[0], sum(x[2] for x in refi))], k1t, p1t, call=c1t)
+    tau2c = -1.0 / (2.0 * mu0)
+    k2d = lambda: [sk.eps_from_u_dot(g, Es[i], us[i], ps[i], mu_x=ms[i],
+                                     tau2c=tau2c, mu0=mu0, halo=h2[i])
+                   for i in range(d)]
+    c2d = lambda: sk.eps_from_u_dot_slabs(g, Es, us, ps, mu_x=ms,
+                                          tau2c=tau2c, mu0=mu0)
+    p2d = lambda: [sk.eps_from_u_dot_plain(g, E, us[i], ps[i], mu_x=ms[i],
+                                           tau2c=tau2c, mu0=mu0, halo=h2[i])
+                   for i in range(d)]
+    (wd, dotd), ref = c2d(), p2d()
+    report("eps_from_u_dot[halo,delta]",
+           [rel_err(G(wd), G([x[0] for x in ref])),
+            dot_err(dotd[0], sum(float(x[1]) for x in ref))], k2d, p2d,
+           call=c2d)
+
     if d == 1:
-        # one slab wraps its own halo: bitwise the periodic kernels
+        # one slab wraps its own halo: bitwise the periodic kernels, in
+        # every mode
         f0, p0 = sk.stress_div_beta(g, r, pp, (gam, gam_prev), mu, lam, mu0,
                                     lam0)
         fi0, _ = sk.stress_div_beta(g, r, None, None, mu, lam, mu0, lam0)
         w0, dot0 = sk.eps_from_u_dot(g, E, u, pp)
         wn0, _ = sk.eps_from_u_dot(g, E, u)
+        ft0, pt0, ts0 = sk.stress_div_beta(g, r, pp, (gam, gam_prev), mu,
+                                           lam, mu0, lam0, want_tau_sum=True)
+        wd0, dotd0 = sk.eps_from_u_dot(g, E, u, pp, mu_x=mu, tau2c=tau2c,
+                                       mu0=mu0)
         same = all(torch.equal(a, b) for a, b in (
             (f[0], f0), (p[0], p0), (fi[0], fi0), (w[0], w0), (wn[0], wn0),
             (dot[0], dot0)))
+        same_visc = all(torch.equal(a, b) for a, b in (
+            (ft_[0], ft0), (pt_[0], pt0), (ts[0], ts0), (wd[0], wd0),
+            (dotd[0], dotd0)))
         log(f"  K1/K2 halo mode on one slab bitwise equal to the periodic "
-            f"kernels: {same}")
+            f"kernels: {same}; K1 tau-sum and K2 Delta halo mode: "
+            f"{same_visc}")
         assert same, "K1/K2 halo mode differs from the periodic kernels"
+        assert same_visc, ("K1 tau-sum / K2 Delta halo mode differs from "
+                           "the periodic kernels")
 
     # the kz-slab chains; library: the per-slab cuFFT stages around the same
     # exchanges, with no apply
@@ -1041,6 +1138,7 @@ def load_cases(run_counted, res32, path_launches, n=256, dtype="float32",
             f"{sum(t_b) / (t_s + t_s2):.3f}; peak device memory "
             f"{peak:.2f} GiB; means rel diff {d:.3e}")
         assert np.all(np.isfinite(Sb)) and d <= 1e-5, (path, d)
+        res32[f"{path} [batched]"] = (its_b, Sb)
         del s
         if cuda:
             torch.cuda.empty_cache()
@@ -1083,6 +1181,7 @@ def load_cases(run_counted, res32, path_launches, n=256, dtype="float32",
             f"max |stress-controlled mean stress| / |sigma_xx| {side:.3e}, "
             f"mean stress {Sm.tolist()}")
         assert not fail and bce <= s.opt.bc_tol and side <= 1e-5, path
+        res32[f"{path} [mixed BC]"] = (len(s.residuals), Sm)
         del s
 
     # the linear loadstep loop against one step, 64^3 float64
@@ -1184,6 +1283,7 @@ def general_materials(run_counted, res32, path_launches, n=256):
                                                 path)
         del s
         torch.cuda.empty_cache()
+    res32.update(res)
 
     # path 1 in float64
     its, S32 = res["elasticity-general"]
@@ -1333,6 +1433,7 @@ def interfaces_and_dfg(run_counted, res32, path_launches, n=256,
     s = interface_solver(n, "float32", device, path, **opt)
     its, S, wall, path_launches[path] = solve(
         s, f"{n}^3 float32 {path} ({2 * n}^3 fine phases)", path)
+    res32[path] = (its, S)
     its0, S0 = res32["elasticity"]
     d = float(np.max(np.abs(S - S0)) / np.max(np.abs(S0)))
     log(f"  {path}: mean stress rel diff to phase 4's staggered solve on "
@@ -1367,6 +1468,7 @@ def interfaces_and_dfg(run_counted, res32, path_launches, n=256,
         s = interface_solver(n, "float32", device, path, geometry=geo, **opt)
         its, S, wall, path_launches[path] = solve(
             s, f"{n}^3 float32 {path} (smooth sphere)", path)
+        res32[path] = (its, S)
         sxx[path] = S[0]
         if path == "elasticity-laminate":
             F = torch.randn((6,) + s.grid.shape, device=device,
@@ -1431,6 +1533,7 @@ def interfaces_and_dfg(run_counted, res32, path_launches, n=256,
         s = interface_solver(n, "float32", device, path, **opt)
         its, S, _, path_launches[path] = solve(s, f"{n}^3 float32 {path}",
                                                path)
+        res32[path] = (its, S)
         if path == "viscosity-generic":
             d = float(np.max(np.abs(S - S0)) / np.max(np.abs(S0)))
             log(f"  route oracle: {its} iterations (phase 4's K1/K2 "
@@ -2214,6 +2317,8 @@ def remaining_methods(run_counted, res32, hyper, path_launches, n=256,
             f"rel diff to phase 4's {ref} {d:.3e} (limit {limit:g})")
         assert not fail and its < popt.get("maxiter", 4000), path
         assert np.all(np.isfinite(S)) and d <= limit, (path, d)
+        if mode != "hyperelasticity":
+            res32[path] = (its, S)
         del s
         torch.cuda.empty_cache()
     log(f"  phase 13 at {n}^3 in {time.perf_counter() - t_phase:.1f} s")
@@ -2546,6 +2651,133 @@ def mixed_precision_low_memory(run_counted, path_launches, n=256, nl=512,
         f"cuda {out['cuda'][0]}, mean stress rel diff {d:.3e} (limit 1e-9)")
     assert d <= 1e-9
     log(f"  phase 14 in {time.perf_counter() - t_phase:.1f} s")
+
+
+# phase 15: the linear paths new on the x-slabs.  path -> the key of
+# SHARDED_KERNELS its sharded solve launches; each is held to its
+# unsharded solve of an earlier phase (phase 4's staggered viscosity,
+# phase 8's uniaxial stress and B = 6 stiffness, phase 9's tiso fibre and
+# Reuss, phase 10's Maximum viscosity, laminate and doubly-fine sphere,
+# phase 13's Willot and freq_hack), which res32 keeps under the same name
+SLAB_PATHS = {
+    "viscosity": "viscosity",
+    "viscosity-generic": "viscosity-generic",
+    "elasticity [mixed BC]": "elasticity",
+    "elasticity-collocated [mixed BC]": "elasticity-collocated",
+    "elasticity [batched]": "elasticity",
+    "elasticity-willot": "elasticity-willot",
+    "elasticity-freq-hack": "elasticity-freq-hack",
+    "elasticity-general": "elasticity-general",
+    "elasticity-reuss": "elasticity-reuss",
+    "elasticity-laminate": "elasticity-laminate",
+    "elasticity-full-staggered": "elasticity-full-staggered",
+}
+
+
+def slab_path_solver(name, n, dtype, device, mesh=None, **opt):
+    """(solver, its run) of phase 15's path ``name`` (SLAB_PATHS) at n^3 in
+    ``dtype``, sharded into x-slabs over ``mesh`` when given: the solver
+    its earlier phase builds, uniaxial stress under ``[mixed BC]``
+    (phase 8: strain xx prescribed, every other stress zero), the six unit
+    strains in one run_batched under ``[batched]``."""
+    import numpy as np
+    base = name.split(" [")[0]
+    if base in GENERAL_PATHS:
+        s = general_path_solver(n, dtype, device, base, mesh=mesh, **opt)
+    elif base in INTERFACE_PATHS:
+        s = interface_solver(n, dtype, device, base, mesh=mesh, **opt)
+    elif base in METHOD_PATHS:
+        s = method_solver(n, dtype, device, base, mesh=mesh, **opt)
+    else:
+        s = path_solver(n, dtype, device, base, mesh=mesh, **opt)
+    if name.endswith("[mixed BC]"):
+        P = np.zeros((6, 6))
+        P[0, 0] = 1.0
+        s.set_bc_projector(P)
+        s.set_strain([0.01, 0, 0, 0, 0, 0])
+        s.set_stress(np.zeros(6))
+    if name.endswith("[batched]"):
+        return s, lambda: s.run_batched(np.eye(6))
+    return s, s.run
+
+
+def slab_means(s, name):
+    """The mean stress of phase 15's solve (the (B, dim) means of a
+    batched one)."""
+    return s.calc_mean_stress_batched() if name.endswith("[batched]") \
+        else s.calc_mean_stress()
+
+
+def sharded_paths(run_counted, res32, path_launches, n=256, nc=48):
+    """Phase 15: each path of SLAB_PATHS sharded into four x-slabs of one
+    card at n^3 float32 (residual tol 1e-6, check_every 8), warm, with its
+    wall, peak device memory and launches (its slab kernels and no
+    other), held to its unsharded solve of an earlier phase (res32):
+    iterations within one, mean stress within 1e-5 of its max; then each
+    at nc^3 float64 on four slabs of the card against four CPU slabs
+    (phase 6's limits: the same iterations, histories within 1e-9, mean
+    stress within 1e-10); with two or more cards, staggered viscosity and
+    uniaxial stress over min(4, count) cards."""
+    import numpy as np
+    import torch
+    t_phase = time.perf_counter()
+    mesh = ["cuda:0"] * SLABS
+    opt = dict(error_estimator="residual", tol=1e-6, check_every=8,
+               maxiter=4000)
+    log(f"phase 15: the linear paths new on the x-slabs, mesh {mesh}, "
+        f"{n}^3 float32, residual tol 1e-6, check_every 8")
+    meshes = [mesh]
+    ncards = torch.cuda.device_count()
+    if ncards >= 2:
+        meshes.append([f"cuda:{i}" for i in range(min(4, ncards))])
+    for m in meshes:
+        names = SLAB_PATHS if m is mesh else ("viscosity",
+                                              "elasticity [mixed BC]")
+        for name in names:
+            s, run = slab_path_solver(name, n, "float32", "cuda", m, **opt)
+            assert not run()                     # warm-up
+            torch.cuda.reset_peak_memory_stats()
+            label = f"{n}^3 float32 {name} [sharded x{len(m)}]"
+            t0 = time.perf_counter()
+            fail, got = run_counted(s, label, SLAB_PATHS[name], run)
+            wall = time.perf_counter() - t0
+            if m is mesh:
+                path_launches[f"{name} [sharded]"] = got
+            its, S = len(s.residuals), slab_means(s, name)
+            its0, S0 = res32[name]
+            d = float(np.max(np.abs(S - S0)) / np.max(np.abs(S0)))
+            log(f"  {label}: {its} iterations (unsharded {its0}), wall "
+                f"{wall:.4f} s ({1e3 * wall / its:.2f} ms an iteration), "
+                f"final_rel {s.residuals[-1]:.3e}, peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, mean "
+                f"stress rel diff to unsharded {d:.3e}")
+            assert not fail and s.residuals[-1] <= 1e-6, label
+            assert np.all(np.isfinite(S)) and abs(its - its0) <= 1, label
+            assert d <= 1e-5, (label, d)
+            del s, run
+            torch.cuda.empty_cache()
+    log(f"  phase 15 at {n}^3 in {time.perf_counter() - t_phase:.1f} s")
+    copt = dict(error_estimator="residual", tol=1e-8, check_every=4,
+                maxiter=1000)
+    for name, kpath in SLAB_PATHS.items():
+        (s_cpu, run_cpu), (s_gpu, run_gpu) = (
+            slab_path_solver(name, nc, "float64", dev, [dev] * SLABS, **copt)
+            for dev in ("cpu", "cuda:0"))
+        assert not run_cpu()
+        assert not run_counted(s_gpu, f"{nc}^3 float64 {name} [sharded]",
+                               kpath, run_gpu)[0]
+        rc, rg = np.asarray(s_cpu.residuals), np.asarray(s_gpu.residuals)
+        res_rel = float(np.max(np.abs(rg - rc) / np.abs(rc))) \
+            if len(rc) == len(rg) else float("inf")
+        Sc, Sg = slab_means(s_cpu, name), slab_means(s_gpu, name)
+        s_rel = float(np.max(np.abs(Sg - Sc)) / np.max(np.abs(Sc)))
+        log(f"  {nc}^3 float64 {name} [sharded]: iterations cpu {len(rc)} "
+            f"cuda {len(rg)}, residual history max rel diff {res_rel:.3e}, "
+            f"mean stress max rel diff {s_rel:.3e}")
+        assert len(rc) == len(rg), f"{name}: iteration counts differ"
+        assert res_rel <= 1e-9 and s_rel <= 1e-10, name
+        del s_cpu, s_gpu, run_cpu, run_gpu
+    log(f"  phase 15 in {time.perf_counter() - t_phase:.1f} s")
 
 
 def main():
@@ -2947,6 +3179,9 @@ def main():
     # sweep harness
     mixed_precision_low_memory(run_counted, path_launches)
 
+    # ---- phase 15: the linear paths new on the x-slabs
+    sharded_paths(run_counted, res32, path_launches)
+
     # ---- phase 7: launches and per-kernel numbers.  The per-kernel list
     # takes the key "kernels"; the launch counts of each path's timed 256^3
     # float32 solve print on their own line as "kernel_launches".  A mode's
@@ -3012,7 +3247,13 @@ def main():
               "gamma_collocated_chain_slab",
               "hyperelasticity-collocated [sharded]", ch, f"{pc_}:470"),
              ("g0_staggered_chain_slab[hyper]", "g0_staggered_chain_slab",
-              "hyperelasticity [sharded]", ch, f"{pc_}:470")]
+              "hyperelasticity [sharded]", ch, f"{pc_}:470"),
+             ("stress_div_beta[halo,tau_sum]", "stress_div_beta_halo",
+              "viscosity [sharded]", k1,
+              "fibergen_tpu/ops/pallas_sweep.py:301"),
+             ("eps_from_u_dot[halo,delta]", "eps_from_u_dot_halo",
+              "viscosity [sharded]", k2,
+              "fibergen_tpu/ops/pallas_sweep.py:517")]
     k1k2_paths = ("elasticity-nesterov", "elasticity-basic-el",
                   "elasticity-cg-reinit", "elasticity-sigma",
                   "elasticity-refined", "fg-hashin-refined", "fg-experiment")
@@ -3048,6 +3289,23 @@ def main():
         "g0_staggered_chain[hyper]": ("hyperelasticity-nl-cg",
                                       "hyperelasticity-basic",
                                       "hyperelasticity-maximum")}
+    # phase 15's sharded paths, in the slab rows of their kernels' modes
+    k1k2_slab = ("elasticity [mixed BC] [sharded]",
+                 "elasticity [batched] [sharded]",
+                 "elasticity-reuss [sharded]")
+    more_paths.update({
+        "stress_div_beta[halo]": k1k2_slab,
+        "stress_div_beta[halo,init]": k1k2_slab,
+        "eps_from_u_dot[halo]": k1k2_slab,
+        "eps_from_u_dot[halo,nodot]": k1k2_slab,
+        "g0_staggered_chain_slab": ("viscosity [sharded]",
+                                    "viscosity-generic [sharded]",
+                                    "elasticity-general [sharded]",
+                                    "elasticity-laminate [sharded]",
+                                    "elasticity-full-staggered [sharded]")
+        + k1k2_slab,
+        "gamma_collocated_chain_slab": (
+            "elasticity-collocated [mixed BC] [sharded]",)})
     main_nums = dict(main_nums, **slab_nums)
     log(f"total {time.perf_counter() - t_start:.1f} s, the build included")
     kernels = []

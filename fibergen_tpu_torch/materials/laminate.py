@@ -21,8 +21,9 @@ a nonlinear laminate from the eigenvalues of that tangent on the whole
 grid.
 
 With more than two phases only the two largest-phi phases of a voxel take
-part, gathered into isotropic laws with per-voxel moduli.  Sharded fields
-are not taken (the solver refuses them for every rule but Voigt).
+part, gathered into isotropic laws with per-voxel moduli.  On the
+x-slabs of a sharded field each rule runs on its slab views
+(``MixedMaterial.slab_views``), the normals cut into the same slabs.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from typing import List
 import torch
 
 from ..core import voigt
+from ..parallel import shard_field
 from .mixing import MixedMaterial, Phase
 
 _THR = 1e-7  # interface threshold (10 eps in the reference)
@@ -133,6 +135,11 @@ class _InterfaceMixed(MixedMaterial):
         if len(phases) < 2:
             raise ValueError(f"{self.rule} mixing requires at least 2 phases")
         self.normals = normals
+
+    def _adapt_views(self, views, mesh):
+        if self.normals is not None:
+            for v, n in zip(views, shard_field(self.normals, mesh)):
+                v.normals = n
 
     def _normals_like(self, F, normalize=False):
         if self.normals is None:

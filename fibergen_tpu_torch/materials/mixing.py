@@ -23,11 +23,17 @@ responses run per slab: the mixed moduli and the phase fields are split
 into the same slabs once (:meth:`MixedMaterial.iso_moduli_slabs`,
 :meth:`MixedMaterial.phase_fields`), the stresses, the tangent, the energy
 and the polarization are voxel-local, and the means and the eigenvalue
-bounds reduce over the slabs.  The other rules, and phases without
-isotropic moduli, run unsharded.
+bounds reduce over the slabs.  Every other rule, and the laws that read a
+field (the transversely isotropic orientation field), run on per-slab
+views (:meth:`MixedMaterial.slab_views`, driven by
+materials/sharded.py): the same material over the slab's cut of phi, of
+the orientation fields, of the selector rules' weights (computed on the
+whole grid, so the Random rule's voxel hash keeps its global index) and of
+the interface normals.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import List, Optional
 
@@ -179,6 +185,38 @@ class MixedMaterial:
         if slabs.sharded(F):
             return self.iso_moduli_slabs(F[0].dtype, [f.device for f in F])
         return self.iso_moduli(F.dtype, F.device)
+
+    # ------------------------------------------------ per-slab views
+    def with_phases(self, phases):
+        """A shallow copy of the material over ``phases`` (the same rule and
+        options), its caches empty."""
+        v = copy.copy(self)
+        for name in _CACHES:
+            v.__dict__.pop(name, None)
+        v._iso_key = v._iso_val = None
+        v.phases = phases
+        return v
+
+    def slab_views(self, mesh):
+        """One view of the material per x-slab of ``mesh``: the material
+        over the slab's cut of each phase field and of each law's
+        orientation field (:meth:`_adapt_views` cuts what a rule reads
+        besides), each an ordinary material of the slab's voxels."""
+        if self._phi_dropped:
+            raise ValueError("slab views need the phase fields phi, which "
+                             "drop_phi freed")
+        phis = [shard_field(p.phi, mesh) for p in self.phases]
+        lawss = [_law_slabs(p.law, mesh) for p in self.phases]
+        views = [self.with_phases([
+            Phase(p.name, lw[i], ph[i], p.index)
+            for p, lw, ph in zip(self.phases, lawss, phis)])
+            for i in range(mesh.size)]
+        self._adapt_views(views, mesh)
+        return views
+
+    def _adapt_views(self, views, mesh):
+        """Cut into ``views`` what the rule reads besides phi and the laws
+        (nothing here)."""
 
     def drop_phi(self):
         """Free the per-phase phi fields, keeping only the cached mixed
@@ -452,16 +490,24 @@ class ReussMixed(MixedMaterial):
 class _SelectorMixed(MixedMaterial):
     """A rule whose per-voxel phase weights are a function of the phi
     fields (:meth:`_rule_weights`), computed once per phi tensors, type and
-    device; unsharded fields only."""
+    device.  A slab view reads the whole grid's weights cut to its slab
+    (``_cut_weights``)."""
+
+    _cut_weights = None
 
     def _rule_weights(self, phis):
         raise NotImplementedError
 
+    def _adapt_views(self, views, mesh):
+        cut = [shard_field(w, mesh) for w in
+               self._rule_weights(torch.stack([p.phi for p in self.phases]))]
+        for i, v in enumerate(views):
+            v._cut_weights = [w[i] for w in cut]
+
     def _weights_like(self, F):
         if slabs.sharded(F):
-            raise NotImplementedError(
-                f"the {self.rule} mixing rule on x-slabs is not ported yet "
-                f"(ROADMAP.md, Queue 1 item 8)")
+            raise ValueError(f"the {self.rule} rule takes x-slabs through "
+                             f"its slab views (materials/sharded.py)")
         if self._phi_dropped:
             raise ValueError("the phase-wise response needs the phase "
                              "fields phi, which drop_phi freed")
@@ -470,7 +516,8 @@ class _SelectorMixed(MixedMaterial):
         cache = getattr(self, "_w_cache", None)
         if cache is None or cache[1] != key or not all(
                 a is b for a, b in zip(cache[0], phis)):
-            w = self._rule_weights(torch.stack(phis))
+            w = self._rule_weights(torch.stack(phis)) \
+                if self._cut_weights is None else self._cut_weights
             self._w_cache = (phis, key, [x.to(dtype=F.dtype, device=F.device)
                                          for x in w])
         return self._w_cache[2]
@@ -538,6 +585,12 @@ class SplitMixed(MixedMaterial):
         super().__init__(phases, dim=dim)
         self.dev = MIXING_RULES[dev_rule](self.phases, dim=dim)
         self.vol = MIXING_RULES[vol_rule](self.phases, dim=dim)
+
+    def _adapt_views(self, views, mesh):
+        # each sub-rule on its own views of the same slabs
+        for v, dev, vol in zip(views, self.dev.slab_views(mesh),
+                               self.vol.slab_views(mesh)):
+            v.dev, v.vol = dev, vol
 
     @staticmethod
     def _split(F):
@@ -656,6 +709,22 @@ def make_mixed(rule: str, phases: List[Phase], dim: int = 6
     except KeyError:
         raise ValueError(f"Unknown mixing rule '{rule}'") from None
     return cls(phases, dim=dim)
+
+
+# the per-material caches a view starts without (with_phases)
+_CACHES = ("_iso_cast", "_iso_slabs", "_phi_slabs", "_w_cache",
+           "_jump_cache")
+
+
+def _law_slabs(law, mesh):
+    """A phase law per x-slab of ``mesh``: a law that reads an orientation
+    field (the transversely isotropic law without a fixed axis) gets its
+    slab's cut of it; any other law is shared."""
+    o = getattr(law, "orientation", None)
+    if o is None or law._fixed_axis() is not None:
+        return [law] * mesh.size
+    return [dataclasses.replace(law, orientation=x)
+            for x in shard_field(o, mesh)]
 
 
 def _reduce_bounds(b):

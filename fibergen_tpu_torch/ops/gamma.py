@@ -34,14 +34,16 @@ K2 directly):
   collocated grid).  K1 and K2 take no part: they assume per-voxel
   isotropic linear moduli.
 
-With ``par`` (a parallel.fft.SlabPar) :func:`gamma_heat_staggered`,
-:func:`gamma_collocated`, :func:`delta_collocated` and
-:func:`gamma_hyper` take lists of x-slabs and run the slab chains; the
-staggered stencils then run per slab on the neighbours' halo planes, and
-``E`` is a list with one value per slab.
+With ``par`` (a parallel.fft.SlabPar) every operator takes lists of
+x-slabs: the chains run on kz-slabs, the staggered stencils per slab on the
+neighbours' halo planes (K1 and K2 in halo mode in :func:`fused_visc`),
+Willot's Gamma and ``freq_hack`` on the plain slab transforms
+(``green.slab_transformed``), and ``E`` is a list with one value per slab.
+The means (of tau for the Delta schemes' adjustment and for the mixed-BC
+correction) are the slabs' means added in slab order.
 
-``bc`` (a solvers.bc.BCProjector that is not trivial, unsharded only) adds
-the mixed-BC mean correction alpha R, R = bc_correction(bc, mean(tau)), as
+``bc`` (a solvers.bc.BCProjector that is not trivial) adds the mixed-BC
+mean correction alpha R, R = bc_correction(bc, mean(tau)), as
 initBCProjector/applyBCProjector do (fibergen.cpp:20220-20279): the
 collocated chains take E + alpha R as their DC value, the staggered paths
 add alpha R to eta.
@@ -54,7 +56,8 @@ from ..core import fields
 from ..parallel import comm, slabs
 from ..solvers.bc import bc_correction
 from . import fft, green, staggered
-from .stencil_kernels import eps_from_u_dot, stress_div_beta
+from .stencil_kernels import (eps_from_u_dot, eps_from_u_dot_slabs,
+                              stress_div_beta, stress_div_beta_slabs)
 
 # the schemes that take the staggered operators: half_staggered and
 # full_staggered differ from staggered only in their material (the
@@ -67,20 +70,36 @@ def _halos(slab_list):
     return list(zip(*comm.halo_x(slab_list)))
 
 
+def _per_slab(fn, x):
+    """``fn(slab, halo)`` on each x-slab of ``x`` with its halo planes."""
+    return [fn(t, h) for t, h in zip(x, _halos(x))]
+
+
+def _like(E, m):
+    """E as a tensor of ``m``'s type on its device."""
+    return torch.as_tensor(E, dtype=m.dtype, device=m.device)
+
+
+def _shifted_mean(E, c, tau, mean=fields.mean):
+    """E + c mean(tau), whole or on every slab's device (a list)."""
+    return slabs.smap(lambda E, m: _like(E, m) + c * m, E, mean(tau))
+
+
 def _corrected(E, bc, tau, alpha, mean=fields.mean):
     """E + alpha R with R = bc_correction(bc, mean(tau)): the mean of a
-    Gamma application under ``bc`` (E as it is without one)."""
+    Gamma application under ``bc`` (E as it is without one); on x-slabs
+    from the cross-slab mean, on every slab's device."""
     if bc is None:
         return E
-    E = torch.as_tensor(E, dtype=tau.dtype, device=tau.device)
-    return E + alpha * bc_correction(bc, mean(tau))
+    return slabs.smap(lambda E, m: _like(E, m) + alpha * bc_correction(bc, m),
+                      E, mean(tau))
 
 
 def _zero_trace_mean(tau):
     """The mean of a traceless 6-component tau with its component 0
     rebuilt as -(m1 + m2), as the zero-trace chain sees it."""
-    m = fields.mean(tau)
-    return torch.cat([-(m[1] + m[2]).reshape(1), m[1:]])
+    return slabs.smap(lambda m: torch.cat([-(m[1] + m[2]).reshape(1), m[1:]]),
+                      fields.mean(tau))
 
 
 def stress_diff_mean(x, mu_x, lam_x, mu_0, lambda_0):
@@ -95,14 +114,24 @@ def stress_diff_mean(x, mu_x, lam_x, mu_0, lambda_0):
 
 
 def gamma_staggered(grid, E, mu_0, lambda_0, tau, bc=None, alpha=-1.0,
-                    g0_solver="fft"):
+                    g0_solver="fft", par=None):
     """eta = alpha Gamma tau with mean E on (6, nx, ny, nz) fields
     (gamma_operator, mode elasticity, staggered scheme):
     div_staggered -> K3 -> eps_staggered, whose mean E + alpha R carries
     the correction under ``bc``.  ``g0_solver="multigrid"`` applies G0 by
     the multigrid Poisson solves (solvers/multigrid.py, plain PyTorch)
     instead of K3, as the JAX package's gamma_operator does
-    (fibergen_tpu/ops/gamma.py:101-103)."""
+    (fibergen_tpu/ops/gamma.py:101-103); unsharded only.  With ``par`` the
+    halo stencils around the kz-slab K3."""
+    if par is not None:
+        f = _per_slab(lambda t, h: staggered.div_staggered(grid, t, halo=h),
+                      tau)
+        u = green.g0_staggered_fused(grid, mu_0, lambda_0, f, alpha, par=par)
+        del f
+        E = _corrected(E, bc, tau, alpha)
+        return [staggered.eps_staggered(grid, _like(slabs.part(E, j), x), x,
+                                        halo=h)
+                for j, (x, h) in enumerate(zip(u, _halos(u)))]
     f = staggered.div_staggered(grid, tau)
     if g0_solver == "multigrid":
         from ..solvers.multigrid import g0_multigrid_staggered
@@ -113,7 +142,7 @@ def gamma_staggered(grid, E, mu_0, lambda_0, tau, bc=None, alpha=-1.0,
     return staggered.eps_staggered(grid, _corrected(E, bc, tau, alpha), u)
 
 
-def delta_staggered(grid, E, mu_0, tau, alpha=-1.0, bc=None):
+def delta_staggered(grid, E, mu_0, tau, alpha=-1.0, bc=None, par=None):
     """Viscosity dual operator on the staggered grid (delta_operator's
     staggered branch, fibergen_tpu/ops/gamma.py:205-212; DeltaOperator*,
     fibergen.cpp:20380-20486) for any stress difference ``tau``: eta =
@@ -121,46 +150,64 @@ def delta_staggered(grid, E, mu_0, tau, alpha=-1.0, bc=None):
     as :func:`gamma_staggered` with the dual constants (-1/(4 mu0v), inf)
     and the mean adj = E - 2 alpha mu0v <tau>, plus 2 alpha mu0v tau (K3
     between the plain stencils; the correction under ``bc`` reads
-    mean(tau))."""
+    mean(tau)).  With ``par`` the halo stencils around the kz-slab K3, the
+    mean of tau added over the slabs in slab order."""
     mu0v = 1.0 / (4.0 * mu_0)
     b = 2.0 * alpha * mu0v
-    adj = torch.as_tensor(E, dtype=tau.dtype, device=tau.device) \
-        - b * fields.mean(tau)
+    adj = _shifted_mean(E, -b, tau)
     eta = gamma_staggered(grid, adj, -1.0 / (4.0 * mu0v), float("inf"), tau,
-                          bc=bc, alpha=alpha)
-    return eta.add_(b * tau)
+                          bc=bc, alpha=alpha, par=par)
+    slabs.smap(lambda e, t: e.add_(b * t), eta, tau)
+    return eta
 
 
 def gamma_heat_staggered(grid, E, mu_0, tau, par=None, bc=None):
     """eta = -Gamma tau with mean E on (3, nx, ny, nz) fields
     (gamma_operator, mode heat/porous, staggered scheme, alpha = -1)."""
     if par is not None:
-        f = [staggered.div_staggered_heat(grid, t, halo=h)
-             for t, h in zip(tau, _halos(tau))]
+        f = _per_slab(
+            lambda t, h: staggered.div_staggered_heat(grid, t, halo=h), tau)
         u = green.g0_staggered_heat_fused(grid, mu_0, 0.0, f, par=par)
-        return [staggered.eps_staggered_heat(grid, e, x, halo=h)
-                for e, x, h in zip(E, u, _halos(u))]
+        E = _corrected(E, bc, tau, -1.0)
+        return [staggered.eps_staggered_heat(grid, slabs.part(E, j), x,
+                                             halo=h)
+                for j, (x, h) in enumerate(zip(u, _halos(u)))]
     f = staggered.div_staggered_heat(grid, tau)
     u = green.g0_staggered_heat_fused(grid, mu_0, 0.0, f)
     return staggered.eps_staggered_heat(grid, _corrected(E, bc, tau, -1.0),
                                         u)
 
 
-def fused_visc(grid, r, p_prev, beta, E, mu_x, lam_x, mu0, lam0):
+def fused_visc(grid, r, p_prev, beta, E, mu_x, lam_x, mu0, lam0, par=None,
+               mod_halo=None):
     """Viscosity Delta staggered application on one direction build:
     p = r + beta p_prev (p = r with ``p_prev=None``); tau = (C(x) - C0) : p;
     u = G0'(div tau) with the dual constants (mu_0' = -mu0, lambda' -> inf,
     fibergen.cpp:20446-20458); eta = adj + grad(u) + 2 alpha mu0v tau with
     alpha = -1, mu0v = 1/(4 mu0) and adj = E - 2 alpha mu0v mean(tau), formed
     on the device.  Returns (eta, p, dot_raw) with dot_raw = nxyz <p, p -
-    eta> (the CG denominator); p is None with ``p_prev=None``."""
-    f, p, tau_sum = stress_div_beta(grid, r, p_prev, beta, mu_x, lam_x, mu0,
-                                    lam0, want_tau_sum=True)
-    u = green.g0_staggered_fused(grid, -mu0, float("inf"), f)
+    eta> (the CG denominator); p is None with ``p_prev=None``.  With
+    ``par`` K1 tau-sum mode and K2 Delta mode run in halo mode around the
+    kz-slab K3 (``mod_halo``: the moduli's halo planes, as
+    stress_div_beta_slabs takes them); the tau sum and the dot are the
+    slabs' sums added in slab order, on every slab's device."""
     bdelta = 2.0 * (-1.0) * (1.0 / (4.0 * mu0))    # 2 alpha mu0v
-    adj = E - (bdelta / grid.nxyz) * tau_sum
-    w, dot_raw = eps_from_u_dot(grid, adj, u, r if p is None else p,
-                                mu_x=mu_x, tau2c=bdelta, mu0=mu0)
+    if par is None:
+        f, p, tau_sum = stress_div_beta(grid, r, p_prev, beta, mu_x, lam_x,
+                                        mu0, lam0, want_tau_sum=True)
+        u = green.g0_staggered_fused(grid, -mu0, float("inf"), f)
+        adj = E - (bdelta / grid.nxyz) * tau_sum
+        w, dot_raw = eps_from_u_dot(grid, adj, u, r if p is None else p,
+                                    mu_x=mu_x, tau2c=bdelta, mu0=mu0)
+        return w, p, dot_raw
+    f, p, tau_sum = stress_div_beta_slabs(grid, r, p_prev, beta, mu_x, lam_x,
+                                          mu0, lam0, mod_halo,
+                                          want_tau_sum=True)
+    u = green.g0_staggered_fused(grid, -mu0, float("inf"), f, par=par)
+    del f
+    adj = [e - (bdelta / grid.nxyz) * t for e, t in zip(E, tau_sum)]
+    w, dot_raw = eps_from_u_dot_slabs(grid, adj, u, r if p is None else p,
+                                      mu_x=mu_x, tau2c=bdelta, mu0=mu0)
     return w, p, dot_raw
 
 
@@ -197,12 +244,19 @@ def delta_collocated(grid, E, mu_0, tau, alpha=-1.0, par=None, bc=None,
 
 
 def gamma_willot(grid, E, mu_0, lambda_0, tau, alpha=-1.0, beta=0.0,
-                 bc=None):
+                 bc=None, par=None):
     """eta = alpha Gamma_W tau + beta tau with mean E on (6, nx, ny, nz)
     fields (gamma_operator, mode elasticity, scheme "willot",
     fibergen_tpu/ops/gamma.py:81-89): ``torch.fft`` around
     ``green.gamma_willot``; under ``bc`` the DC bin takes E + alpha R with
-    R from the DC bin of the transformed tau."""
+    R from the DC bin of the transformed tau.  With ``par`` the plain slab
+    transforms around the apply on each kz-slab, its table built from the
+    slab's own wavenumbers, R from the cross-slab mean of tau."""
+    if par is not None:
+        E = _corrected(E, bc, tau, alpha)
+        return green.slab_transformed(par, grid, tau, lambda y, j, cols: (
+            green.gamma_willot(grid, slabs.part(E, j), mu_0, lambda_0, y,
+                               alpha, beta, cols=cols)))
     tau_hat = fft.fftn(tau)
     E = torch.as_tensor(E, dtype=tau.dtype, device=tau.device)
     if bc is not None:
@@ -211,7 +265,8 @@ def gamma_willot(grid, E, mu_0, lambda_0, tau, alpha=-1.0, beta=0.0,
                                         alpha, beta), grid.shape)
 
 
-def delta_willot(grid, E, mu_0, tau, alpha=-1.0, beta=0.0, bc=None):
+def delta_willot(grid, E, mu_0, tau, alpha=-1.0, beta=0.0, bc=None,
+                 par=None):
     """Viscosity dual operator with Willot's Gamma (delta_operator, scheme
     "willot", fibergen_tpu/ops/gamma.py:205-212): eta = 2 alpha mu0v
     (tau - mu0v Gamma_W^0 : tau) + beta tau with mean E, mu0v =
@@ -219,11 +274,11 @@ def delta_willot(grid, E, mu_0, tau, alpha=-1.0, beta=0.0, bc=None):
     inf)."""
     mu0v = 1.0 / (4.0 * mu_0)
     b = 2.0 * alpha * mu0v
-    adj = torch.as_tensor(E, dtype=tau.dtype, device=tau.device) \
-        - b * fields.mean(tau)
+    adj = _shifted_mean(E, -b, tau)
     eta = gamma_willot(grid, adj, -1.0 / (4.0 * mu0v), float("inf"), tau,
-                       alpha, bc=bc)
-    return eta.add_((b + beta) * tau)
+                       alpha, bc=bc, par=par)
+    slabs.smap(lambda e, t: e.add_((b + beta) * t), eta, tau)
+    return eta
 
 
 def gamma_hyper(grid, scheme, E, mu_0, lambda_0, tau, alpha=-1.0, beta=0.0,

@@ -12,10 +12,12 @@ take real-space fields and dispatch to the chain kernels of
 chain, as in the JAX package, which takes XLA's FFT for them outside its
 Pallas kernels: Willot's rotated Gamma (:func:`gamma_willot`) and the
 collocated Gamma with the even-grid Nyquist symmetrization
-(``freq_hack``); both go through ``torch.fft`` on any device.  With ``par`` (a
-parallel.fft.SlabPar) the field is a list of x-slabs and the chain runs on
-them (``*_chain_slab``; green.py:217-236, :336-345, :499-590 of the JAX
-package pass ``par`` the same way)."""
+(``freq_hack``); both go through ``torch.fft`` on any device, on x-slabs
+through the plain slab transforms (:func:`slab_transformed`) with each
+kz-slab's own wavenumbers.  With ``par`` (a parallel.fft.SlabPar) the field
+is a list of x-slabs and the chain runs on them (``*_chain_slab``;
+green.py:217-236, :336-345, :499-590 of the JAX package pass ``par`` the
+same way)."""
 from __future__ import annotations
 
 import itertools
@@ -23,8 +25,8 @@ import itertools
 import numpy as np
 import torch
 
+from ..parallel import slabs
 from . import fft, spectral_kernels
-
 
 
 def g0_constants(mu_0, lambda_0, alpha=-1.0):
@@ -124,7 +126,7 @@ def _tables_of(grid, tau_hat):
 
 
 def gamma_collocated(grid, E, mu_0, lambda_0, tau_hat, alpha=-1.0, beta=0.0,
-                     freq_hack=False):
+                     freq_hack=False, cols=None):
     """eta_hat = alpha Gamma_hat : tau_hat + beta tau_hat with the DC bin =
     E on 6-component hat fields (GammaOperatorFourierCollocated,
     fibergen.cpp:19381-19608), plain PyTorch:
@@ -135,18 +137,24 @@ def gamma_collocated(grid, E, mu_0, lambda_0, tau_hat, alpha=-1.0, beta=0.0,
     ``freq_hack`` is the reference's even-grid Nyquist fix
     (fibergen.cpp:19396-19398, 19459-19472): at a bin where axes sit on
     their sign-ambiguous Nyquist frequency, Gamma is the average of the
-    applications over the 2^m sign choices of those components."""
+    applications over the 2^m sign choices of those components.
+
+    ``cols=(off, w)``: ``tau_hat`` is the kz-slab of columns off..off+w-1
+    (parallel/), which holds the DC bin when off == 0."""
     A, B = collocated_constants(mu_0, lambda_0, alpha)
     tables = _tables_of(grid, tau_hat)
+    off, w = (0, grid.nzc) if cols is None else cols
+    tables = spectral_kernels._kz_cols(tables, off, w)
     if not freq_hack:
         return spectral_kernels.gamma_collocated_apply_plain(
-            tau_hat, tables, A, B, E, beta)
+            tau_hat, tables, A, B, E, beta, dc=off == 0)
     tx, ty, tz = tables
     xis = (tx.reshape(-1, 1, 1), ty.reshape(-1, 1), tz)
     ind = torch.zeros(tau_hat.shape[1:], dtype=tx.dtype, device=tx.device)
-    ind[0, 0, 0] = 1.0
+    if off == 0:
+        ind[0, 0, 0] = 1.0
     eta = None
-    combos = _nyquist_sign_combos(grid, xis)
+    combos = _nyquist_sign_combos(grid, xis, (off, w))
     for x in combos:
         k2 = x[0] * x[0] + x[1] * x[1] + x[2] * x[2] + ind
         part = torch.stack(spectral_kernels._gamma_part(list(tau_hat), x, k2,
@@ -159,13 +167,17 @@ def gamma_collocated(grid, E, mu_0, lambda_0, tau_hat, alpha=-1.0, beta=0.0,
     return eta * (1.0 - ind) + E.reshape(-1, 1, 1, 1) * ind
 
 
-def _nyquist_sign_combos(grid, xis):
+def _nyquist_sign_combos(grid, xis, cols):
     """The sign-flip variants of the wavenumbers ``xis`` over the Nyquist
     bins of the even axes (the JAX package's ``_nyquist_sign_combos``):
     2^m tuples for m even axes, ``[xis]`` when no axis is even.  Off the
-    Nyquist bins every variant equals ``xis``."""
+    Nyquist bins every variant equals ``xis``.  ``cols=(off, w)``: the kz
+    columns ``xis`` holds."""
     flips = []
+    off, w = cols
     for axis, (f, n) in enumerate(zip(grid.freq_index, grid.shape)):
+        if axis == 2:
+            f = f[off:off + w]
         if n % 2 == 0:
             m = torch.as_tensor(np.abs(f) == n // 2, device=xis[0].device)
             flips.append((axis, m))
@@ -197,12 +209,13 @@ def gamma_collocated_fused(grid, E, mu_0, lambda_0, tau, alpha=-1.0,
     CPU.  ``E`` may be a device tensor (it is not read on the host), on
     x-slabs a list of them, one per slab.  ``freq_hack`` takes the separate
     transforms (``torch.fft``) around the symmetrized apply, as the JAX
-    package does; not on x-slabs."""
+    package does; on x-slabs the plain slab transforms
+    (:func:`slab_transformed`) around the apply on each kz-slab."""
     if freq_hack:
         if par is not None:
-            raise NotImplementedError(
-                "freq_hack on a sharded mesh is not ported yet (ROADMAP.md, "
-                "Queue 1 item 8)")
+            return slab_transformed(par, grid, tau, lambda y, j, cols: (
+                gamma_collocated(grid, slabs.part(E, j), mu_0, lambda_0, y,
+                                 alpha, beta, freq_hack=True, cols=cols)))
         return fft.ifftn(gamma_collocated(grid, E, mu_0, lambda_0,
                                           fft.fftn(tau), alpha, beta,
                                           freq_hack=True), grid.shape)
@@ -271,21 +284,28 @@ def gamma_collocated_hyper_fused(grid, E, mu_0, lambda_0, tau, alpha=-1.0,
 _willot_cache: dict = {}
 
 
-def _willot_entries(grid, mu_0, lambda_0, dtype, device):
+def _willot_entries(grid, mu_0, lambda_0, dtype, device, cols=None):
     """The 21 upper-triangle entries g(iv, jv), iv <= jv, of Willot's
     rotated Gamma on the half-spectrum (GammaOperatorFourierWillotR,
     fibergen.cpp:19083-19299; the JAX package's green.gamma_willot), in
-    the complex type of ``dtype`` on ``device``.  Built in float64 and kept
-    for the last (grid, mu_0, lambda_0, dtype, device): a solve applies the
-    same operator at every iteration."""
-    key = (grid, float(mu_0), None if lambda_0 is None else float(lambda_0),
-           dtype, torch.device(device))
+    the complex type of ``dtype`` on ``device``; with ``cols=(off, w)`` on
+    the kz columns off..off+w-1 of a kz-slab, from its own wavenumbers.
+    Built in float64 and kept for the last (grid, mu_0, lambda_0, dtype),
+    per device and columns: a solve applies the same operator at every
+    iteration, on every kz-slab."""
+    base = (grid, float(mu_0), None if lambda_0 is None else float(lambda_0),
+            dtype)
+    key = (torch.device(device), cols)
+    if _willot_cache.get("base") != base:
+        _willot_cache.clear()
+        _willot_cache["base"] = base
     hit = _willot_cache.get(key)
     if hit is not None:
         return hit
-    _willot_cache.clear()
     f64, c128 = torch.float64, torch.complex128
     fx, fy, fz = grid.freq_index
+    if cols is not None:
+        fz = fz[cols[0]:cols[0] + cols[1]]
     qs = [torch.as_tensor(f * (2.0 * np.pi / n), dtype=f64, device=device)
           for f, n in zip((fx, fy, fz), grid.shape)]
     w = grid.spacing
@@ -340,7 +360,8 @@ def _willot_entries(grid, mu_0, lambda_0, dtype, device):
     return out
 
 
-def gamma_willot(grid, E, mu_0, lambda_0, tau_hat, alpha=-1.0, beta=0.0):
+def gamma_willot(grid, E, mu_0, lambda_0, tau_hat, alpha=-1.0, beta=0.0,
+                 cols=None):
     """eta_hat = alpha Gamma_W : tau_hat + beta tau_hat with the DC bin = E
     on 6-component hat fields: Willot's rotated discrete Green operator
     (GammaOperatorFourierWillotR, fibergen.cpp:19083-19299), plain
@@ -350,9 +371,10 @@ def gamma_willot(grid, E, mu_0, lambda_0, tau_hat, alpha=-1.0, beta=0.0):
     normalized to r = kvec/|kvec|; ``lambda_0=None`` (or inf) is the
     lambda_0 -> infinity limit of the viscosity Delta scheme.  The lower
     triangle of the 6x6 map is the conjugate of the upper one; shear
-    columns weigh 2."""
+    columns weigh 2.  ``cols=(off, w)``: ``tau_hat`` is the kz-slab of
+    columns off..off+w-1, which holds the DC bin when off == 0."""
     g = _willot_entries(grid, mu_0, lambda_0, tau_hat.real.dtype,
-                        tau_hat.device)
+                        tau_hat.device, cols)
     outs = []
     for iv in range(6):
         acc = 0.0
@@ -362,9 +384,22 @@ def gamma_willot(grid, E, mu_0, lambda_0, tau_hat, alpha=-1.0, beta=0.0):
         outs.append(alpha * acc + (beta * tau_hat[iv] if beta != 0.0
                                    else 0.0))
     eta = torch.stack(outs)
-    E = spectral_kernels._vector(E, tau_hat.real, 6)
-    eta[:, 0, 0, 0] = E.to(eta.dtype)
+    if cols is None or cols[0] == 0:
+        E = spectral_kernels._vector(E, tau_hat.real, 6)
+        eta[:, 0, 0, 0] = E.to(eta.dtype)
     return eta
+
+
+def slab_transformed(par, grid, f, apply):
+    """``ifftn(apply(fftn f))`` on the x-slabs of a sharded field through
+    the plain slab transforms (``torch.fft``): the z transform on each
+    x-slab, the exchange to kz-slabs (``comm.to_kz``), the y and x
+    transforms there, ``apply(y, j, (off, w))`` on kz-slab j of columns
+    off..off+w-1, and back.  The operators that run no chain (Willot's
+    Gamma, ``freq_hack``) take it on slabs, as the JAX package takes its
+    slab FFT for them (fibergen_tpu/ops/gamma.py:58-59)."""
+    return spectral_kernels._slab_chain_plain(
+        par, grid, f, lambda y, j, off, w: apply(y, j, (off, w)))
 
 
 def poisson_solve(grid, f):

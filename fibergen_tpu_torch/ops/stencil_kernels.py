@@ -259,14 +259,16 @@ def eps_from_u_dot(grid, E, u, p=None, mu_x=None, tau2c=0.0, mu0=0.0,
 # ------------------------------------------------- on the x-slabs (#11)
 
 def stress_div_beta_slabs(grid, r, p_prev, beta, mu_x, lam_x, mu0, lam0,
-                          mod_halo=None):
+                          mod_halo=None, want_tau_sum=False):
     """K1 in halo mode on every x-slab of a sharded field (lists of slabs;
     the JAX package's stress_div_beta_staggered / stress_div_staggered with
     ``axis_name``).  The halo planes of r and p_prev are exchanged here;
     ``mod_halo`` holds those of mu_x and lam_x (``comm.halo_x`` of each,
     exchanged once per solve; here when None).  ``beta``: one entry per slab
     (a 0-d tensor or a (gamma, gamma_prev) pair), None in init mode.
-    Returns (f slabs, p slabs or None)."""
+    Returns (f slabs, p slabs or None), plus with ``want_tau_sum`` the (6,)
+    grid sum of tau: the slabs' sums added in slab order (``comm.psum``),
+    on every slab's device."""
     d = len(r)
     rm, rq = comm.halo_x(r)
     pm, pq = ([None] * d, [None] * d) if p_prev is None else \
@@ -275,22 +277,28 @@ def stress_div_beta_slabs(grid, r, p_prev, beta, mu_x, lam_x, mu0, lam0,
                                         comm.halo_x(lam_x))
     out = [stress_div_beta(grid, r[i], None if p_prev is None else p_prev[i],
                            None if beta is None else beta[i], mu_x[i],
-                           lam_x[i], mu0, lam0,
+                           lam_x[i], mu0, lam0, want_tau_sum=want_tau_sum,
                            halo=((rm[i], pm[i], mum[i], lm[i]),
                                  (rq[i], pq[i], muq[i], lq[i])))
            for i in range(d)]
-    return [o[0] for o in out], \
-        None if p_prev is None else [o[1] for o in out]
+    res = ([o[0] for o in out],
+           None if p_prev is None else [o[1] for o in out])
+    if want_tau_sum:
+        res += (comm.psum([o[2] for o in out]),)
+    return res
 
 
-def eps_from_u_dot_slabs(grid, E, u, p=None):
+def eps_from_u_dot_slabs(grid, E, u, p=None, mu_x=None, tau2c=0.0, mu0=0.0):
     """K2 in halo mode on every x-slab of a sharded field (the JAX package's
     eps_from_u_staggered / eps_from_u_dot_staggered with ``axis_name``):
     the halo planes of u are exchanged here; ``E`` is a list with one (6,)
-    tensor per slab.  Returns (w slabs, the dot as ``comm.psum`` of the
-    slabs' sums, or None without ``p``)."""
+    tensor per slab; ``mu_x`` (Delta mode) the slabs of mu(x), which the
+    voxel-local Delta term reads without halo planes.  Returns (w slabs,
+    the dot as ``comm.psum`` of the slabs' sums, or None without ``p``)."""
     um, uq = comm.halo_x(u)
     out = [eps_from_u_dot(grid, E[i], u[i], None if p is None else p[i],
-                          halo=(um[i], uq[i])) for i in range(len(u))]
+                          mu_x=None if mu_x is None else mu_x[i],
+                          tau2c=tau2c, mu0=mu0, halo=(um[i], uq[i]))
+           for i in range(len(u))]
     w = [o[0] for o in out]
     return w, None if p is None else comm.psum([o[1] for o in out])

@@ -59,22 +59,28 @@ and polarization schemes read their metric once per iteration.  Under a
 projector that is not the identity every Gamma application corrects its
 mean on the device (ops/gamma.py; on the staggered elasticity path K2
 takes the corrected mean as its E, and staggered viscosity takes the
-generic Delta path); sharded solves refuse it.
+generic Delta path).
 
 Sharded (``LSSolver(..., sharding=parallel.field_sharding(mesh))``, the
 x-slab solve of the JAX package's ``sharding=NamedSharding(mesh,
 P(None, "x", None, None))``): one process drives the slabs of a mesh of
 devices (``parallel/``).  The fields are lists of x-slabs, the scalars
-lists with the value on every slab's device; CG and basic run in
-elasticity, heat and porous flow on both grids and in viscosity on the
-collocated grid: K1 and K2 in halo mode around the kz-slab K3 chain
-(staggered elasticity), the plain halo stencils around the kz-slab K4
-chain (staggered heat), the per-slab stress difference and the kz-slab
-K5 or K6 chain (collocated).  Polarization runs on slabs in elasticity,
-heat and porous flow (kz-slab K5), Newton-Krylov in hyperelasticity on
+lists with the value on every slab's device.  Every linear path of the
+unsharded solver runs so, in every method, with mixed BCs and in
+``run_batched``: K1 and K2 in halo mode around the kz-slab K3 chain
+(staggered elasticity on the isotropic route; K1 tau-sum and K2 Delta
+mode in staggered viscosity), the plain halo stencils around the kz-slab
+K3 or K4 chain (any other staggered material, the generic Delta path,
+heat), the per-slab stress difference and the kz-slab K5 or K6 chain
+(collocated), the plain slab transforms around Willot's Gamma and the
+``freq_hack`` apply; Newton-Krylov and nonlinear CG in hyperelasticity on
 both grids (the per-slab full-gradient halo stencils around the kz-slab
-K3 chain; the kz-slab K5 at C = 9).  Reductions add per-slab partials in
-slab order.
+K3 chain; the kz-slab K5 at C = 9).  The materials off the Voigt rule run
+on per-slab views (materials/sharded.py), the doubly-fine grid on fine
+x-slabs.  Reductions add per-slab partials in slab order, the mixed-BC
+means among them.  Refinement and the low-memory CG stay unsharded, as in
+the JAX package; the multigrid G0 and ``sharding_fallback="warn"`` are
+refused on slabs.
 """
 from __future__ import annotations
 
@@ -90,6 +96,7 @@ import torch
 from ..core import fields, voigt
 from ..core.device import resolve_device, resolve_dtype
 from ..materials import laws
+from ..materials.sharded import for_slabs
 from ..ops import gamma as gammamod
 from ..ops import green, spectral_kernels
 from ..ops.stencil_kernels import (eps_from_u_dot, eps_from_u_dot_slabs,
@@ -241,6 +248,12 @@ def _check_options(opt: SolverOptions):
         v = getattr(opt, f.name)
         if f.name == "gamma_scheme":
             v = _scheme_name(v)
+        if f.name == "sharding_fallback" and v != f.default:
+            raise NotImplementedError(
+                f"SolverOptions.sharding_fallback={v!r} (the JAX package's "
+                f"replicated solve of a mesh the x-slabs cannot split) is not "
+                f"ported yet (ROADMAP.md, Queue 1); the port refuses such a "
+                f"mesh")
         if v != f.default and v not in _ALSO.get(f.name, ()):
             raise NotImplementedError(
                 f"SolverOptions.{f.name}={v!r} is not ported yet (the port "
@@ -364,6 +377,8 @@ class LSSolver:
         self._estimator_kind = make_estimator(
             self.opt.error_estimator).metric_kind
         self.par = self._slab_layout(sharding)
+        if self.par is not None:
+            self.mat = for_slabs(material)
         self._mod_halo = None
 
     def _settle_route(self):
@@ -397,7 +412,7 @@ class LSSolver:
         """The x-slab layout of a sharded solve (parallel.fft.SlabPar), None
         unsharded or on a replicated sharding.  Refuses, as the JAX package
         does (ls.py:303-322), a sharding that cannot take the slab path, and
-        the paths not ported to slabs."""
+        the multigrid G0, not ported to slabs."""
         if sharding is None:
             return None
         par = slab_fft_for(sharding, self.grid)
@@ -410,28 +425,11 @@ class LSSolver:
                 f"whose nx and ny divide the mesh (the port has no "
                 f"replicated fallback: sharding_fallback='warn' is not "
                 f"ported).")
-        if self.scheme == "willot" or self.opt.freq_hack:
-            raise NotImplementedError(
-                "Willot's Gamma and freq_hack on a sharded mesh are not "
-                "ported yet (ROADMAP.md, Queue 1 item 8)")
         if self.opt.g0_solver == "multigrid" and self.mode == "elasticity" \
                 and self.scheme != "collocated":
             raise NotImplementedError(
-                "the multigrid G0 on a sharded mesh is not ported yet")
-        if self.mode == "viscosity" and self.scheme != "collocated":
-            raise NotImplementedError(
-                "staggered viscosity (the JAX package's generic Delta path "
-                "on slabs) on a sharded mesh is not ported yet; the sharded "
-                "solve runs CG, basic and polarization in elasticity, heat "
-                "and porous flow on both grids, in viscosity on the "
-                "collocated grid, and Newton-Krylov in hyperelasticity")
-        if self.mat.rule != "voigt" or (self.dim != 9
-                                        and not self.mat.iso_route()):
-            raise NotImplementedError(
-                f"a sharded solve of a material off the isotropic Voigt "
-                f"route ({self.mat}: phases without isotropic moduli, or "
-                f"another mixing rule) is not ported yet (ROADMAP.md, Queue "
-                f"1 item 8)")
+                "the multigrid G0 on a sharded mesh is not ported yet "
+                "(ROADMAP.md, Queue 1)")
         return par
 
     # ------------------------------------------------------------------ API
@@ -603,8 +601,6 @@ class LSSolver:
             raise SolverError("Incompatible stress boundary condition specified")
         if nE > 0 and voigt.norm_2(voigt.dyad4_mv(Q, self.E)) > eps_m * nE:
             raise SolverError("Incompatible strain boundary condition specified")
-        if np.any(Q) or nS > 0:
-            self._refuse_mixed()
 
         # initial field (fibergen.cpp:21368-21380)
         self.eps = self._seed()
@@ -618,14 +614,6 @@ class LSSolver:
         self.solve_time = time.perf_counter() - t0
         self._chain_calls = _since(calls0)
         return failed
-
-    def _refuse_mixed(self):
-        """The mixed-BC paths the port does not run yet."""
-        if self.par is not None:
-            raise NotImplementedError(
-                "mixed boundary conditions (a projector other than the "
-                "identity, or a prescribed stress) on a sharded mesh are not "
-                "ported yet")
 
     def _seed(self):
         """The initial field: Id in hyperelasticity, zero otherwise."""
@@ -855,9 +843,11 @@ class LSSolver:
         if self.mode == "viscosity":
             if self._k1_route and bc is None:
                 return gammamod.fused_visc(grid, eps, None, None, E, mu_x,
-                                           lam_x, mu0, lam0)[0]
+                                           lam_x, mu0, lam0, par=par,
+                                           mod_halo=self._mod_halo)[0]
             return gammamod.delta_staggered(
-                grid, E, mu0, self.mat.stress_diff(eps, mu0, lam0), bc=bc)
+                grid, E, mu0, self.mat.stress_diff(eps, mu0, lam0), bc=bc,
+                par=par)
         if self.dim == 3:
             return gammamod.gamma_heat_staggered(
                 grid, E, mu0, self.mat.stress_diff(eps, mu0, lam0), par=par,
@@ -865,7 +855,7 @@ class LSSolver:
         if not self._k1_route:
             return gammamod.gamma_staggered(
                 grid, E, mu0, lam0, self.mat.stress_diff(eps, mu0, lam0),
-                bc=bc, g0_solver=self.opt.g0_solver)
+                bc=bc, g0_solver=self.opt.g0_solver, par=par)
         return self._k1_k3_k2(eps, None, None, E, mu_x, lam_x, bc)[0]
 
     def _gamma_apply(self, E, tau, alpha=-1.0, beta=0.0, bc=None):
@@ -877,12 +867,12 @@ class LSSolver:
         if self.mode == "viscosity":
             if self.scheme == "willot":
                 return gammamod.delta_willot(grid, E, mu0, tau, alpha, beta,
-                                             bc=bc)
+                                             bc=bc, par=par)
             return gammamod.delta_collocated(grid, E, mu0, tau, alpha,
                                              par=par, bc=bc, beta=beta)
         if self.scheme == "willot":
             return gammamod.gamma_willot(grid, E, mu0, lam0, tau, alpha, beta,
-                                         bc=bc)
+                                         bc=bc, par=par)
         return gammamod.gamma_collocated(grid, E, mu0, lam0, tau, alpha, beta,
                                          par=par, bc=bc,
                                          freq_hack=self.opt.freq_hack)
@@ -904,9 +894,10 @@ class LSSolver:
             f, p = stress_div_beta_slabs(grid, r, p_prev, beta, mu_x, lam_x,
                                          mu0, lam0, self._mod_halo)
         if bc is not None:
-            F0 = gammamod.stress_diff_mean(r if p is None else p, mu_x,
-                                           lam_x, mu0, lam0)
-            E = E - bcmod.bc_correction(bc, F0)
+            F0 = slabs.vmean(lambda x, m, lm: gammamod.stress_diff_mean(
+                x, m, lm, mu0, lam0), r if p is None else p, mu_x, lam_x)
+            E = slabs.smap(lambda E, F0: E - bcmod.bc_correction(bc, F0), E,
+                           F0)
         u = green.g0_staggered_fused(grid, mu0, lam0, f, par=par)
         del f
         k2 = eps_from_u_dot if par is None else eps_from_u_dot_slabs
@@ -957,10 +948,10 @@ class LSSolver:
                                            bc)
             denom = slabs.smap(lambda d: d / grid.nxyz, dot_raw)
         elif fused and self.mode == "viscosity" and bc is None:
-            w, p, dot_raw = gammamod.fused_visc(grid, r, p_prev, beta, zero,
-                                                mu_x, lam_x, self.mu_0,
-                                                self.lambda_0)
-            denom = dot_raw / grid.nxyz
+            w, p, dot_raw = gammamod.fused_visc(
+                grid, r, p_prev, beta, zero, mu_x, lam_x, self.mu_0,
+                self.lambda_0, par=self.par, mod_halo=self._mod_halo)
+            denom = slabs.smap(lambda d: d / grid.nxyz, dot_raw)
         else:
             p = slabs.smap(lambda r, pp, g, gp: r + (g / gp) * pp, r, p_prev,
                            gamma, gamma_prev)
@@ -1077,19 +1068,18 @@ class LSSolver:
 
         On success ``eps_batch`` holds (B, dim, nx, ny, nz) and ``eps`` the
         last case (``eps_batch[-1]``); calc_mean_stress_batched() gives the
-        (B, dim) mean stresses.  Returns True on failure, False on success
-        (run() semantics).  ``pallas_mid`` (the JAX package's choice of its
-        batched chain) is accepted and has no effect: the port launches
-        its chain once per right-hand side."""
+        (B, dim) mean stresses.  Sharded, each right-hand side steps on the
+        slabs as run() steps them, and ``eps_batch`` is the list of the
+        slabs' (B, dim, nx/D, ny, nz) blocks.  Returns True on failure,
+        False on success (run() semantics).  ``pallas_mid`` (the JAX
+        package's choice of its batched chain) is accepted and has no
+        effect: the port launches its chain once per right-hand side."""
         if self.opt.method != "cg" or self.mode == "hyperelasticity":
             raise SolverError("run_batched requires the linear CG")
         if self.sharding is not None and self.par is None:
             raise SolverError(
                 "run_batched on a mesh requires the slab-FFT layout "
                 "(x-slab NamedSharding with mesh-divisible nx, ny)")
-        if self.par is not None:
-            raise NotImplementedError(
-                "run_batched on a sharded mesh is not ported yet")
         self._settle_route()
         t0 = time.perf_counter()
         calls0 = dict(spectral_kernels.calls)
@@ -1111,33 +1101,42 @@ class LSSolver:
         K = max(1, int(self.opt.check_every))
         ests = [make_estimator(self.opt.error_estimator) for _ in range(B)]
 
-        eps_b = torch.empty((B, self.dim) + self.grid.shape, dtype=self.dtype,
-                            device=self.device)
+        if self.par is None:
+            eps_b = torch.empty((B, self.dim) + self.grid.shape,
+                                dtype=self.dtype, device=self.device)
+        else:
+            nxl = self.grid.nx // self.par.n_devices
+            eps_b = [torch.empty((B, self.dim, nxl, self.grid.ny,
+                                  self.grid.nz), dtype=self.dtype, device=d)
+                     for d in self.par.devices]
+        cases = _batch_cases(eps_b)
         states, g0, m0 = [], [], []
         for b in range(B):
             eps, r, p, gamma, gamma_prev, met0 = self._cg_init(
                 self._vector(Es[b]), mu_x, lam_x, zero)
-            eps_b[b].copy_(eps)
+            slabs.smap(torch.Tensor.copy_, cases[b], eps)
             del eps
-            states.append([eps_b[b], r, p, gamma, gamma_prev])
-            g0.append(gamma)
+            states.append([cases[b], r, p, gamma, gamma_prev])
+            g0.append(slabs.local(gamma))
             m0.append(met0)
-        self.eps = eps_b[-1]
+        self.eps = cases[-1]
         g0 = torch.stack(g0).cpu().numpy().astype(np.float64)
         for b, e in enumerate(ests):
-            e.start(None if m0[b] is None else m0[b].cpu().numpy())
+            e.start(None if m0[b] is None else
+                    slabs.local(m0[b]).cpu().numpy())
         del m0
         it, done = 0, False
         while not done:
             gs, ms = [], []
             for _ in range(K):
-                gs.append(torch.stack([st[3] for st in states]))
+                gs.append(torch.stack([slabs.local(st[3]) for st in states]))
                 mk = []
                 for st in states:
                     out = self._cg_step(*st, mu_x, lam_x, zero)
                     st[:] = out[:5]             # eps, r, p, gamma, gamma_prev
                     mk.append(out[5])
-                ms.append(None if mk[0] is None else torch.stack(mk))
+                ms.append(None if mk[0] is None else
+                          torch.stack([slabs.local(m) for m in mk]))
             gs = torch.stack(gs).cpu().numpy().astype(np.float64)  # (K, B)
             ms = None if ms[0] is None else torch.stack(ms).cpu().numpy()
             for k in range(K):
@@ -1153,7 +1152,7 @@ class LSSolver:
                     break
         del states
         self.eps_batch = eps_b
-        self.eps = eps_b[-1]
+        self.eps = cases[-1]
         self._sync()
         self.solve_time = time.perf_counter() - t0
         self._chain_calls = _since(calls0)
@@ -1250,7 +1249,8 @@ class LSSolver:
 
     def calc_mean_stress_batched(self):
         """(B, dim) mean stresses of the last run_batched."""
-        return torch.stack([self.mat.mean_pk1(e) for e in self.eps_batch]
+        return torch.stack([slabs.local(self.mat.mean_pk1(e))
+                            for e in _batch_cases(self.eps_batch)]
                            ).cpu().numpy()
 
     # ------------------------------------------------- basic, polarization
@@ -1498,6 +1498,15 @@ class LSSolver:
         err_S = voigt.norm_2(Q_S - self._current_S) / (
             1.0 if norm_S < self.opt.bc_tol else norm_S)
         return float(max(err_F, err_S))
+
+
+def _batch_cases(eps_batch):
+    """The fields of a batch, one per right-hand side: the (B, dim, ...)
+    tensor's rows, or of the slabs' blocks each case's list of slabs."""
+    if slabs.sharded(eps_batch):
+        return [[x[b] for x in eps_batch]
+                for b in range(eps_batch[0].shape[0])]
+    return list(eps_batch)
 
 
 def _since(calls0):

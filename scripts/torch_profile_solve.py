@@ -6,6 +6,7 @@
     python3 scripts/torch_profile_solve.py [n] hyperelasticity [scheme] cg
         [exact|frozen_iso]
     python3 scripts/torch_profile_solve.py --fg=RUN
+    python3 scripts/torch_profile_solve.py [n] --slab-path=PATH [--slabs=D]
 
 Solves the bench's sphere RVE (n^3, default 256, float32, residual tol
 1e-6, check_every 8; chip_smoke.RVE) in ``mode`` (elasticity, the default,
@@ -38,7 +39,11 @@ generic staggered Delta path).  ``--fg=RUN`` profiles one run of
 ``fg-heat``, ``fg-nunan-keller``) through ``ft.FG`` in float32, a fresh FG
 each time: the whole ``f.run()`` (fibre generation, ``init_phase``, the
 solve) is the wall time, and ``init_phase``'s and the solve's shares of it
-are printed beside the device time by kind.
+are printed beside the device time by kind.  ``--slab-path=PATH`` solves
+a path of ``chip_smoke.SLAB_PATHS`` (the linear paths of phase 15:
+``viscosity``, ``viscosity-generic``, ``elasticity [mixed BC]``,
+``elasticity [batched]``, ``elasticity-willot``, ...) as phase 15 builds
+it, unsharded or with ``--slabs=D`` on D x-slabs of the card.
 Prints one JSON line last.
 """
 import json
@@ -78,7 +83,8 @@ def main():
     import numpy as np
 
     from chip_smoke import (EFF_VISC, HYPER_OPT, INTERFACE_PATHS, demo_fg,
-                            general_solver, interface_solver, sphere_solver)
+                            general_solver, interface_solver,
+                            slab_path_solver, sphere_solver)
     from fibergen_tpu_torch.utils.logging import LOG
 
     if not torch.cuda.is_available():
@@ -94,8 +100,12 @@ def main():
     material = material[0] if material else None
     fg_run = [a.split("=", 1)[1] for a in sys.argv if a.startswith("--fg=")]
     fg_run = fg_run[0] if fg_run else None
+    slab_path = [a.split("=", 1)[1] for a in sys.argv
+                 if a.startswith("--slab-path=")]
+    slab_path = slab_path[0] if slab_path else None
     sys.argv = [a for a in sys.argv
-                if not a.startswith(("--slabs=", "--material=", "--fg="))
+                if not a.startswith(("--slabs=", "--material=", "--fg=",
+                                     "--slab-path="))
                 and a != "--batched"]
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 256
     mode = sys.argv[2] if len(sys.argv) > 2 else "elasticity"
@@ -109,7 +119,14 @@ def main():
         opt = dict(error_estimator=est, tol=1e-6, check_every=8,
                    maxiter=4000)
     fg = []
-    if fg_run is not None:
+    run = None
+    if slab_path is not None:
+        s, run = slab_path_solver(
+            slab_path, n, "float32", "cuda",
+            None if slabs is None else ["cuda:0"] * slabs, **opt)
+        mode, scheme, method = s.mode, s.scheme, s.opt.method
+        batched = slab_path.endswith("[batched]")
+    elif fg_run is not None:
         s = demo_fg(fg_run).solver
         n, mode, scheme, method = s.grid.nx, s.mode, s.scheme, s.opt.method
     elif material in INTERFACE_PATHS:
@@ -127,6 +144,9 @@ def main():
 
     def solve():
         nonlocal s
+        if run is not None:
+            assert not run()
+            return
         if fg_run is None:
             assert not (s.run_batched(Es) if batched else s.run())
             return
@@ -175,6 +195,7 @@ def main():
               f" of the run's wall), solve_time {s.solve_time:.4f} s "
               f"({shares['solve']:.1%})")
     print(f"{card}: {n}^3 float32 {mode} {scheme} {method}"
+          f"{'' if slab_path is None else f' path {slab_path}'}"
           f"{'' if material is None else f' {s.mat}, fibre {material}'}"
           f"{'' if slabs is None else f' on {slabs} slabs'}"
           f"{f' run_batched B={len(Es)}' if batched else ''}, {its} "
@@ -192,6 +213,7 @@ def main():
     print(json.dumps({"n": n, "mode": mode, "scheme": scheme,
                       "method": method, "slabs": slabs,
                       "material": material, "fg": fg_run,
+                      "slab_path": slab_path,
                       "shares_of_wall": shares,
                       "batched": len(Es) if batched else None,
                       "iterations": its,

@@ -259,10 +259,10 @@ def test_incompatible_bcs_raise():
 
 @pytest.mark.parametrize("kind", ["staggered viscosity", "sharded"])
 def test_unported_mixed_paths_raise(kind):
-    """Mixed BCs on a sharded mesh are not ported yet; in staggered
-    viscosity they take the generic staggered Delta path, which meets the
-    boundary condition (test_mixed_bc_solve_matches_jax holds it against
-    the JAX package)."""
+    """Mixed BCs on a sharded mesh and, in staggered viscosity, on the
+    generic staggered Delta path meet the boundary condition
+    (test_mixed_bc_solve_matches_jax and test_torch_parallel_paths.py hold
+    them against the JAX package)."""
     phi = np.full((8, 4, 4), 0.5)
     if kind == "sharded":
         mat = ft.convert.material_from_numpy(
@@ -279,15 +279,13 @@ def test_unported_mixed_paths_raise(kind):
             mode="viscosity", tol=1e-6), device="cpu")
         s.set_strain([0, 0, 0, 1.0, 0, 0])
     s.set_bc_projector(P6)
-    if kind == "sharded":
-        with pytest.raises(NotImplementedError, match=kind):
-            s.run()
-    else:
-        s.set_stress([0, 0, 0, 0, 0.4, 0])
-        assert not s.run()
-        assert s.bc_error() <= s.opt.bc_tol
-        assert abs(s.calc_mean_stress()[4] - 0.4) <= s.opt.bc_tol * 0.4
-        s.set_stress(np.zeros(6))
+    S = [0, 0, 0, 0, 0.4, 0] if kind != "sharded" else [0, 0, 0, 0, 0.004, 0]
+    s.set_stress(S)
+    assert not s.run()
+    assert (s.par is not None) == (kind == "sharded")
+    assert s.bc_error() <= s.opt.bc_tol
+    assert abs(s.calc_mean_stress()[4] - S[4]) <= s.opt.bc_tol * S[4]
+    s.set_stress(np.zeros(6))
     # the identity projector keeps the trivial path
     s.set_bc_projector(voigt.id4(6))
     assert not s.run()

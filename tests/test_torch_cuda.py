@@ -519,6 +519,108 @@ def test_cuda_sharded_solve_matches_cpu(cuda, mode, scheme):
     assert np.max(np.abs(eg - ec)) <= 1e-12
 
 
+@pytest.mark.parametrize("shape,d", [((48, 48, 48), 4), ((33, 16, 29), 1)])
+def test_cuda_viscosity_halo_modes_match_twins(cuda, shape, d):
+    """K1 tau-sum mode (step and init) and K2 Delta mode in halo mode on
+    ["cuda:0"] * d against their plain twins on CPU slabs, float64: f, p
+    and w within 1e-12, the tau sum (the slabs' sums added in slab order)
+    and the dot within 1e-12; at d = 1 bitwise the periodic kernels."""
+    x = _slab_inputs(shape, cuda, torch.float64, seed=11)
+    g = Grid(*shape, dx=1.0, dy=0.7, dz=1.3)
+    mesh = parallel.make_mesh(["cuda:0"] * d)
+    sh = lambda a: parallel.shard_field(a, mesh)
+    G = parallel.gather_field
+    cpu = lambda a: [t.cpu() for t in a]
+    r, pp, u, mu, lam = (sh(x[k]) for k in ("r", "pp", "u", "mu", "lam"))
+    beta = [(x["gam"], x["gp"])] * d
+    E = [x["E"]] * d
+    tau2c = -1.0 / (2.0 * MU0)
+    before = dict(stencil_kernels.launches, **spectral_kernels.launches)
+    f, p, ts = stencil_kernels.stress_div_beta_slabs(
+        g, r, pp, beta, mu, lam, MU0, LAM0, want_tau_sum=True)
+    fi, _, tsi = stencil_kernels.stress_div_beta_slabs(
+        g, r, None, None, mu, lam, MU0, LAM0, want_tau_sum=True)
+    w, dot = stencil_kernels.eps_from_u_dot_slabs(g, E, u, pp, mu_x=mu,
+                                                  tau2c=tau2c, mu0=MU0)
+    torch.cuda.synchronize()
+    after = dict(stencil_kernels.launches, **spectral_kernels.launches)
+    assert _launched(before, after) == {"stress_div_beta_halo": 2 * d,
+                                        "eps_from_u_dot_halo": d}
+    fc, pc_, tsc = stencil_kernels.stress_div_beta_slabs(
+        g, cpu(r), cpu(pp), [(x["gam"].cpu(), x["gp"].cpu())] * d, cpu(mu),
+        cpu(lam), MU0, LAM0, want_tau_sum=True)
+    fic, _, tsic = stencil_kernels.stress_div_beta_slabs(
+        g, cpu(r), None, None, cpu(mu), cpu(lam), MU0, LAM0,
+        want_tau_sum=True)
+    wc, dotc = stencil_kernels.eps_from_u_dot_slabs(
+        g, [x["E"].cpu()] * d, cpu(u), cpu(pp), mu_x=cpu(mu), tau2c=tau2c,
+        mu0=MU0)
+    for out, ref in ((f, fc), (p, pc_), (fi, fic), (w, wc)):
+        assert _rel(G(out), G(ref)) <= 1e-12
+    for out, ref in ((ts, tsc), (tsi, tsic)):
+        assert all(o.device == t.device for o, t in zip(out, r))
+        assert _rel(out[0], ref[0]) <= 1e-12
+    assert float(dot[0]) == pytest.approx(float(dotc[0]), rel=1e-12)
+    if d == 1:
+        f0, p0, ts0 = stencil_kernels.stress_div_beta(
+            g, x["r"], x["pp"], (x["gam"], x["gp"]), x["mu"], x["lam"], MU0,
+            LAM0, want_tau_sum=True)
+        w0, dot0 = stencil_kernels.eps_from_u_dot(
+            g, x["E"], x["u"], x["pp"], mu_x=x["mu"], tau2c=tau2c, mu0=MU0)
+        for out, ref in ((f[0], f0), (p[0], p0), (ts[0], ts0), (w[0], w0),
+                         (dot[0], dot0)):
+            assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("case", ["viscosity", "mixed-bc"])
+def test_cuda_new_sharded_paths_match_cpu(cuda, case):
+    """Staggered viscosity (K1 tau-sum and K2 Delta mode in halo mode
+    around the kz-slab K3) and staggered elasticity with the xx stress
+    prescribed (K1/K2 halo mode, the mixed-BC mean a cross-slab sum), float64
+    on four slabs of one card against the same solve on four CPU slabs:
+    the same history within 1e-9, fields within 1e-12, the boundary
+    condition met; the card's run launches its slab kernels and no
+    other."""
+    n = 24
+    a = ((np.arange(n) + 0.5) / n - 0.5) ** 2
+    phi = ((a[:, None, None] + a[None, :, None] + a[None, None, :])
+           < 0.09).astype(np.float64)
+    res = {}
+    for dev in ("cpu", "cuda:0"):
+        if case == "viscosity":
+            mat = ft.convert.material_from_numpy(
+                [("fiber", 0.1, phi), ("matrix", 1.0, 1.0 - phi)], dim=6,
+                law="scalar", device=dev)
+        else:
+            mat = ft.convert.material_from_numpy(
+                [("fiber", 10.0, 5.0, phi), ("matrix", 1.0, 1.0, 1.0 - phi)],
+                device=dev)
+        s = ft.LSSolver(Grid(n, n, n), mat, ft.SolverOptions(
+            mode="viscosity" if case == "viscosity" else "elasticity",
+            tol=1e-8, error_estimator="residual", check_every=4),
+            sharding=parallel.field_sharding(parallel.make_mesh([dev] * 4)))
+        if case == "viscosity":
+            s.set_strain([0, 0, 0, 0, 1.0, 0])
+        else:
+            P = np.diag([0.0, 1, 1, 0.5, 0.5, 0.5])
+            s.set_bc_projector(P)
+            s.set_stress([2.0, 0, 0, 0, 0, 0])
+            s.set_strain([0, 0.1, 0, 0, 0, 0])
+        before = dict(stencil_kernels.launches, **spectral_kernels.launches)
+        assert not s.run()
+        after = dict(stencil_kernels.launches, **spectral_kernels.launches)
+        assert s.bc_error() <= s.opt.bc_tol
+        res[dev] = (np.asarray(s.residuals), s.get_field("epsilon"),
+                    set(_launched(before, after)))
+    (rc, ec, kc), (rg, eg, kg) = res["cpu"], res["cuda:0"]
+    assert kc == set() and kg == {"stress_div_beta_halo",
+                                  "eps_from_u_dot_halo",
+                                  "g0_staggered_chain_slab"}
+    assert len(rg) == len(rc)
+    np.testing.assert_allclose(rg, rc, rtol=1e-9)
+    assert np.max(np.abs(eg - ec)) <= 1e-12
+
+
 @pytest.mark.parametrize("shape,d", [((48, 48, 48), 1), ((48, 48, 48), 2),
                                      ((48, 48, 48), 4), ((33, 16, 29), 1)])
 def test_cuda_hyper_slab_chains_match_twins(cuda, shape, d):

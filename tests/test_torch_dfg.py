@@ -162,13 +162,20 @@ def test_refusals():
         [("a", 1.0, 1.0, phi), ("b", 2.0, 1.0, 1.0 - phi)], dim=9,
         law="svk", device="cpu")
     assert dfg.DfgMaterial(mat).dim == 9
-    # staggered viscosity on slabs stays refused (Queue 1 item 8)
+    # staggered viscosity takes the slabs too (the sharded solves are in
+    # test_torch_parallel_paths.py), a doubly-fine material on a mesh
+    # keeps its kind
     from fibergen_tpu_torch import parallel
     _, pmat = _materials("visc", fine=False)
-    with pytest.raises(NotImplementedError, match="staggered viscosity"):
-        ft.LSSolver(ft.Grid(*SHAPE), pmat, ft.SolverOptions(
-            mode="viscosity"), sharding=parallel.field_sharding(
-                parallel.make_mesh(["cpu"])))
+    s = ft.LSSolver(ft.Grid(*SHAPE), pmat, ft.SolverOptions(
+        mode="viscosity"), sharding=parallel.field_sharding(
+            parallel.make_mesh(["cpu"])))
+    assert s.par is not None
+    _, fmat = _materials("visc")
+    s = ft.LSSolver(ft.Grid(*SHAPE), fmat, ft.SolverOptions(
+        mode="viscosity", gamma_scheme="full_staggered"),
+        sharding=parallel.field_sharding(parallel.make_mesh(["cpu"])))
+    assert isinstance(s.mat, dfg.DfgMaterial) and s.par is not None
 
 
 # ------------------------------------------------------ solves

@@ -344,12 +344,14 @@ def test_option_refusals_and_aliases():
         ft.LSSolver(g, svk, ft.SolverOptions(
             mode="hyperelasticity", method="nl_cg",
             nl_cg_beta_scheme="newton"), device="cpu")
+    # Willot and freq_hack take the slabs (test_torch_parallel_paths.py
+    # solves them)
     mesh = parallel.make_mesh(["cpu"] * 2)
     for kw in (dict(gamma_scheme="willot"),
                dict(gamma_scheme="collocated", freq_hack=True)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            ft.LSSolver(g, iso, ft.SolverOptions(**kw),
+        s = ft.LSSolver(g, iso, ft.SolverOptions(**kw),
                         sharding=parallel.field_sharding(mesh))
+        assert s.par is not None
 
 
 @pytest.mark.parametrize("kw", [

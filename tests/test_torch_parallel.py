@@ -15,7 +15,7 @@ sharded code on forced host devices (conftest):
   (16, 8, 7) (kz = 4 does); in float32 against its fused sharded Pallas
   path;
 * the port's sharded solve against its own unsharded one at D = 1, 2, 4;
-* the refusals (the paths still refused on slabs: staggered viscosity and
+* the refusals (the paths still refused on slabs: the multigrid G0 and
   ``sharding_fallback="warn"``).
 
 The sharded hyperelastic and polarization paths are in
@@ -475,8 +475,8 @@ def test_refusals_match_the_jax_package():
 
 
 @pytest.mark.parametrize("kw,shape,exc,match", [
-    (dict(mode="viscosity", gamma_scheme="staggered"), (16, 8, 8),
-     NotImplementedError, "staggered viscosity"),
+    (dict(g0_solver="multigrid"), (16, 8, 8), NotImplementedError,
+     "multigrid G0 on a sharded mesh"),
     (dict(sharding_fallback="warn"), (16, 8, 8), NotImplementedError,
      "sharding_fallback"),
     # the sharded Newton path refuses a grid the slabs cannot split, as
