@@ -163,7 +163,8 @@ class _Op:
             two_dmu = 2.0 * (self.mu_x - self.mu0)
             ltr = self._ltr(p)
         if self.bc is not None:
-            R = bc_correction(self.bc, tmean)
+            R = bc_correction(self.bc, tmean, torch.stack(
+                [pc.mean() for pc in p]) if self.bc.bc_relax != 1.0 else None)
             adj = -R if adj is None else adj - R
         return adj, taufac, two_dmu, ltr
 

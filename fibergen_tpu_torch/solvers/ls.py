@@ -566,8 +566,23 @@ class LSSolver:
             self._make_bc()
 
     def _bca(self):
-        """The projector when it corrects the mean (None for P == Id)."""
-        return None if self._bc is None or self._bc.is_trivial else self._bc
+        """The projector when it corrects the mean (None for P == Id);
+        refuses a bc_relax it cannot honour (:func:`bc.check_relax`)."""
+        if self._bc is None or self._bc.is_trivial:
+            return None
+        bcmod.check_relax(self._bc, self.mode)
+        return self._bc
+
+    @staticmethod
+    def _relaxed(E, bc, x, alpha=-1.0):
+        """E + alpha (R's term in F00 = mean(x)): the mean that a Gamma
+        application to ``x`` with ``alpha`` takes under a relaxed projector
+        (:func:`bc.relax_term`); E itself without one."""
+        if bc is None or bc.bc_relax == 1.0:
+            return E
+        return slabs.smap(lambda E, m: torch.as_tensor(
+            E, dtype=m.dtype, device=m.device) + alpha * bcmod.relax_term(
+                bc, m), E, fields.mean(x))
 
     def _bc_mean(self, E, S):
         return np.asarray(bcmod.calc_bc_mean(self._bc, E, S), dtype=np.float64)
@@ -833,6 +848,8 @@ class LSSolver:
         stress difference, div_staggered, K3, eps_staggered.  Collocated:
         the plain stress difference, then K5 (K6 in viscosity)."""
         grid, mu0, lam0, par = self.grid, self.mu_0, self.lambda_0, self.par
+        if not (self._k1_route and self.mode == "elasticity"):
+            E = self._relaxed(E, bc, eps)      # K1/K3/K2 takes F00 itself
         if self.mode == "hyperelasticity":
             return gammamod.gamma_hyper(
                 grid, self.scheme, E, mu0, lam0,
@@ -896,8 +913,9 @@ class LSSolver:
         if bc is not None:
             F0 = slabs.vmean(lambda x, m, lm: gammamod.stress_diff_mean(
                 x, m, lm, mu0, lam0), r if p is None else p, mu_x, lam_x)
-            E = slabs.smap(lambda E, F0: E - bcmod.bc_correction(bc, F0), E,
-                           F0)
+            F00 = fields.mean(r if p is None else p)
+            E = slabs.smap(lambda E, F0, F00: E - bcmod.bc_correction(
+                bc, F0, F00 if bc.bc_relax != 1.0 else None), E, F0, F00)
         u = green.g0_staggered_fused(grid, mu0, lam0, f, par=par)
         del f
         k2 = eps_from_u_dot if par is None else eps_from_u_dot_slabs
@@ -1292,9 +1310,12 @@ class LSSolver:
         it, done = 1, False
         while not done:
             tau = self.mat.polarization(mu0, self.eps)
-            self.eps = self._gamma_apply(
-                slabs.smap(torch.add, fields.mean(tau), P0), tau,
-                alpha=-4.0 * mu0, beta=1.0, bc=bc)
+            E = slabs.smap(torch.add, fields.mean(tau), P0)
+            if bc is not None and bc.bc_relax != 1.0:
+                E = self._relaxed(E, bc, self.mat.polarization(
+                    mu0, self.eps, inv=True), -4.0 * mu0)
+            self.eps = self._gamma_apply(E, tau, alpha=-4.0 * mu0, beta=1.0,
+                                         bc=bc)
             del tau
             ee.update(self._host_metric(self.eps))
             # the boundary condition is not tested here, as in the JAX
