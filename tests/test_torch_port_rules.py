@@ -42,6 +42,30 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert not bad, bad
 
 
+def test_port_scan_covers_the_gui():
+    """The import scan reads the GUI's five modules too."""
+    names = {f.name for f in _port_files() if f.parent.name == "gui"}
+    assert {"app.py", "viewer.py", "help.py", "qt_compat.py",
+            "qt_stub.py"} <= names
+
+
+def test_gui_entry_points_default_to_cuda(monkeypatch, tmp_path):
+    """The GUI's solve entry points run on the card unless asked for the
+    CPU, and raise without one."""
+    monkeypatch.setenv("FIBERGEN_TPU_FORCE_QT_STUB", "1")
+    from fibergen_tpu_torch.gui import app
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        app.MainWindow()
+    p = tmp_path / "p.xml"
+    p.write_text("<settings><solver n='4'/></settings>")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        app.run_project_and_view(str(p), show=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        app.main(["app", str(p)])
+    assert app.MainWindow(device="cpu").device.type == "cpu"
+
+
 def test_forbidden_matches_prefix_only_at_module_boundary():
     assert _forbidden("fibergen_tpu") and _forbidden("fibergen_tpu.ops.fft")
     assert _forbidden("jax") and _forbidden("jax.numpy")
