@@ -121,12 +121,17 @@ def gamma_staggered(grid, E, mu_0, lambda_0, tau, bc=None, alpha=-1.0,
     the correction under ``bc``.  ``g0_solver="multigrid"`` applies G0 by
     the multigrid Poisson solves (solvers/multigrid.py, plain PyTorch)
     instead of K3, as the JAX package's gamma_operator does
-    (fibergen_tpu/ops/gamma.py:101-103); unsharded only.  With ``par`` the
-    halo stencils around the kz-slab K3."""
+    (fibergen_tpu/ops/gamma.py:101-103).  With ``par`` the halo stencils
+    around the kz-slab K3, or around the slab multigrid."""
     if par is not None:
         f = _per_slab(lambda t, h: staggered.div_staggered(grid, t, halo=h),
                       tau)
-        u = green.g0_staggered_fused(grid, mu_0, lambda_0, f, alpha, par=par)
+        if g0_solver == "multigrid":
+            from ..solvers.multigrid import g0_multigrid_staggered
+            u = g0_multigrid_staggered(grid, mu_0, lambda_0, f, alpha)
+        else:
+            u = green.g0_staggered_fused(grid, mu_0, lambda_0, f, alpha,
+                                         par=par)
         del f
         E = _corrected(E, bc, tau, alpha)
         return [staggered.eps_staggered(grid, _like(slabs.part(E, j), x), x,

@@ -425,11 +425,6 @@ class LSSolver:
                 f"whose nx and ny divide the mesh (the port has no "
                 f"replicated fallback: sharding_fallback='warn' is not "
                 f"ported).")
-        if self.opt.g0_solver == "multigrid" and self.mode == "elasticity" \
-                and self.scheme != "collocated":
-            raise NotImplementedError(
-                "the multigrid G0 on a sharded mesh is not ported yet "
-                "(ROADMAP.md, Queue 1)")
         return par
 
     # ------------------------------------------------------------------ API
