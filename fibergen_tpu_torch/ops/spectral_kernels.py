@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from ..parallel import comm, slabs
+from ..parallel.fft import slab_irfftn, slab_rfftn
 from . import _build, fft
 
 launches = {"g0_staggered_chain": 0, "g0_staggered_heat_chain": 0,
@@ -442,21 +443,13 @@ def _slab_chain_plain(par, grid, f, apply, real_planes=False):
     the Hermitian kz planes with ``real_planes``), the inverses, the
     exchange back, ``irfft`` along z (all norm="forward")."""
     split = par.kz_split(grid.nzc)
-    spec = [torch.fft.rfft(x, dim=-1, norm="forward") for x in f]
-    kzs = comm.to_kz(spec, split, par.devices)
+    kzs = slab_rfftn(par, f)
     for j, (y, (off, w)) in enumerate(zip(kzs, split)):
         if y is None:
             continue
-        y = torch.fft.fft(torch.fft.fft(y, dim=-2, norm="forward"), dim=-3,
-                          norm="forward")
         y = apply(y, j, off, w)
-        if real_planes:
-            y = _real_z_planes(y, grid.nz, off)
-        kzs[j] = torch.fft.ifft(torch.fft.ifft(y, dim=-3, norm="forward"),
-                                dim=-2, norm="forward")
-    spec = comm.from_kz(kzs, grid.nx // par.n_devices, par.devices)
-    return [torch.fft.irfft(y, n=grid.nz, dim=-1, norm="forward")
-            for y in spec]
+        kzs[j] = _real_z_planes(y, grid.nz, off) if real_planes else y
+    return slab_irfftn(par, kzs, grid.nz)
 
 
 def _slab_vector(E, j, like, n):

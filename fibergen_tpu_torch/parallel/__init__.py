@@ -28,13 +28,14 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from .fft import SlabPar, slab_fft_for, slab_reject_reason
+from .fft import SlabFFT, SlabPar, slab_fft_for, slab_reject_reason
 
 X_AXIS = "x"
 
 __all__ = ["Mesh", "NamedSharding", "make_mesh", "field_sharding",
-           "shard_field", "gather_field", "good_slab_size", "SlabPar",
-           "slab_fft_for", "slab_reject_reason", "X_AXIS"]
+           "scalar_sharding", "shard_field", "gather_field",
+           "good_slab_size", "SlabFFT", "SlabPar", "slab_fft_for",
+           "slab_reject_reason", "X_AXIS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,6 +99,11 @@ def field_sharding(mesh: Mesh) -> NamedSharding:
     """x-slab sharding of ``(ncomp, nx, ny, nz)`` fields: x is split over
     the mesh, the other axes stay whole on each slab."""
     return NamedSharding(mesh, (None, X_AXIS, None, None))
+
+
+def scalar_sharding(mesh: Mesh) -> NamedSharding:
+    """Fully replicated sharding for means, Voigt vectors and scalars."""
+    return NamedSharding(mesh, ())
 
 
 def shard_field(x, mesh: Mesh):

@@ -78,9 +78,11 @@ both grids (the per-slab full-gradient halo stencils around the kz-slab
 K3 chain; the kz-slab K5 at C = 9).  The materials off the Voigt rule run
 on per-slab views (materials/sharded.py), the doubly-fine grid on fine
 x-slabs.  Reductions add per-slab partials in slab order, the mixed-BC
-means among them.  Refinement and the low-memory CG stay unsharded, as in
-the JAX package; the multigrid G0 and ``sharding_fallback="warn"`` are
-refused on slabs.
+means among them, and ``g0_solver="multigrid"`` runs the slab multigrid
+(solvers/multigrid.py).  Refinement and the low-memory CG stay unsharded,
+as in the JAX package.  A mesh whose nx or ny does not divide it raises a
+``SolverError``; under ``sharding_fallback="warn"`` it warns and solves
+whole on the mesh's first device.
 """
 from __future__ import annotations
 
@@ -212,7 +214,7 @@ _FREE = {"tol", "tol_red", "abs_tol", "bc_tol", "maxiter", "update_ref",
          "max_loadstep_splits", "loadstep_extrapolation_order",
          "loadstep_extrapolation_method", "bc_relax", "cg_reinit",
          "nl_cg_alpha", "nl_cg_c", "nl_cg_tau", "nl_cg_beta_scheme",
-         "step_mode", "print_detF"}
+         "step_mode", "print_detF", "sharding_fallback"}
 _ALSO = {"mode": ("heat", "porous", "viscosity", "hyperelasticity"),
          "method": ("basic", "polarization", "nesterov", "basic+el",
                     "nl_cg"),
@@ -229,6 +231,7 @@ _ALSO = {"mode": ("heat", "porous", "viscosity", "hyperelasticity"),
 _CHOICES = {"refine": ("auto", "on", "off"),
             "low_mem": ("auto", "on", "off"),
             "g0_solver": ("fft", "multigrid"),
+            "sharding_fallback": ("error", "warn"),
             "batch_load_cases": ("auto", "off"),
             "nl_cg_beta_scheme": ("steepest_descent", "polak_ribiere",
                                   "fletcher_reeves", "hestenes_stiefel",
@@ -248,12 +251,6 @@ def _check_options(opt: SolverOptions):
         v = getattr(opt, f.name)
         if f.name == "gamma_scheme":
             v = _scheme_name(v)
-        if f.name == "sharding_fallback" and v != f.default:
-            raise NotImplementedError(
-                f"SolverOptions.sharding_fallback={v!r} (the JAX package's "
-                f"replicated solve of a mesh the x-slabs cannot split) is not "
-                f"ported yet (ROADMAP.md, Queue 1); the port refuses such a "
-                f"mesh")
         if v != f.default and v not in _ALSO.get(f.name, ()):
             raise NotImplementedError(
                 f"SolverOptions.{f.name}={v!r} is not ported yet (the port "
@@ -410,21 +407,34 @@ class LSSolver:
 
     def _slab_layout(self, sharding):
         """The x-slab layout of a sharded solve (parallel.fft.SlabPar), None
-        unsharded or on a replicated sharding.  Refuses, as the JAX package
-        does (ls.py:303-322), a sharding that cannot take the slab path, and
-        the multigrid G0, not ported to slabs."""
+        unsharded or on a replicated sharding.  A sharding that cannot
+        take the slab path raises, as in the JAX package (ls.py:303-322);
+        under ``sharding_fallback="warn"`` it logs the JAX package's
+        warning and the solve runs whole on the mesh's first device (the
+        counterpart of the JAX package's replicated solve: the unsharded
+        path, its kernels K1-K6 on that card)."""
         if sharding is None:
             return None
         par = slab_fft_for(sharding, self.grid)
-        if par is None:
-            if sharding.is_fully_replicated:
-                return None
-            raise SolverError(
-                f"sharded solve cannot use the slab FFT: "
-                f"{slab_reject_reason(sharding, self.grid)}. Use a grid "
-                f"whose nx and ny divide the mesh (the port has no "
-                f"replicated fallback: sharding_fallback='warn' is not "
-                f"ported).")
+        if par is None and not sharding.is_fully_replicated:
+            reason = slab_reject_reason(sharding, self.grid)
+            if self.opt.sharding_fallback != "warn":
+                raise SolverError(
+                    f"sharded solve cannot use the slab FFT: {reason}. Use "
+                    f"a grid whose nx and ny divide the mesh, or set "
+                    f"SolverOptions(sharding_fallback='warn') to solve it "
+                    f"whole on the mesh's first device.")
+            LOG.warn(
+                f"sharded solve cannot use the slab FFT: {reason}. "
+                "Without it GSPMD lowers every FFT to a full-field "
+                "all-gather (each device computes the whole transform; "
+                "neither memory nor ICI traffic scales with the mesh). "
+                "Use a grid whose nx and ny divide the mesh, or set "
+                "SolverOptions(sharding_fallback='warn') to proceed "
+                "with replicated FFTs anyway.")
+            LOG.warn(f"sharding_fallback='warn': the port solves this "
+                     f"{self.grid.nx}x{self.grid.ny}x{self.grid.nz} mesh "
+                     f"whole on its first device, {self.device}")
         return par
 
     # ------------------------------------------------------------------ API

@@ -475,15 +475,17 @@ def test_refusals_match_the_jax_package():
 
 
 @pytest.mark.parametrize("kw,shape,exc,match", [
-    (dict(g0_solver="multigrid"), (16, 8, 8), NotImplementedError,
-     "multigrid G0 on a sharded mesh"),
-    (dict(sharding_fallback="warn"), (16, 8, 8), NotImplementedError,
-     "sharding_fallback"),
+    # the multigrid G0 on slabs and the whole-device fallback now solve
+    (dict(g0_solver="multigrid"), (16, 8, 8), None, None),
+    (dict(sharding_fallback="warn"), (18, 8, 8), None, None),
     # the sharded Newton path refuses a grid the slabs cannot split, as
     # the linear paths do
     (dict(mode="hyperelasticity"), (18, 8, 8), SolverError, "not divisible"),
 ])
 def test_unported_sharded_paths_raise(kw, shape, exc, match):
+    """What a four-slab CPU mesh still refuses raises; the multigrid G0
+    (on the slabs) and ``sharding_fallback="warn"`` (whole, 18 % 4 != 0)
+    solve to the unsharded port's mean stress within 1e-12."""
     mode = kw.get("mode", "elasticity")
     phi = np.full(shape, 0.5)
     if mode == "hyperelasticity":
@@ -495,12 +497,25 @@ def test_unported_sharded_paths_raise(kw, shape, exc, match):
             [("a", 1.0, phi), ("b", 0.1, 1.0 - phi)], dim=6, law="scalar",
             device="cpu")
     else:
+        phi[: shape[0] // 3] = 0.9
         mat = ft.convert.material_from_numpy(
             [("a", 1.0, 1.0, phi), ("b", 5.0, 2.0, 1.0 - phi)], device="cpu")
     sharding = parallel.field_sharding(parallel.make_mesh(["cpu"] * 4))
-    with pytest.raises(exc, match=match):
-        ft.LSSolver(ft.Grid(*shape), mat, ft.SolverOptions(**kw),
-                    sharding=sharding)
+    if exc is not None:
+        with pytest.raises(exc, match=match):
+            ft.LSSolver(ft.Grid(*shape), mat, ft.SolverOptions(**kw),
+                        sharding=sharding)
+        return
+    opt = ft.SolverOptions(tol=1e-8, **kw)
+    s = ft.LSSolver(ft.Grid(*shape), mat, opt, sharding=sharding)
+    assert (s.par is None) == ("sharding_fallback" in kw)
+    ref = ft.LSSolver(ft.Grid(*shape), mat, opt, device="cpu")
+    for x in (s, ref):
+        x.set_strain([0.01, 0, 0, 0, 0.002, 0])
+        assert not x.run()
+    assert len(s.residuals) == len(ref.residuals)
+    np.testing.assert_allclose(s.calc_mean_stress(), ref.calc_mean_stress(),
+                               rtol=0, atol=1e-12)
 
 
 def test_device_must_agree_with_the_mesh():

@@ -229,17 +229,24 @@ def test_slab_transformed_applies_match_whole(op, shape):
 
 # ------------------------------------------------------------ refusals
 def test_still_refused_on_slabs_name_the_roadmap():
-    """The multigrid G0 and sharding_fallback="warn" stay refused on a
-    mesh, each naming ROADMAP.md's Queue 1; a grid the slabs cannot split
-    keeps the JAX package's reason."""
+    """Nothing of the JAX package stays refused on a mesh: the multigrid G0
+    takes the slab path and sharding_fallback="warn" the whole solve on
+    the mesh's first device; under "error" a grid the slabs cannot split
+    raises with the JAX package's reason."""
     phi = np.full((16, 8, 8), 0.5)
     mat = ft.convert.material_from_numpy(
         [("a", 1.0, 1.0, phi), ("b", 5.0, 2.0, 1.0 - phi)], device="cpu")
     sh = cases.port_sharding(4)
-    for kw in (dict(g0_solver="multigrid"), dict(sharding_fallback="warn")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1"):
-            ft.LSSolver(ft.Grid(16, 8, 8), mat, ft.SolverOptions(**kw),
-                        sharding=sh)
+    s = ft.LSSolver(ft.Grid(16, 8, 8), mat, ft.SolverOptions(
+        g0_solver="multigrid"), sharding=sh)
+    assert s.par is not None and s.par.n_devices == 4
+    odd = ft.convert.material_from_numpy(
+        [("a", 1.0, 1.0, np.full((18, 8, 8), 0.5))], device="cpu")
+    s = ft.LSSolver(ft.Grid(18, 8, 8), odd, ft.SolverOptions(
+        sharding_fallback="warn"), sharding=sh)
+    assert s.par is None and s.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="nx=18 not divisible"):
+        ft.LSSolver(ft.Grid(18, 8, 8), odd, ft.SolverOptions(), sharding=sh)
     # unsharded, multigrid constructs
     ft.LSSolver(ft.Grid(16, 8, 8), mat, ft.SolverOptions(
         g0_solver="multigrid"), device="cpu")

@@ -99,8 +99,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 def test_unported_options_raise():
     """use_pallas and fft_backend pick TPU programs and raise; the multigrid
-    G0, the low-memory CG and a float32 solve below tol 3e-7 (refinement)
-    are ported and run."""
+    G0, the low-memory CG, a float32 solve below tol 3e-7 (refinement) and
+    sharding_fallback="warn" are ported and run."""
     mat = ft.convert.material_from_numpy([("a", 1.0, 1.0, np.ones((4, 4, 4)))],
                                          device="cpu")
     for kw in ({"use_pallas": "on"}, {"fft_backend": "matmul"}):
@@ -110,7 +110,8 @@ def test_unported_options_raise():
     # every method and gamma scheme of the JAX package is ported
     for kw in ({"method": "nesterov"}, {"method": "basic+el"},
                {"gamma_scheme": "willot"}, {"freq_hack": True},
-               {"cg_reinit": 3}, {"error_estimator": "energy"}):
+               {"cg_reinit": 3}, {"error_estimator": "energy"},
+               {"sharding_fallback": "warn"}):
         ft.LSSolver(ft.Grid(4, 4, 4), mat, ft.SolverOptions(**kw),
                     device="cpu")
     for kw in ({"g0_solver": "multigrid"}, {"low_mem": "on"},
@@ -120,7 +121,8 @@ def test_unported_options_raise():
         s.set_strain([1.0, 0, 0, 0, 0, 0])
         assert not s.run(), kw
     assert s.eps64 is not None and s.refine_sweeps >= 1
-    for kw in ({"g0_solver": "fourier"}, {"low_mem": "yes"}):
+    for kw in ({"g0_solver": "fourier"}, {"low_mem": "yes"},
+               {"sharding_fallback": "replicate"}):
         with pytest.raises(ValueError, match="Unknown"):
             ft.LSSolver(ft.Grid(4, 4, 4), mat, ft.SolverOptions(**kw),
                         device="cpu")
