@@ -372,6 +372,8 @@ SHARDED_KERNELS = {
     "elasticity-full-staggered": ("g0_staggered_chain_slab",),
     "elasticity-willot": (),
     "elasticity-freq-hack": (),
+    # phase 16: the multigrid G0 on the slabs (plain PyTorch, no kernel)
+    "elasticity-multigrid": (),
 }
 SLABS = 4
 
@@ -2780,6 +2782,181 @@ def sharded_paths(run_counted, res32, path_launches, n=256, nc=48):
     log(f"  phase 15 in {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 16: the GUI's inline project (two loadsteps, a <view> block that
+# records each loadstep's viewed field)
+GUI_XML = """<settings>
+  <datatype>{datatype}</datatype>
+  <solver n="{n}">
+    <materials><matrix mu="1" lambda="1" /><fiber mu="10" lambda="5" /></materials>
+    <mode>elasticity</mode><tol>{tol}</tol><loadsteps>2</loadsteps>
+  </solver>
+  <actions>
+    <select_material name="fiber" />
+    <place_fiber R="0.3" />
+    <run_load_case e11="0.01" />
+  </actions>
+  <view>
+    <field>sigma0</field>
+    <slice_dim>z</slice_dim>
+    <slice_index>0.5</slice_index>
+    <record_loadstep>1</record_loadstep>
+  </view>
+</settings>"""
+
+
+def rest_of_port(run_counted, res32, path_launches, opt4, n=256, nm=32,
+                 ng=64, nc=24, dev="cuda:0"):
+    """Phase 16: what the port added last, its launches counted:
+
+    a. the multigrid G0 on four x-slabs of one card at nm^3 in float32 and
+       float64 (levels nm -> ... -> 4, the last gathered) against the
+       unsharded multigrid solve on the card: the same iterations, mean
+       stress within 1e-6 (float32) or 1e-12 (float64) of its max, no
+       kernel launched; one float64 G0 application on the card's slabs
+       against four CPU slabs (1e-12).  The solves stop at tol 1e-3: the
+       slab V-cycle is launch-bound (some 1e5 small PyTorch ops per G0
+       application);
+    b. sharding_fallback="warn": the n^3 float32 sphere on a three-slab
+       mesh of the card (n % 3 != 0) warns, then solves whole on the card:
+       iterations, mean stress and launches equal to phase 4's staggered
+       CG (``res32``, ``path_launches``; ``opt4`` its options); under
+       "error" the SolverError;
+    c. the GUI: gui.app.run_project_and_view(show=False) on the card with
+       GUI_XML at ng^3 float32: the viewed slice's shape and range, the
+       snapshots, the kernels; at nc^3 float64 on the card and the CPU:
+       current_slice() within 1e-10.
+    ``dev`` the card (the CPU for a dry run of the code at small sizes)."""
+    import io
+    import tempfile
+    import types
+    import numpy as np
+    import torch
+    import fibergen_tpu_torch as ft
+    from fibergen_tpu_torch.gui.app import run_project_and_view
+    from fibergen_tpu_torch.solvers import multigrid
+    from fibergen_tpu_torch.solvers.ls import SolverError
+    from fibergen_tpu_torch.utils.logging import LOG
+    t_phase = time.perf_counter()
+    log("phase 16: the multigrid G0 on x-slabs, sharding_fallback='warn', "
+        "the GUI")
+
+    # a. the multigrid G0 on four slabs of the card
+    hier = multigrid._SlabHierarchy(ft.Grid(nm, nm, nm), multigrid.MGOptions(),
+                                    [torch.device(dev)] * SLABS)
+    levels = " -> ".join(str(g.nx) for g in hier.whole.levels)
+    log(f"  multigrid levels {levels}: {hier.n_split} split over {SLABS} "
+        f"slabs, from {hier.whole.levels[hier.n_split].nx} gathered")
+    mopt = dict(g0_solver="multigrid", error_estimator="residual", tol=1e-3,
+                check_every=1, maxiter=1000)
+    for dtype, lim in (("float32", 1e-6), ("float64", 1e-12)):
+        out = {}
+        for where, kw in (("whole", dict(device=dev)),
+                          ("slabs", dict(device=None, mesh=[dev] * SLABS))):
+            s = sphere_solver(nm, dtype, **kw, **mopt)
+            t0 = time.perf_counter()
+            fail, got = run_counted(s, f"{nm}^3 {dtype} multigrid G0 "
+                                    f"[{where}]", "elasticity-multigrid")
+            out[where] = (len(s.residuals), s.calc_mean_stress(),
+                          time.perf_counter() - t0)
+            assert not fail and not any(got.values()), got
+        (iw, Sw, tw), (i_s, Ss, ts) = out["whole"], out["slabs"]
+        d = rel_max(Ss, Sw)
+        log(f"  {nm}^3 {dtype} multigrid G0 on {SLABS} slabs: {i_s} "
+            f"iterations, wall {ts:.3f} s; unsharded {iw} iterations, wall "
+            f"{tw:.3f} s; mean stress max rel diff {d:.3e} (limit {lim:g})")
+        assert i_s == iw and d <= lim
+        torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(16)
+    f = torch.randn((3, nm, nm, nm), generator=gen, dtype=torch.float64)
+    u = {}
+    for d in (dev, "cpu"):
+        mesh = ft.parallel.make_mesh([d] * SLABS)
+        t0 = time.perf_counter()
+        u[d] = ft.parallel.gather_field(multigrid.g0_multigrid_staggered(
+            ft.Grid(nm, nm, nm), 1.3, 0.4,
+            ft.parallel.shard_field(f.to(d), mesh), -1.0), "cpu")
+        u[d + " s"] = time.perf_counter() - t0
+    dc = float((u[dev] - u["cpu"]).abs().max() / u["cpu"].abs().max())
+    log(f"  one {nm}^3 float64 G0 application on {SLABS} slabs: card "
+        f"{u[dev + ' s']:.3f} s, cpu {u['cpu s']:.3f} s, max rel diff "
+        f"{dc:.3e} (limit 1e-12)")
+    assert dc <= 1e-12
+
+    # b. sharding_fallback="warn" on three slabs of the card
+    mesh3 = [dev] * 3
+    buf = io.StringIO()
+    LOG.enabled, LOG.stream = True, buf
+    s = path_solver(n, "float32", None, "elasticity", mesh=mesh3,
+                    sharding_fallback="warn", **opt4)
+    LOG.enabled, LOG.stream = False, None
+    warning = buf.getvalue().strip()
+    for line in warning.splitlines():
+        log(f"  {line}")
+    assert "cannot use the slab FFT: nx=" in warning and \
+        f"whole on its first device, {dev}" in warning
+    assert s.par is None and s.device == torch.device(dev)
+    t0 = time.perf_counter()
+    fail, got = run_counted(s, f"{n}^3 float32 elasticity [fallback, 3 "
+                            f"slabs]", "elasticity")
+    wall = time.perf_counter() - t0
+    its, S = len(s.residuals), s.calc_mean_stress()
+    its4, S4 = res32["elasticity"]
+    same = bool(np.array_equal(S, S4))
+    log(f"  {n}^3 float32 elasticity [fallback]: {its} iterations (phase "
+        f"4: {its4}), wall {wall:.3f} s, mean stress bitwise phase 4's: "
+        f"{same}, launches phase 4's: {got == path_launches['elasticity']}")
+    assert not fail and its == its4 and same
+    assert got == path_launches["elasticity"]
+    path_launches["elasticity [fallback]"] = got
+    del s
+    torch.cuda.empty_cache()
+    try:
+        path_solver(n, "float32", None, "elasticity", mesh=mesh3, **opt4)
+        raise AssertionError("sharding_fallback='error' solved")
+    except SolverError as e:
+        log(f"  sharding_fallback='error': SolverError: {str(e)[:80]}...")
+    torch.cuda.empty_cache()
+
+    # c. the GUI, headless on the card
+    tmp = tempfile.mkdtemp(prefix="fg_gui_")
+    paths = {}
+    for tag, kw in (("f32", dict(datatype="float", n=ng, tol=1e-6)),
+                    ("f64", dict(datatype="double", n=nc, tol=1e-10))):
+        paths[tag] = os.path.join(tmp, f"{tag}.xml")
+        with open(paths[tag], "w") as f:
+            f.write(GUI_XML.format(**kw))
+    res = {}
+    t0 = time.perf_counter()
+
+    def view():
+        res["f32"] = run_project_and_view(paths["f32"], show=False,
+                                          device=dev)
+    _, got = run_counted(types.SimpleNamespace(par=None),
+                         f"{ng}^3 float32 GUI run", "elasticity", view)
+    wall = time.perf_counter() - t0
+    fg, v = res["f32"]
+    path_launches["fg-gui"] = got
+    sl = v.current_slice()
+    log(f"  {ng}^3 float32 GUI run: viewed {v.field}[{v.component}] "
+        f"{v.slice_dim}-slice {sl.shape}, range [{float(sl.min()):.6g}, "
+        f"{float(sl.max()):.6g}], {len(v.loadsteps)} loadstep snapshots, "
+        f"{len(fg.get_residuals())} residuals, wall {wall:.3f} s (the "
+        f"voxelization included), kernels "
+        f"{json.dumps({k: c for k, c in got.items() if c})}")
+    assert sl.shape == (ng, ng) and np.all(np.isfinite(sl))
+    assert len(v.loadsteps) >= 2        # one after each loadstep
+    assert "matplotlib" not in sys.modules
+    slices = {where: run_project_and_view(paths["f64"], show=False,
+                                          device=where)[1].current_slice()
+              for where in (dev, "cpu")}
+    d = float(np.max(np.abs(slices[dev] - slices["cpu"]))
+              / np.max(np.abs(slices["cpu"])))
+    log(f"  {nc}^3 float64 GUI run, card vs cpu current_slice(): max rel "
+        f"diff {d:.3e} (limit 1e-10)")
+    assert d <= 1e-10
+    log(f"  phase 16 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3182,6 +3359,11 @@ def main():
     # ---- phase 15: the linear paths new on the x-slabs
     sharded_paths(run_counted, res32, path_launches)
 
+    # ---- phase 16: the multigrid G0 on x-slabs, the fallback, the GUI
+    rest_of_port(run_counted, res32, path_launches,
+                 dict(error_estimator="residual", tol=1e-6, check_every=8,
+                      maxiter=4000))
+
     # ---- phase 7: launches and per-kernel numbers.  The per-kernel list
     # takes the key "kernels"; the launch counts of each path's timed 256^3
     # float32 solve print on their own line as "kernel_launches".  A mode's
@@ -3256,7 +3438,8 @@ def main():
               "fibergen_tpu/ops/pallas_sweep.py:517")]
     k1k2_paths = ("elasticity-nesterov", "elasticity-basic-el",
                   "elasticity-cg-reinit", "elasticity-sigma",
-                  "elasticity-refined", "fg-hashin-refined", "fg-experiment")
+                  "elasticity-refined", "fg-hashin-refined", "fg-experiment",
+                  "elasticity [fallback]", "fg-gui")
     more_paths = {
         "stress_div_beta": ("elasticity-reuss", "fg-hashin",
                             "fg-digital-rocks") + k1k2_paths,

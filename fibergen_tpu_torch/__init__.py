@@ -17,9 +17,13 @@ properties.  On a card every step runs hand-written CUDA kernels
 (``csrc/``, built with ``nvcc`` at first use); on the CPU the same
 functions run as plain PyTorch.  ``parallel`` splits a solve into x-slabs
 over a mesh of devices driven by this one process
-(``LSSolver(..., sharding=parallel.field_sharding(mesh))``): CG and basic
-on the linear paths, polarization, and Newton-Krylov, for Voigt mixtures
-of isotropic or hyperelastic phases.
+(``LSSolver(..., sharding=parallel.field_sharding(mesh))``): every linear
+path and method of the unsharded solver and Newton-Krylov, the multigrid
+G0 (``g0_solver="multigrid"``) with its levels split over the slabs; a
+mesh whose nx or ny does not divide it raises, or under
+``sharding_fallback="warn"`` warns and solves whole on the mesh's first
+device.  ``parallel.SlabFFT`` and ``parallel.scalar_sharding`` are the JAX
+package's slab transforms and replicated sharding.
 
 ``FG`` is the XML front end (``api.py``): it reads a project, evaluates its
 Python expressions, generates or places the fibres and mesh primitives on
@@ -28,7 +32,11 @@ the host, voxelizes them into phase fields on the solver's device
 cases, effective properties, the raw, VTK, PNG and text readers and
 writers of ``io/``, fibre detection, checkpoints); ``python -m
 fibergen_tpu_torch.cli project.xml`` runs a project, and ``experiment``
-sweeps a project's settings over value grids.
+sweeps a project's settings over value grids.  ``gui`` is the project
+IDE and slice viewer on ``FG`` (PyQt5, or a headless stub without it):
+``python -m fibergen_tpu_torch.gui.app [--device cpu|cuda] project.xml``
+runs a project and views its fields (``gui.app.run_project_and_view(path,
+show=False)`` draws nothing and imports no matplotlib).
 
 A float32 CG below tol 3e-7 ends with mixed-precision refinement
 (``solvers/refine.py``); ``low_mem`` solves grids the plain CG's fields

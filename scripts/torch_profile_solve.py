@@ -7,6 +7,10 @@
         [exact|frozen_iso]
     python3 scripts/torch_profile_solve.py --fg=RUN
     python3 scripts/torch_profile_solve.py [n] --slab-path=PATH [--slabs=D]
+    python3 scripts/torch_profile_solve.py [n] --g0=multigrid [--slabs=D]
+        [--tol=T]
+    python3 scripts/torch_profile_solve.py [n] --fallback=D
+    python3 scripts/torch_profile_solve.py [n] --gui
 
 Solves the bench's sphere RVE (n^3, default 256, float32, residual tol
 1e-6, check_every 8; chip_smoke.RVE) in ``mode`` (elasticity, the default,
@@ -44,6 +48,15 @@ a path of ``chip_smoke.SLAB_PATHS`` (the linear paths of phase 15:
 ``viscosity``, ``viscosity-generic``, ``elasticity [mixed BC]``,
 ``elasticity [batched]``, ``elasticity-willot``, ...) as phase 15 builds
 it, unsharded or with ``--slabs=D`` on D x-slabs of the card.
+``--g0=multigrid`` applies the staggered G0 by the multigrid Poisson
+solves (on the slabs with ``--slabs=D``); ``--tol=T`` stops the linear
+solves at T instead of 1e-6 (the multigrid G0 is launch-bound: about a
+second an iteration on four slabs).  ``--fallback=D`` solves on a
+mesh of D slabs of the card under ``sharding_fallback="warn"`` (whole on
+the card when n % D != 0).  ``--gui`` profiles
+``gui.app.run_project_and_view(show=False)`` on ``chip_smoke.GUI_XML`` at
+n^3 float32 (two loadsteps, the viewed field recorded): the whole run is
+the wall time, as with ``--fg``.
 Prints one JSON line last.
 """
 import json
@@ -82,8 +95,8 @@ def main():
 
     import numpy as np
 
-    from chip_smoke import (EFF_VISC, HYPER_OPT, INTERFACE_PATHS, demo_fg,
-                            general_solver, interface_solver,
+    from chip_smoke import (EFF_VISC, GUI_XML, HYPER_OPT, INTERFACE_PATHS,
+                            demo_fg, general_solver, interface_solver,
                             slab_path_solver, sphere_solver)
     from fibergen_tpu_torch.utils.logging import LOG
 
@@ -103,10 +116,18 @@ def main():
     slab_path = [a.split("=", 1)[1] for a in sys.argv
                  if a.startswith("--slab-path=")]
     slab_path = slab_path[0] if slab_path else None
+    g0 = [a.split("=", 1)[1] for a in sys.argv if a.startswith("--g0=")]
+    tol = [float(a.split("=", 1)[1]) for a in sys.argv
+           if a.startswith("--tol=")]
+    fallback = [int(a.split("=", 1)[1]) for a in sys.argv
+                if a.startswith("--fallback=")]
+    fallback = fallback[0] if fallback else None
+    gui = "--gui" in sys.argv
     sys.argv = [a for a in sys.argv
                 if not a.startswith(("--slabs=", "--material=", "--fg=",
-                                     "--slab-path="))
-                and a != "--batched"]
+                                     "--slab-path=", "--g0=", "--fallback=",
+                                     "--tol="))
+                and a not in ("--batched", "--gui")]
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 256
     mode = sys.argv[2] if len(sys.argv) > 2 else "elasticity"
     scheme = sys.argv[3] if len(sys.argv) > 3 else "staggered"
@@ -118,16 +139,40 @@ def main():
         est = "residual" if method == "cg" else "epsilon"
         opt = dict(error_estimator=est, tol=1e-6, check_every=8,
                    maxiter=4000)
+    if g0:
+        opt["g0_solver"] = g0[0]
+    if tol:
+        opt["tol"] = tol[0]
     fg = []
     run = None
-    if slab_path is not None:
+    if gui:
+        import tempfile
+        from fibergen_tpu_torch.gui.app import run_project_and_view
+        gui_xml = str(Path(tempfile.mkdtemp()) / "project.xml")
+        Path(gui_xml).write_text(GUI_XML.format(datatype="float", n=n,
+                                                tol=1e-6))
+        fg_run = "gui"
+
+        def fresh_fg():
+            return run_project_and_view(gui_xml, show=False,
+                                        device="cuda")[0]
+    else:
+        def fresh_fg():
+            f = demo_fg(fg_run)
+            torch.cuda.synchronize()
+            return f
+    if fallback is not None:
+        s = sphere_solver(n, "float32", None, mode, scheme, method,
+                          mesh=["cuda:0"] * fallback,
+                          sharding_fallback="warn", **opt)
+    elif slab_path is not None:
         s, run = slab_path_solver(
             slab_path, n, "float32", "cuda",
             None if slabs is None else ["cuda:0"] * slabs, **opt)
         mode, scheme, method = s.mode, s.scheme, s.opt.method
         batched = slab_path.endswith("[batched]")
     elif fg_run is not None:
-        s = demo_fg(fg_run).solver
+        s = fresh_fg().solver
         n, mode, scheme, method = s.grid.nx, s.mode, s.scheme, s.opt.method
     elif material in INTERFACE_PATHS:
         s = interface_solver(n, "float32", "cuda", material, method=method,
@@ -150,10 +195,12 @@ def main():
         if fg_run is None:
             assert not (s.run_batched(Es) if batched else s.run())
             return
-        f = demo_fg(fg_run)
-        torch.cuda.synchronize()
+        # --fg: the run of a fresh FG; --gui: the whole headless GUI run
         t0 = time.perf_counter()
-        assert f.run() == 0
+        f = fresh_fg()
+        if not gui:
+            t0 = time.perf_counter()
+            assert f.run() == 0
         torch.cuda.synchronize()
         fg[:] = [f, time.perf_counter() - t0]
         s = f.solver
@@ -195,6 +242,8 @@ def main():
               f" of the run's wall), solve_time {s.solve_time:.4f} s "
               f"({shares['solve']:.1%})")
     print(f"{card}: {n}^3 float32 {mode} {scheme} {method}"
+          f"{'' if not g0 else f' G0 {g0[0]}'}"
+          f"{'' if fallback is None else f' fallback mesh {fallback}'}"
           f"{'' if slab_path is None else f' path {slab_path}'}"
           f"{'' if material is None else f' {s.mat}, fibre {material}'}"
           f"{'' if slabs is None else f' on {slabs} slabs'}"
@@ -214,6 +263,8 @@ def main():
                       "method": method, "slabs": slabs,
                       "material": material, "fg": fg_run,
                       "slab_path": slab_path,
+                      "g0": g0[0] if g0 else None, "fallback": fallback,
+                      "tol": opt.get("tol"),
                       "shares_of_wall": shares,
                       "batched": len(Es) if batched else None,
                       "iterations": its,

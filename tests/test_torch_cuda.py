@@ -1287,8 +1287,10 @@ def test_cuda_method_solve_matches_cpu(cuda, case):
                                atol=1e-10 * np.max(np.abs(Sc)))
 
 
-def _sphere_solver(dev, n=24, dtype="float64", mode="elasticity", **opt):
-    """The bench's sphere at n^3 (viscosity: fluidities 0.1 / 1)."""
+def _sphere_solver(dev, n=24, dtype="float64", mode="elasticity", slabs=None,
+                   **opt):
+    """The bench's sphere at n^3 (viscosity: fluidities 0.1 / 1); with
+    ``slabs`` on that many x-slabs of ``dev``."""
     a = ((np.arange(n) + 0.5) / n - 0.5) ** 2
     phi = ((a[:, None, None] + a[None, :, None] + a[None, None, :])
            < 0.09).astype(dtype)
@@ -1298,8 +1300,10 @@ def _sphere_solver(dev, n=24, dtype="float64", mode="elasticity", **opt):
     else:
         rows, kw = [("f", 10.0, 5.0, phi), ("m", 1.0, 1.0, 1.0 - phi)], {}
     mat = ft.convert.material_from_numpy(rows, dim=6, device=dev, **kw)
+    place = dict(device=dev) if slabs is None else dict(
+        sharding=parallel.field_sharding(parallel.make_mesh([dev] * slabs)))
     s = ft.LSSolver(Grid(n, n, n), mat, ft.SolverOptions(
-        mode=mode, dtype=dtype, maxiter=2000, **opt), device=dev)
+        mode=mode, dtype=dtype, maxiter=2000, **opt), **place)
     s.set_strain([0, 0, 0, 0, 1.0, 0] if mode == "viscosity"
                  else [1.0, 0, 0, 0, 0, 0])
     return s
@@ -1382,3 +1386,85 @@ def test_cuda_experiment_sweep(cuda, tmp_path):
     assert rows[0]["num_iterations"] < rows[1]["num_iterations"]
     ft.experiment.write_dat(str(tmp_path / "s.dat"), rows)
     assert len((tmp_path / "s.dat").read_text().splitlines()) == 3
+
+
+@pytest.mark.parametrize("dtype,tol", [("float64", 1e-12),
+                                       ("float32", 1e-6)])
+def test_cuda_multigrid_on_slabs_matches_cpu(cuda, dtype, tol):
+    """The multigrid G0 on four x-slabs of the card (levels 24 -> 12
+    split, 6 gathered) against the unsharded multigrid on the card and, in
+    float64, against four CPU slabs: the same iterations, mean stress
+    within ``tol`` of its max; no kernel launched."""
+    def solver(dev, slabs=None):
+        return _sphere_solver(dev, dtype=dtype, slabs=slabs,
+                              g0_solver="multigrid",
+                              error_estimator="residual", check_every=4,
+                              tol=1e-8 if dtype == "float64" else 1e-5)
+    ref = solver("cuda")
+    s = solver("cuda:0", 4)
+    assert s.par is not None and s.par.n_devices == 4
+    before = dict(stencil_kernels.launches, **spectral_kernels.launches)
+    assert not ref.run() and not s.run()
+    after = dict(stencil_kernels.launches, **spectral_kernels.launches)
+    assert _launched(before, after) == {}
+    assert len(s.residuals) == len(ref.residuals)
+    S = ref.calc_mean_stress()
+    np.testing.assert_allclose(s.calc_mean_stress(), S, rtol=0,
+                               atol=tol * np.max(np.abs(S)))
+    if dtype == "float64":
+        c = solver("cpu", 4)
+        assert not c.run() and len(c.residuals) == len(s.residuals)
+        np.testing.assert_allclose(s.calc_mean_stress(), c.calc_mean_stress(),
+                                   rtol=0, atol=tol * np.max(np.abs(S)))
+
+
+def test_cuda_sharding_fallback_runs_whole_on_first_card(cuda):
+    """sharding_fallback="warn" on a five-slab mesh of the card whose nx
+    (24) does not split: the whole solve on cuda:0, bitwise the unsharded
+    card solve, launching K1, K3 and K2; under "error" a SolverError."""
+    from fibergen_tpu_torch.solvers.ls import SolverError
+    opt = dict(error_estimator="residual", tol=1e-8)
+    s = _sphere_solver(cuda, **opt)
+    with pytest.raises(SolverError, match="nx=24 not divisible"):
+        _sphere_solver("cuda:0", slabs=5, **opt)
+    f = _sphere_solver("cuda:0", slabs=5, sharding_fallback="warn", **opt)
+    assert f.par is None and f.device == torch.device("cuda:0")
+    assert not s.run()
+    before = dict(stencil_kernels.launches, **spectral_kernels.launches)
+    assert not f.run()
+    after = dict(stencil_kernels.launches, **spectral_kernels.launches)
+    assert set(_launched(before, after)) == {
+        "stress_div_beta", "eps_from_u_dot", "g0_staggered_chain"}
+    assert f.residuals == s.residuals
+    assert torch.equal(f.eps, s.eps)
+
+
+def test_cuda_gui_headless_run(cuda, tmp_path):
+    """gui.app.run_project_and_view(show=False) on the card: two loadsteps
+    recorded, the viewed slice within 1e-10 of the CPU's (float64), K1,
+    K3 and K2 launched and no matplotlib imported."""
+    import sys
+    from fibergen_tpu_torch.gui.app import run_project_and_view
+    xml = """<settings><solver n="16">
+      <materials><matrix mu="1" lambda="1" /><fiber mu="10" lambda="5" />
+      </materials><tol>1e-8</tol><loadsteps>2</loadsteps></solver>
+      <actions><select_material name="fiber" /><place_fiber R="0.3" />
+      <run_load_case e11="0.01" /></actions>
+      <view><field>sigma0</field><slice_dim>z</slice_dim>
+      <record_loadstep>1</record_loadstep></view></settings>"""
+    p = tmp_path / "project.xml"
+    p.write_text(xml)
+    had_mpl = "matplotlib" in sys.modules
+    out = {}
+    for dev in ("cpu", "cuda"):
+        before = dict(stencil_kernels.launches, **spectral_kernels.launches)
+        fg, v = run_project_and_view(str(p), show=False, device=dev)
+        after = dict(stencil_kernels.launches, **spectral_kernels.launches)
+        assert len(v.loadsteps) == 2 and v.field == "sigma"
+        out[dev] = (v.current_slice(), set(_launched(before, after)))
+    assert out["cpu"][1] == set() and out["cuda"][1] == {
+        "stress_div_beta", "eps_from_u_dot", "g0_staggered_chain"}
+    sc, sg = out["cpu"][0], out["cuda"][0]
+    assert sg.shape == (16, 16)
+    assert np.max(np.abs(sg - sc)) <= 1e-10 * np.max(np.abs(sc))
+    assert had_mpl or "matplotlib" not in sys.modules
