@@ -10,8 +10,10 @@ phase 10), four demo projects through the XML front end (FRONT_END,
 phase 11), the mesh and file I/O projects (phase 12), the remaining
 methods and Gamma schemes (METHOD_PATHS, phase 13) and mixed-precision
 refinement, the low-memory CG, the multigrid G0 and the sweep harness
-(phase 14), and the linear paths last ported to the x-slab mesh
-(SLAB_PATHS, phase 15).  Staggered CG: elasticity (K1, K3,
+(phase 14), the linear paths last ported to the x-slab mesh
+(SLAB_PATHS, phase 15), and the multigrid G0 on slabs, the whole-card
+fallback of a mesh the slabs cannot split and the GUI's headless run
+(phase 16).  Staggered CG: elasticity (K1, K3,
 K2), heat conduction (the scalar K4 chain; porous flow is the same path)
 and viscosity (K1 tau-sum mode, K3 with the dual constants, K2 Delta mode).
 Collocated: CG in elasticity and heat (the plain stress difference and the
@@ -145,7 +147,17 @@ constants) and collocated (K5 at C = 9).  Phases, each failing loudly:
    each warm with its wall, peak memory and launches, held to its
    unsharded solve of phases 4, 8, 9, 10 and 13; then each at 48^3
    float64 on the card's slabs against CPU slabs; with two or more cards,
-   staggered viscosity and uniaxial stress over min(4, count) cards.
+   staggered viscosity and uniaxial stress over min(4, count) cards;
+16. the rest of the port (``rest_of_port``): the multigrid G0 on four
+   x-slabs of one card at 32^3 (levels 32 -> 16 -> 8 -> 4, the last
+   gathered) in float32 and float64 against the unsharded multigrid (the
+   same iterations, no launch) and one float64 G0 application against
+   CPU slabs; sharding_fallback="warn" on a three-slab mesh of the card
+   (256^3 float32: the warning, then phase 4's iterations, stress and
+   launches bitwise; "error" raises); gui.app.run_project_and_view(
+   show=False) on the card (GUI_XML at 64^3 float32: the viewed slice,
+   the loadstep snapshots, K1/K3/K2; at 24^3 float64 the card's slice
+   against the CPU's within 1e-10).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits non-zero before printing any result.
@@ -2944,7 +2956,7 @@ def rest_of_port(run_counted, res32, path_launches, opt4, n=256, nm=32,
         f"voxelization included), kernels "
         f"{json.dumps({k: c for k, c in got.items() if c})}")
     assert sl.shape == (ng, ng) and np.all(np.isfinite(sl))
-    assert len(v.loadsteps) >= 2        # one after each loadstep
+    assert len(v.loadsteps) == 3        # loadsteps 0, 1 and 2
     assert "matplotlib" not in sys.modules
     slices = {where: run_project_and_view(paths["f64"], show=False,
                                           device=where)[1].current_slice()

@@ -918,9 +918,9 @@ class LSSolver:
         if bc is not None:
             F0 = slabs.vmean(lambda x, m, lm: gammamod.stress_diff_mean(
                 x, m, lm, mu0, lam0), r if p is None else p, mu_x, lam_x)
-            F00 = fields.mean(r if p is None else p)
-            E = slabs.smap(lambda E, F0, F00: E - bcmod.bc_correction(
-                bc, F0, F00 if bc.bc_relax != 1.0 else None), E, F0, F00)
+            E = slabs.smap(lambda E, F0: E - bcmod.bc_correction(bc, F0), E,
+                           F0)
+            E = self._relaxed(E, bc, r if p is None else p)
         u = green.g0_staggered_fused(grid, mu0, lam0, f, par=par)
         del f
         k2 = eps_from_u_dot if par is None else eps_from_u_dot_slabs

@@ -20,7 +20,8 @@ latter two stop on the epsilon estimator); in hyperelasticity the
 hyperelastic bench (the SVK sphere at 2 % stretch with
 chip_smoke.HYPER_OPT, Newton-Krylov with the exact tangent or the frozen
 one) twice without the profiler and
-reports the second run's wall time, then once under torch.profiler and
+reports the second run's wall time and the two runs' peak device memory
+(``torch.cuda.max_memory_allocated``), then once under torch.profiler and
 reports the device time by kernel, by kind (the port's kernels, the
 chains' passes included, cuFFT, cuSOLVER's batched eigensolver, PyTorch
 elementwise and reduction kernels) and the device's idle share of the
@@ -205,8 +206,10 @@ def main():
         fg[:] = [f, time.perf_counter() - t0]
         s = f.solver
 
+    torch.cuda.reset_peak_memory_stats()
     solve()
     solve()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     wall = s.solve_time if fg_run is None else fg[1]
     shares = None if fg_run is None else {
         "init_phase": fg[0].phase_time / wall,
@@ -251,7 +254,7 @@ def main():
           f"iterations (Newton outer, inner: {s.newton_iterations}), "
           f"unprofiled wall "
           f"{1e3 * wall:.3f} ms, device busy {busy_ms:.3f} ms, idle share "
-          f"{1 - busy_ms / (1e3 * wall):.3f}")
+          f"{1 - busy_ms / (1e3 * wall):.3f}, peak {peak_gib:.2f} GiB")
     if ref_ms is not None:
         print(f"  one reference-material pass (tangent eigenvalue bounds): "
               f"{ref_ms:.3f} ms wall")
@@ -273,6 +276,7 @@ def main():
                       "wall_ms": 1e3 * wall,
                       "device_busy_ms": busy_ms,
                       "idle_share": 1 - busy_ms / (1e3 * wall),
+                      "peak_gib": peak_gib,
                       "by_kind_ms": kinds, "device": card}))
     return 0
 

@@ -1425,7 +1425,7 @@ def test_cuda_sharding_fallback_runs_whole_on_first_card(cuda):
     from fibergen_tpu_torch.solvers.ls import SolverError
     opt = dict(error_estimator="residual", tol=1e-8)
     s = _sphere_solver(cuda, **opt)
-    with pytest.raises(SolverError, match="nx=24 not divisible"):
+    with pytest.raises(SolverError, match="nx=24 and ny=24 not divisible"):
         _sphere_solver("cuda:0", slabs=5, **opt)
     f = _sphere_solver("cuda:0", slabs=5, sharding_fallback="warn", **opt)
     assert f.par is None and f.device == torch.device("cuda:0")
@@ -1441,8 +1441,9 @@ def test_cuda_sharding_fallback_runs_whole_on_first_card(cuda):
 
 def test_cuda_gui_headless_run(cuda, tmp_path):
     """gui.app.run_project_and_view(show=False) on the card: two loadsteps
-    recorded, the viewed slice within 1e-10 of the CPU's (float64), K1,
-    K3 and K2 launched and no matplotlib imported."""
+    and the first recorded (three snapshots, as the JAX package's loadstep
+    callback takes them), the viewed slice within 1e-10 of the CPU's
+    (float64), K1, K3 and K2 launched and no matplotlib imported."""
     import sys
     from fibergen_tpu_torch.gui.app import run_project_and_view
     xml = """<settings><solver n="16">
@@ -1460,7 +1461,7 @@ def test_cuda_gui_headless_run(cuda, tmp_path):
         before = dict(stencil_kernels.launches, **spectral_kernels.launches)
         fg, v = run_project_and_view(str(p), show=False, device=dev)
         after = dict(stencil_kernels.launches, **spectral_kernels.launches)
-        assert len(v.loadsteps) == 2 and v.field == "sigma"
+        assert len(v.loadsteps) == 3 and v.field == "sigma"
         out[dev] = (v.current_slice(), set(_launched(before, after)))
     assert out["cpu"][1] == set() and out["cuda"][1] == {
         "stress_div_beta", "eps_from_u_dot", "g0_staggered_chain"}
