@@ -29,7 +29,12 @@ constants) and collocated (K5 at C = 9).  Phases, each failing loudly:
    64^3 in float32 and float64 (K3 also with the viscosity dual
    constants) and on one-voxel z axes (phase 11's 128 x 128 x 1 in
    float32 and float64, 33 x 17 x 1 in float64), with kernel, twin and
-   cuFFT times from CUDA events;
+   cuFFT times from CUDA events; the batched chains (K3, K4, K5 at C = 6
+   and 3, K6: run_batched's one launch for B right-hand sides) bitwise
+   against B single launches and within the tolerance of their twins on
+   those shapes in float32 and float64, timed at 256^3 float32 with phase
+   8's batch sizes (and K3 B = 5 at 64^3) against B single launches and
+   cuFFT's batched pair;
 3. the kernel path (cuda) against the plain path (cpu) on one 48^3
    float64 solve of each linear path and one 24^3 float64 Newton solve of
    each hyperelastic path;
@@ -63,8 +68,10 @@ constants) and collocated (K5 at C = 9).  Phases, each failing loudly:
 8. load cases on the bench's RVE at 256^3 float32 (``load_cases``): the
    effective stiffness (staggered elasticity) and conductivity (staggered
    heat), batched collocated elasticity and collocated viscosity (the five
-   traceless cases), each ``run_batched`` against its sequential
-   ``run()`` solves; uniaxial stress under a mixed-BC projector on both
+   traceless cases), and collocated heat, each ``run_batched`` (one batched
+   chain launch per step and for the init, K1 and K2 once per case)
+   against its sequential ``run()`` solves; uniaxial stress under a
+   mixed-BC projector on both
    grids; a 64^3 float64 linear loadstep run against the single-step
    solve, with and without extrapolation; the mixed_bc demo's
    finite-strain load (P11 = 1 prescribed, F22 = 1.1) at 32^3 float64;
@@ -258,6 +265,11 @@ HYPER_OPT = dict(tol=1e-5, error_estimator="residual",
                  outer_error_estimator="epsilon", check_every=8,
                  maxiter=2000)
 HYPER_P11 = 0.074716
+# the batched chain that run_batched launches, for all cases at once, in
+# place of each single chain (LSSolver._cg_step_batched)
+BATCHED_CHAIN = {c: c + "_batched" for c in (
+    "g0_staggered_chain", "g0_staggered_heat_chain", "gamma_collocated_chain",
+    "gamma_collocated_zt_chain")}
 # the kernels each path must launch; it launches no other
 PATH_KERNELS = {
     "elasticity": ("stress_div_beta", "eps_from_u_dot", "g0_staggered_chain"),
@@ -292,8 +304,9 @@ PATH_KERNELS = {
     # phase 11: the XML front end (FRONT_END)
     "fg-hashin": ("stress_div_beta", "eps_from_u_dot", "g0_staggered_chain"),
     "fg-transverse-isotropy": ("g0_staggered_chain",),
-    "fg-heat": ("g0_staggered_heat_chain",),
-    "fg-nunan-keller": ("g0_staggered_chain",),
+    # (heat's three and Nunan-Keller's five cases batched: run_batched)
+    "fg-heat": ("g0_staggered_heat_chain_batched",),
+    "fg-nunan-keller": ("g0_staggered_chain_batched",),
     # phase 12: meshes and file I/O (the raw CT volume's stiffness, the
     # mesh demos; the recovery chains count apart, meshes_and_io)
     "fg-digital-rocks": ("stress_div_beta", "eps_from_u_dot",
@@ -816,6 +829,131 @@ def check_kernels(shape, dtype, timed):
     return out
 
 
+# phase 2's batched chains (LSSolver.run_batched's): name -> (the WORK of
+# one case, components, E's length or None, B at the timed 256^3 shape);
+# B as the phase 8 batches take them (K3 B = 6, K4 B = 3, K5 B = 6 and, in
+# heat, 3, K6 B = 5)
+BATCHED = {
+    "g0_staggered_chain_batched": ("g0_staggered_chain", 3, None, 6),
+    "g0_staggered_heat_chain_batched": ("g0_staggered_heat_chain", 1, None,
+                                        3),
+    "gamma_collocated_chain_batched": ("gamma_collocated_chain", 6, 6, 6),
+    "gamma_collocated_chain_batched[heat]": ("gamma_collocated_chain[heat]",
+                                             3, 3, 3),
+    "gamma_collocated_zt_chain_batched": ("gamma_collocated_zt_chain", 6, 6,
+                                          5),
+}
+
+
+def check_batched_chains(shape, dtype, timed, sizes=None):
+    """Phase 2's batched chains on one grid: each batched entry (B
+    right-hand sides, each with its own E) bitwise (torch.equal) against B
+    single launches of its chain and, at B = 1, against one; within the
+    phase's tolerance of its plain twin; one launch counted per call.  B is
+    3, or ``sizes[name]`` (only those names) with ``timed``, which also
+    times the batched launch, the B single launches, the plain twin and
+    cuFFT's batched pair (one rfftn and one irfftn over (B, C, nx, ny,
+    nz)); the bound is B times the single chain's.  Returns {name:
+    numbers}."""
+    import torch
+    import fibergen_tpu_torch as ft
+    from fibergen_tpu_torch.ops import fft, green
+    from fibergen_tpu_torch.ops import spectral_kernels as spk
+
+    dev = torch.device("cuda")
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    g = ft.Grid(*shape, dx=1.0, dy=0.9, dz=1.1)
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev, dtype=dtype)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    c10, c20 = green.g0_constants(2.75, 0.4)
+    A, B = green.collocated_constants(2.75, 0.4)
+    Az, Bz = green.collocated_constants(-2.75, float("inf"))
+    # name -> (batched wrapper, single wrapper, plain twin), each (f, E)
+    fns = {
+        "g0_staggered_chain_batched": (
+            lambda f, E: spk.g0_staggered_chain_batched(g, f, c10, c20),
+            lambda f, E: spk.g0_staggered_chain(g, f, c10, c20),
+            lambda f, E: spk.g0_staggered_chain_batched_plain(g, f, c10,
+                                                              c20)),
+        "g0_staggered_heat_chain_batched": (
+            lambda f, E: spk.g0_staggered_heat_chain_batched(g, f, c10),
+            lambda f, E: spk.g0_staggered_heat_chain(g, f, c10),
+            lambda f, E: spk.g0_staggered_heat_chain_batched_plain(g, f,
+                                                                   c10)),
+        "gamma_collocated_chain_batched": (
+            lambda f, E: spk.gamma_collocated_chain_batched(g, f, A, B, E,
+                                                            0.37),
+            lambda f, E: spk.gamma_collocated_chain(g, f, A, B, E, 0.37),
+            lambda f, E: spk.gamma_collocated_chain_batched_plain(
+                g, f, A, B, E, 0.37)),
+        "gamma_collocated_chain_batched[heat]": (
+            lambda f, E: spk.gamma_collocated_chain_batched(g, f, A, 0.0, E,
+                                                            0.37),
+            lambda f, E: spk.gamma_collocated_chain(g, f, A, 0.0, E, 0.37),
+            lambda f, E: spk.gamma_collocated_chain_batched_plain(
+                g, f, A, 0.0, E, 0.37)),
+        "gamma_collocated_zt_chain_batched": (
+            lambda f, E: spk.gamma_collocated_zt_chain_batched(
+                g, f, Az, Bz, E, -0.2),
+            lambda f, E: spk.gamma_collocated_zt_chain(g, f, Az, Bz, E,
+                                                       -0.2),
+            lambda f, E: spk.gamma_collocated_zt_chain_batched_plain(
+                g, f, Az, Bz, E, -0.2)),
+    }
+    out = {}
+    for name, (single_name, C, ne, _) in BATCHED.items():
+        if sizes is not None and name not in sizes:
+            continue
+        nb = 3 if sizes is None else sizes[name]
+        batched, single, plain = fns[name]
+        counter = name.split("[")[0]
+        f = rnd(nb, C, *shape)
+        if C == 6 and "zt" in name:
+            f[:, 0] = -(f[:, 1] + f[:, 2])      # traceless
+        E = None if ne is None else rnd(nb, ne)
+        n0 = spk.launches[counter]
+        ob = batched(f, E)
+        torch.cuda.synchronize()
+        assert spk.launches[counter] == n0 + 1, name
+        same = all(torch.equal(ob[b], single(f[b], None if E is None
+                                             else E[b])) for b in range(nb))
+        one = torch.equal(batched(f[1:2], None if E is None else E[1:2])[0],
+                          ob[1])
+        err = rel_err(ob, plain(f, E))
+        rec = {"B": nb, "max_rel_err": err[0], "max_abs_err": err[1],
+               "bitwise": same and one}
+        line = (f"  {name:36s} {tuple(shape)} {str(dtype)[6:]} B={nb}: "
+                f"bitwise B single launches {same}, B = 1 {one}, max rel "
+                f"err {err[0]:.3e}")
+        if timed:
+            xs = [f[b].contiguous() for b in range(nb)]
+            Es = [None if E is None else E[b] for b in range(nb)]
+            rec["ms"] = cuda_ms(lambda: batched(f, E))
+            rec["singles_ms"] = cuda_ms(lambda: [single(x, e) for x, e in
+                                                 zip(xs, Es)])
+            rec["plain_ms"] = cuda_ms(lambda: plain(f, E), reps=5)
+            rec["library_ms"] = cuda_ms(
+                lambda: fft.ifftn(fft.fftn(f), g.shape))
+            rec["bound_ms"], rec["bound_by"] = bound_ms(single_name,
+                                                        g.nxyz * nb, itemsize)
+            line += (f", batched {rec['ms']:.4f} ms, {nb} single launches "
+                     f"{rec['singles_ms']:.4f} ms (batched / singles "
+                     f"{rec['ms'] / rec['singles_ms']:.3f}), plain "
+                     f"{rec['plain_ms']:.4f} ms, cuFFT batched pair "
+                     f"{rec['library_ms']:.4f} ms, bound "
+                     f"{rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+            del xs
+        log(line)
+        if not (same and one and err[0] <= tol):
+            raise AssertionError(f"{name} {shape}: bitwise {same}/{one}, "
+                                 f"error {err[0]:.3e} (limit {tol:g})")
+        out[name] = rec
+        del f, ob
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_slab_kernels(shape, dtype, devices, timed):
     """Phase 6 on one grid: each slab kernel on x-slabs over ``devices``
     against its plain twin on the same slabs; with ``timed`` also kernel,
@@ -1100,10 +1238,12 @@ MIXED_BC_DEMO = dict(fiber=(10.0, 100.0), matrix=(10.0, 10.0), s11=1.0,
 def load_cases(run_counted, res32, path_launches, n=256, dtype="float32",
                device="cuda", nl=64, nh=32):
     """Phase 8: the load-case layer.  ``run_counted(solver, label, path,
-    fn)`` runs ``fn`` (the solver's run by default) with every launch count
-    set to 0 and checks the path's kernels; ``res32`` holds phase 4's
-    pure-strain iterations per path.  Each batched path runs batched,
-    sequential, sequential, batched (the two pairs in turns)."""
+    fn, batched)`` runs ``fn`` (the solver's run by default) with every
+    launch count set to 0 and checks the path's kernels; ``res32`` holds
+    phase 4's pure-strain iterations per path.  Each batched path runs
+    batched, sequential, sequential, batched (the two pairs in turns); the
+    batched run launches its batched chain once per step and once for the
+    init, K1 and K2 (where the path has them) once per case as well."""
     import numpy as np
     import torch
     import fibergen_tpu_torch as ft
@@ -1138,10 +1278,18 @@ def load_cases(run_counted, res32, path_launches, n=256, dtype="float32",
             torch.cuda.reset_peak_memory_stats()
         t_b = []
         _, got = run_counted(s, f"{path} run_batched B={len(Es)}", path,
-                             lambda: t_b.append(batched()))
+                             lambda: t_b.append(batched()), batched=True)
         peak = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
         path_launches[f"{path} [batched]"] = got
         its_b, Sb = len(s.residuals), s.calc_mean_stress_batched()
+        steps = -(-its_b // opt["check_every"]) * opt["check_every"]
+        chain = next(BATCHED_CHAIN[k] for k in PATH_KERNELS[path]
+                     if k in BATCHED_CHAIN)
+        per_case = {k: v for k, v in got.items() if v and k != chain}
+        log(f"  {path} B={len(Es)}: {chain} {got[chain]} launches for "
+            f"{steps} steps and the init; {per_case}")
+        assert got[chain] == steps + 1, (path, got[chain], steps)
+        assert all(v == len(Es) * (steps + 1) for v in per_case.values())
         Ss, its_s, t_s = sequential()
         _, _, t_s2 = sequential()
         t_b.append(batched())
@@ -1175,6 +1323,7 @@ def load_cases(run_counted, res32, path_launches, n=256, dtype="float32",
     K = batched_vs_sequential("heat", np.eye(3)).T
     log(f"  conductivity:\n{np.array2string(K, precision=6)}")
     batched_vs_sequential("elasticity-collocated", np.eye(6))
+    batched_vs_sequential("heat-collocated", np.eye(3))
     batched_vs_sequential("viscosity-collocated", EFF_VISC)
 
     # uniaxial stress: strain xx prescribed, every other stress zero
@@ -1335,7 +1484,7 @@ def general_materials(run_counted, res32, path_launches, n=256):
     t0 = time.perf_counter()
     fail, got = run_counted(s, f"{n}^3 float32 elasticity-general "
                                f"run_batched B=6", "elasticity-general",
-                            lambda: s.run_batched(np.eye(6)))
+                            lambda: s.run_batched(np.eye(6)), batched=True)
     t_b = time.perf_counter() - t0
     assert not fail
     its_b, Sb = len(s.residuals), s.calc_mean_stress_batched()
@@ -1570,16 +1719,18 @@ def interfaces_and_dfg(run_counted, res32, path_launches, n=256,
     t0 = time.perf_counter()
     fail, path_launches["viscosity-nunan-keller"] = run_counted(
         s, f"{nk}^3 float32 Nunan-Keller run_batched B=5",
-        "viscosity-nunan-keller", lambda: s.run_batched(Es))
+        "viscosity-nunan-keller", lambda: s.run_batched(Es), batched=True)
     wall = time.perf_counter() - t0
     assert not fail
     res = ft.api.effective_viscosity(s.calc_mean_stress_batched(), 0.5)
     its_b, S_seq, its_seq = len(s.residuals), np.zeros((5, 6)), []
+    t0 = time.perf_counter()
     for i, E in enumerate(Es):
         s.set_strain(E)
         assert not s.run()
         S_seq[i] = s.calc_mean_stress()
         its_seq.append(len(s.residuals))
+    wall_seq = time.perf_counter() - t0
     seq = ft.api.effective_viscosity(S_seq, 0.5)
     ea = abs(res.alpha - NUNAN_KELLER["alpha"]) / NUNAN_KELLER["alpha"]
     eb = abs(res.beta - NUNAN_KELLER["beta"]) / NUNAN_KELLER["beta"]
@@ -1588,7 +1739,8 @@ def interfaces_and_dfg(run_counted, res32, path_launches, n=256,
         f"{wall:.4f} s; alpha {res.alpha:.6f} (paper "
         f"{NUNAN_KELLER['alpha']}, rel {ea:.2e}), beta {res.beta:.6f} "
         f"(paper {NUNAN_KELLER['beta']}, rel {eb:.2e}); sequential "
-        f"iterations per case {its_seq}, alpha {seq.alpha:.6f} beta "
+        f"iterations per case {its_seq}, wall {wall_seq:.4f} s (batched / "
+        f"sequential {wall / wall_seq:.3f}), alpha {seq.alpha:.6f} beta "
         f"{seq.beta:.6f}")
     assert ea <= 0.01 and eb <= 0.01
     assert abs(seq.alpha - res.alpha) <= 1e-3 and abs(seq.beta - res.beta) \
@@ -1732,8 +1884,25 @@ def front_end(run_counted, path_launches, device="cuda"):
         elif name == "fg-heat":
             K = np.array(f.get_effective_property())
             log(f"    K diagonal {np.diag(K).tolist()}")
-            assert np.all(np.diag(K) > 1.0) and np.all(np.diag(K) < 10.0)
             heat32 = (K, len(s.residuals))   # held to the CPU below
+            # its three cases batched (as the run took them) and one by
+            # one on the same solver, warm, in turns
+            walls = {"batched": [], "sequential": []}
+            for _ in range(2):
+                for how in walls:
+                    t0 = time.perf_counter()
+                    if how == "batched":
+                        assert not s.run_batched(np.eye(3))
+                    else:
+                        for E in np.eye(3):
+                            s.set_strain(E)
+                            assert not s.run()
+                    sync_all()
+                    walls[how].append(time.perf_counter() - t0)
+            log(f"    the three cases batched {walls['batched']} s, one by "
+                f"one {walls['sequential']} s: batched / sequential "
+                f"{sum(walls['batched']) / sum(walls['sequential']):.3f}")
+            assert np.all(np.diag(K) > 1.0) and np.all(np.diag(K) < 10.0)
         else:
             alpha, beta = f._nunan_keller
             da = abs(alpha - NUNAN_KELLER["alpha"]) / NUNAN_KELLER["alpha"]
@@ -3006,10 +3175,12 @@ def main():
         log(f"  {src}: {len(regs)} kernels, at most {max(regs, default=0)} "
             f"registers a thread, {len(spills)} with spills")
 
-    def run_counted(solver, label, path, fn=None):
+    def run_counted(solver, label, path, fn=None, batched=False):
         """Run one solve (``fn``, the solver's run by default) with every
         launch count set to 0 just before it; fail unless each kernel of
-        ``path`` launched in it and no other."""
+        ``path`` launched in it and no other.  ``batched``: ``fn`` is a
+        whole-field run_batched, which launches the path's chain batched
+        (BATCHED_CHAIN) and never its single chain."""
         for table in (sk.launches, spk.launches):
             for name in table:
                 table[name] = 0
@@ -3019,6 +3190,8 @@ def main():
         log(f"  {label} launches: {json.dumps(got)}")
         want = PATH_KERNELS[path] if solver.par is None else \
             SHARDED_KERNELS[path]
+        if batched and solver.par is None:
+            want = tuple(BATCHED_CHAIN.get(k, k) for k in want)
         assert all((got[k] > 0) == (k in want) for k in got), (label, got)
         return fail, got
 
@@ -3039,6 +3212,20 @@ def main():
     check_kernels((128, 128, 1), torch.float64, timed=False)
     check_kernels((33, 17, 1), torch.float64, timed=False)
     torch.cuda.empty_cache()
+    # the batched chains (run_batched's): bitwise B single launches and
+    # their twins on every shape above in float32 and float64 (256^3 in
+    # float32), timed at 256^3 with phase 8's batch sizes and, for K3, at
+    # phase 10's 64^3 Nunan-Keller batch (B = 5)
+    log("phase 2: batched chains vs single launches and plain twins")
+    main_nums.update(check_batched_chains(
+        (256, 256, 256), torch.float32, timed=True,
+        sizes={k: v[3] for k, v in BATCHED.items()}))
+    for shape in ((33, 17, 29), (64, 32, 16), (64, 64, 64), (128, 128, 1),
+                  (33, 17, 1)):
+        for dt in (torch.float64, torch.float32):
+            check_batched_chains(shape, dt, timed=False)
+    check_batched_chains((64, 64, 64), torch.float32, timed=True,
+                         sizes={"g0_staggered_chain_batched": 5})
 
     # ---- phase 3: kernel path vs plain path on the same solve
     log("phase 3: 48^3 float64 solves, cuda kernels vs cpu twins")
@@ -3437,6 +3624,21 @@ def main():
                  "gamma_collocated_zt_chain_slab": "viscosity-collocated"}
     rows += [(name, counter, f"{slab_path[counter]} [sharded]", src, rep)
              for name, counter, src, rep in slab_rows]
+    # the batched chains (run_batched's, #7 under vmap), from phase 8
+    rows += [("g0_staggered_chain_batched", "g0_staggered_chain_batched",
+              "elasticity [batched]", ch, f"{pc_}:212"),
+             ("g0_staggered_heat_chain_batched",
+              "g0_staggered_heat_chain_batched", "heat [batched]", ch,
+              f"{pc_}:212"),
+             ("gamma_collocated_chain_batched",
+              "gamma_collocated_chain_batched",
+              "elasticity-collocated [batched]", ch, f"{pc_}:212"),
+             ("gamma_collocated_chain_batched[heat]",
+              "gamma_collocated_chain_batched", "heat-collocated [batched]",
+              ch, f"{pc_}:212"),
+             ("gamma_collocated_zt_chain_batched",
+              "gamma_collocated_zt_chain_batched",
+              "viscosity-collocated [batched]", ch, f"{pc_}:212")]
     rows += [("gamma_collocated_chain_slab[hyper]",
               "gamma_collocated_chain_slab",
               "hyperelasticity-collocated [sharded]", ch, f"{pc_}:470"),
@@ -3462,15 +3664,18 @@ def main():
                                "elasticity-full-staggered",
                                "elasticity-laminate", "viscosity-generic",
                                "viscosity-lambda", "viscosity-fluidity",
-                               "viscosity-nunan-keller", "fg-hashin",
-                               "fg-transverse-isotropy", "fg-nunan-keller",
+                               "fg-hashin", "fg-transverse-isotropy",
                                "fg-digital-rocks", "fg-tetmesh",
                                "recover-elasticity", "recover-viscosity",
                                "elasticity-lm6", "viscosity-lm6")
         + k1k2_paths,
         "g0_staggered_heat_chain": ("heat-aniso", "heat-laminate",
-                                    "fg-heat", "fg-stl", "recover-heat",
+                                    "fg-stl", "recover-heat",
                                     "recover-viscosity"),
+        "g0_staggered_chain_batched": ("elasticity-general [batched]",
+                                       "viscosity-nunan-keller",
+                                       "fg-nunan-keller"),
+        "g0_staggered_heat_chain_batched": ("fg-heat",),
         "gamma_collocated_chain": ("elasticity-general-collocated",
                                    "elasticity-laminate-collocated",
                                    "elasticity-nesterov-collocated",

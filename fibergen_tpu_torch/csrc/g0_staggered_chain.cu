@@ -29,6 +29,15 @@
 //   y_line   c2c inverse along y, in place
 //   z_inv    half-spectrum -> real lines along z (Hermitian completion)
 //
+// Batched (pallas_chain._middle under jax.vmap, which the JAX package's
+// run_batched reaches through krylov_gen): B right-hand sides go through
+// the same five launches, the case a grid axis of its own in the y and x
+// passes (blockIdx.z, so that the C * nx rows of the y pass stay in
+// blockIdx.y) and a run of lines in the z passes; each case's lines pair
+// and transform as in a single chain, and the apply reads that case's DC
+// vector, so the batch is bitwise B single chains.  A single right-hand
+// side is the batch of one.
+//
 // The five passes are templates on the apply functor, which fixes the
 // component count C, reads its own per-axis tables (natural rfft bin order,
 // built in double on the host) and treats the DC bin itself.  The 1/N of
@@ -78,8 +87,8 @@
 // neighbouring y lines.
 //
 // Bound on the card: device-memory bytes.  The function reads f and writes
-// u once (2C values per voxel); the chain moves the spectrum five times, so
-// it runs at about five times that bound at best.  Design: y and x tiles
+// u once (2C values per voxel, 2BC in a batch of B); the chain moves the
+// spectrum five times, so it runs at about five times that bound at best.  Design: y and x tiles
 // take TK consecutive kz bins of every line (coalesced along kz).  In the
 // register passes a line's transform touches shared memory twice per value
 // (one exchange, one barrier pair) instead of about eight times with four
@@ -274,6 +283,12 @@ template <typename T>
 __device__ __forceinline__ Cx<T>* smem_base() {
   extern __shared__ __align__(16) unsigned char fg_smem[];
   return reinterpret_cast<Cx<T>*>(fg_smem);
+}
+
+// Row blockIdx.y of case blockIdx.z, in a pass whose grid has one y row per
+// line set of a case (the y passes: a (component, x) row)
+__device__ __forceinline__ int64_t row_of() {
+  return static_cast<int64_t>(blockIdx.z) * gridDim.y + blockIdx.y;
 }
 
 // ---------------------------------------------------------------------------
@@ -471,56 +486,93 @@ size_t padded_bytes(size_t elems) {
   return (elems + (elems >> pad_shift<T>())) * sizeof(Cx<T>);
 }
 
-// Real lines of length nz (line g at f + g * nz) -> bins 0..nzh-1 of their
-// DFT (line g at spec + g * nzh).  Block: 2^log2P complex lines, each
-// holding real lines 2m (real part) and 2m+1 (imaginary part).
+// The real lines of the z passes: B cases of n lines of length nz each,
+// line l of case b at b * rcs + l * nz of the real field (rcs, the case
+// stride, may exceed n * nz: K6 reads components 1..5 of a 6-component
+// batch) and at spectrum line b * n + l (the spectrum is contiguous).  A
+// complex transform carries lines 2m and 2m + 1 of one case, so that a
+// case's lines pair as in a single chain (the rounding of a packed
+// transform depends on both of its lines): complex line G of the batch is
+// pair m = G - b * cpc of case b = G / cpc, cpc = (n + 1) / 2 a case.
+struct ZLines {
+  int64_t n, cpc, total, rcs;
+  int nz;
+  // real line 2m + h of complex line G: its offset into the real field and
+  // its spectrum line; false where there is none (past the batch, or the
+  // odd line of a case's last pair)
+  __device__ __forceinline__ bool at(int64_t G, int h, int64_t& r,
+                                     int64_t& sl) const {
+    if (G >= total) return false;
+    const int64_t b = cpc == total ? 0 : G / cpc;
+    const int64_t l = 2 * (G - b * cpc) + h;
+    if (l >= n) return false;
+    r = b * rcs + l * nz;
+    sl = b * n + l;
+    return true;
+  }
+};
+
+ZLines z_lines(int64_t n, int B, int64_t rcs, int nz) {
+  const int64_t cpc = (n + 1) / 2;
+  return {n, cpc, cpc * B, rcs, nz};
+}
+
+// Real lines of length nz -> bins 0..nzh-1 of their DFT (spectrum line sl
+// at spec + sl * nzh).  Block: 2^log2P complex lines, each holding real
+// lines 2m (real part) and 2m+1 (imaginary part) of one case.
 template <typename T>
 __global__ void z_fwd(const T* __restrict__ f, Cx<T>* __restrict__ spec,
                       const Cx<T>* __restrict__ tw, int nz, int log2nz,
-                      int nzh, int64_t nlines, int log2P) {
+                      int nzh, ZLines zl, int log2P) {
   const int P = 1 << log2P;
   Cx<T>* s = smem_base<T>();
-  const int64_t g0 = static_cast<int64_t>(blockIdx.x) * 2 * P;
+  const int64_t G0 = static_cast<int64_t>(blockIdx.x) * P;
   for (int e = threadIdx.x; e < P * nz; e += blockDim.x) {
     const int m = e / nz, j = e - m * nz;
-    const int64_t ga = g0 + 2 * m;
-    s[e] = {ga < nlines ? f[ga * nz + j] : T(0),
-            ga + 1 < nlines ? f[(ga + 1) * nz + j] : T(0)};
+    int64_t ra, rb, sl;
+    const bool a = zl.at(G0 + m, 0, ra, sl), b = zl.at(G0 + m, 1, rb, sl);
+    s[e] = {a ? f[ra + j] : T(0), b ? f[rb + j] : T(0)};
   }
   __syncthreads();
   const Tile t{nz, log2nz, log2P, 1, 1, nz, 0};
   line_dft(s, s + P * nz, t, tw, false, true);
   for (int e = threadIdx.x; e < P * nzh; e += blockDim.x) {
     const int m = e / nzh, k = e - m * nzh;
-    const int64_t ga = g0 + 2 * m;
     const Cx<T> z = s[m * nz + rev(k, log2nz)];
     const Cx<T> zc = s[m * nz + rev(k ? nz - k : 0, log2nz)];
     // A = (Z[k] + conj Z[n-k]) / 2,  B = (Z[k] - conj Z[n-k]) / 2i
-    if (ga < nlines)
-      spec[ga * nzh + k] = {T(0.5) * (z.r + zc.r), T(0.5) * (z.i - zc.i)};
-    if (ga + 1 < nlines)
-      spec[(ga + 1) * nzh + k] = {T(0.5) * (z.i + zc.i),
-                                  T(0.5) * (zc.r - z.r)};
+    int64_t r, sl;
+    if (zl.at(G0 + m, 0, r, sl))
+      spec[sl * nzh + k] = {T(0.5) * (z.r + zc.r), T(0.5) * (z.i - zc.i)};
+    if (zl.at(G0 + m, 1, r, sl))
+      spec[sl * nzh + k] = {T(0.5) * (z.i + zc.i), T(0.5) * (zc.r - z.r)};
   }
 }
 
-// Bin j of the full spectrum of line g from its half (bin nz-j =
-// conj(bin j)); the imaginary parts of the DC and Nyquist bins are dropped,
-// as a c2r transform drops them.
+// Bin j of the full spectrum of spectrum line sl (none: sl < 0) from its
+// half (bin nz-j = conj(bin j)); the imaginary parts of the DC and Nyquist
+// bins are dropped, as a c2r transform drops them.
 template <typename T>
 __device__ __forceinline__ Cx<T> full_bin(const Cx<T>* __restrict__ spec,
-                                          int64_t g, int64_t nlines, int j,
-                                          int nz, int nzh) {
-  if (g >= nlines) return {T(0), T(0)};
+                                          int64_t sl, int j, int nz,
+                                          int nzh) {
+  if (sl < 0) return {T(0), T(0)};
   Cx<T> v;
   if (j < nzh) {
-    v = spec[g * nzh + j];
+    v = spec[sl * nzh + j];
   } else {
-    v = spec[g * nzh + (nz - j)];
+    v = spec[sl * nzh + (nz - j)];
     v.i = -v.i;
   }
   if (j == 0 || 2 * j == nz) v.i = T(0);
   return v;
+}
+
+// Spectrum line of real line 2m + h of complex line G, -1 where none
+__device__ __forceinline__ int64_t spec_line(const ZLines& zl, int64_t G,
+                                             int h) {
+  int64_t r, sl;
+  return zl.at(G, h, r, sl) ? sl : -1;
 }
 
 // Inverse of z_fwd: the complex line m carries A + i B of real lines 2m
@@ -528,15 +580,14 @@ __device__ __forceinline__ Cx<T> full_bin(const Cx<T>* __restrict__ spec,
 template <typename T>
 __global__ void z_inv(const Cx<T>* __restrict__ spec, T* __restrict__ out,
                       const Cx<T>* __restrict__ tw, int nz, int log2nz,
-                      int nzh, int64_t nlines, int log2P) {
+                      int nzh, ZLines zl, int log2P) {
   const int P = 1 << log2P;
   Cx<T>* s = smem_base<T>();
-  const int64_t g0 = static_cast<int64_t>(blockIdx.x) * 2 * P;
+  const int64_t G0 = static_cast<int64_t>(blockIdx.x) * P;
   for (int e = threadIdx.x; e < P * nz; e += blockDim.x) {
     const int m = e / nz, j = e - m * nz;
-    const int64_t ga = g0 + 2 * m;
-    const Cx<T> a = full_bin(spec, ga, nlines, j, nz, nzh);
-    const Cx<T> b = full_bin(spec, ga + 1, nlines, j, nz, nzh);
+    const Cx<T> a = full_bin(spec, spec_line(zl, G0 + m, 0), j, nz, nzh);
+    const Cx<T> b = full_bin(spec, spec_line(zl, G0 + m, 1), j, nz, nzh);
     s[e] = {a.r - b.i, a.i + b.r};
   }
   __syncthreads();
@@ -544,23 +595,23 @@ __global__ void z_inv(const Cx<T>* __restrict__ spec, T* __restrict__ out,
   line_dft(s, s + P * nz, t, tw, true, true);
   for (int e = threadIdx.x; e < P * nz; e += blockDim.x) {
     const int m = e / nz, j = e - m * nz;
-    const int64_t ga = g0 + 2 * m;
     const Cx<T> v = s[m * nz + rev(j, log2nz)];
-    if (ga < nlines) out[ga * nz + j] = v.r;
-    if (ga + 1 < nlines) out[(ga + 1) * nz + j] = v.i;
+    int64_t r, sl;
+    if (zl.at(G0 + m, 0, r, sl)) out[r + j] = v.r;
+    if (zl.at(G0 + m, 1, r, sl)) out[r + j] = v.i;
   }
 }
 
-// c2c along y in place: block (kz tile, c * nx + x) transforms ny-long lines
-// of 2^log2TK consecutive kz bins of rows nzl long (the whole half-spectrum,
-// or a kz-slab's columns); tile layout s[j * TK + t].
+// c2c along y in place: block (kz tile, c * nx + x, case) transforms
+// ny-long lines of 2^log2TK consecutive kz bins of rows nzl long (the whole
+// half-spectrum, or a kz-slab's columns); tile layout s[j * TK + t].
 template <typename T>
 __global__ void y_line(Cx<T>* __restrict__ spec, const Cx<T>* __restrict__ tw,
                        int ny, int log2ny, int nzl, int log2TK, bool inv) {
   const int TK = 1 << log2TK;
   Cx<T>* s = smem_base<T>();
   const int kz0 = blockIdx.x * TK;
-  Cx<T>* base = spec + static_cast<int64_t>(blockIdx.y) * ny * nzl + kz0;
+  Cx<T>* base = spec + row_of() * ny * nzl + kz0;
   for (int e = threadIdx.x; e < ny * TK; e += blockDim.x) {
     const int j = e >> log2TK, q = e & (TK - 1);
     s[e] = kz0 + q < nzl ? base[static_cast<int64_t>(j) * nzl + q]
@@ -590,6 +641,8 @@ struct StaggeredK {
   __device__ __forceinline__ Row row(int y) const {
     return {ty[y], ty[ny + y], ty[2 * ny + y], y == 0};
   }
+  // the same for every case of a batch
+  __device__ __forceinline__ Row row(int y, int) const { return row(y); }
   // k+ and |k+|^2 at bin (i, row, k); false at the DC bin
   __device__ __forceinline__ bool at(const Row& r, int i, int k, T (&kr)[3],
                                      T (&ki)[3], T& n2) const {
@@ -609,7 +662,7 @@ struct G0Vector {
   using Row = typename StaggeredK<T>::Row;
   StaggeredK<T> tab;
   T c10, c20;
-  __device__ __forceinline__ Row row(int y) const { return tab.row(y); }
+  __device__ __forceinline__ Row row(int y, int) const { return tab.row(y); }
   __device__ __forceinline__ void operator()(Cx<T>* v, int bs, const Row& r,
                                              int i, int k) const {
     T kr[3], ki[3], n2;
@@ -642,7 +695,7 @@ struct G0Scalar {
   using Row = typename StaggeredK<T>::Row;
   StaggeredK<T> tab;
   T c10;
-  __device__ __forceinline__ Row row(int y) const { return tab.row(y); }
+  __device__ __forceinline__ Row row(int y, int) const { return tab.row(y); }
   __device__ __forceinline__ void operator()(Cx<T>* v, int, const Row& r,
                                              int i, int k) const {
     T kr[3], ki[3], n2;
@@ -680,14 +733,18 @@ __device__ __forceinline__ void gamma6(const T (&p)[6], T x0, T x1, T x2,
 template <typename T, int NC>
 struct GammaCollocated {
   static constexpr int C = NC;
+  static constexpr int ES = NC == 5 ? 6 : NC;   // E values a case
   const T *tx, *ty, *tz;
-  const T* E;          // device vector: NC values, 6 for NC = 5
+  const T* E;          // device (B, ES) values: case b's DC bin at E + b ES
   T A, B, beta;        // 1/N folded in
   struct Row {
     T x1;
     bool dc;
+    const T* e;        // this case's E
   };
-  __device__ __forceinline__ Row row(int y) const { return {ty[y], y == 0}; }
+  __device__ __forceinline__ Row row(int y, int b) const {
+    return {ty[y], y == 0, E + b * ES};
+  }
   __device__ __forceinline__ void part(const T (&p)[NC], T x0, T x1, T x2,
                                        T k2, T (&q)[NC]) const {
     const T a = A / k2;
@@ -712,7 +769,7 @@ struct GammaCollocated {
     if (r.dc && i == 0 && k == 0) {
       constexpr int eo = NC == 5 ? 1 : 0;   // K6: E holds component 0 too
 #pragma unroll
-      for (int c = 0; c < NC; ++c) v[c * bs] = Cx<T>{E[c + eo], T(0)};
+      for (int c = 0; c < NC; ++c) v[c * bs] = Cx<T>{r.e[c + eo], T(0)};
       return;
     }
     const T x0 = tx[i], x1 = r.x1, x2 = tz[k];
@@ -739,13 +796,16 @@ template <typename T>
 struct GammaCollocatedHyper {
   static constexpr int C = 9;
   const T *tx, *ty, *tz;
-  const T* E;          // device vector: 9 values
+  const T* E;          // device (B, 9) values: case b's DC bin at E + 9 b
   T A, B, beta;        // 1/N folded in
   struct Row {
     T x1;
     bool dc;
+    const T* e;        // this case's E
   };
-  __device__ __forceinline__ Row row(int y) const { return {ty[y], y == 0}; }
+  __device__ __forceinline__ Row row(int y, int b) const {
+    return {ty[y], y == 0, E + 9 * b};
+  }
   __device__ __forceinline__ void part(const T (&p)[9], T x0, T x1, T x2, T a,
                                        T b4, T (&q)[9]) const {
     // rows of tau: (xx, xy, xz), (yx, yy, yz), (zx, zy, zz)
@@ -767,7 +827,7 @@ struct GammaCollocatedHyper {
                                              int i, int k) const {
     if (r.dc && i == 0 && k == 0) {
 #pragma unroll
-      for (int c = 0; c < 9; ++c) v[c * bs] = Cx<T>{E[c], T(0)};
+      for (int c = 0; c < 9; ++c) v[c * bs] = Cx<T>{r.e[c], T(0)};
       return;
     }
     const T x0 = tx[i], x1 = r.x1, x2 = tz[k];
@@ -795,7 +855,7 @@ template <typename T>
 using GammaZt = GammaCollocated<T, 5>;
 
 // Forward x transform, apply, inverse x transform, in place: block
-// (kz tile, y) holds all C components, tile layout
+// (kz tile, y, case) holds all C components of its case, tile layout
 // s[c * nx * TK + i * TK + t].  The forward pass leaves the x bins in
 // bit-reversed order and the inverse pass takes them so.  Rows are nzl
 // long; column q of the rows is the global kz bin koff + q, which the apply
@@ -808,10 +868,10 @@ __global__ void x_apply(Cx<T>* __restrict__ spec, const Cx<T>* __restrict__ tw,
   const int TK = 1 << log2TK;
   const int bs = nx * TK;
   Cx<T>* s = smem_base<T>();
-  const int kz0 = blockIdx.x * TK, y = blockIdx.y;
+  const int kz0 = blockIdx.x * TK, y = blockIdx.y, b = blockIdx.z;
   const int64_t sc = static_cast<int64_t>(nx) * ny * nzl;  // component
   const int64_t sx = static_cast<int64_t>(ny) * nzl;       // x
-  Cx<T>* base = spec + static_cast<int64_t>(y) * nzl + kz0;
+  Cx<T>* base = spec + b * C * sc + static_cast<int64_t>(y) * nzl + kz0;
   for (int e = threadIdx.x; e < C * bs; e += blockDim.x) {
     const int c = e / bs, i = (e - c * bs) >> log2TK, q = e & (TK - 1);
     s[e] = kz0 + q < nzl ? base[c * sc + i * sx + q] : Cx<T>{T(0), T(0)};
@@ -819,7 +879,7 @@ __global__ void x_apply(Cx<T>* __restrict__ spec, const Cx<T>* __restrict__ tw,
   __syncthreads();
   const Tile t{nx, log2nx, log2TK, C, TK, 1, bs};
   line_dft(s, s + C * bs, t, tw, false, true);
-  const typename A::Row row = apply.row(y);
+  const typename A::Row row = apply.row(y, b);
   for (int e = threadIdx.x; e < bs; e += blockDim.x) {
     const int p = e >> log2TK, q = e & (TK - 1);
     if (kz0 + q < nzl) apply(s + e, bs, row, rev(p, log2nx), koff + kz0 + q);
@@ -837,24 +897,24 @@ __global__ void x_apply(Cx<T>* __restrict__ spec, const Cx<T>* __restrict__ tw,
 // barriers and store nothing.
 
 // z_fwd with the register FFT: block of P = 256 / TT complex lines, each
-// holding real lines 2m and 2m+1; thread (m, t) = m TT + t, so a warp's
-// loads run along z.  The Hermitian split reads bins k and N - k of a line
-// from the exchange's own slots.
+// holding real lines 2m and 2m+1 of one case (ZLines); thread (m, t) =
+// m TT + t, so a warp's loads run along z.  The Hermitian split reads bins
+// k and N - k of a line from the exchange's own slots.
 template <typename T, int N>
 __global__ void __launch_bounds__(256)
     z_fwd_reg(const T* __restrict__ f, Cx<T>* __restrict__ spec,
-              const Cx<T>* __restrict__ tw, int64_t nlines) {
+              const Cx<T>* __restrict__ tw, ZLines zl) {
   constexpr int V = plan_v(N), TT = N / V, P = 256 / TT, NZH = N / 2 + 1;
   const int t = threadIdx.x & (TT - 1), m = threadIdx.x / TT;
-  const int64_t g0 = static_cast<int64_t>(blockIdx.x) * 2 * P;
-  const int64_t ga = g0 + 2 * m;
+  const int64_t G0 = static_cast<int64_t>(blockIdx.x) * P;
   Cx<T>* s = smem_base<T>();
+  int64_t ra, rb, sl;
+  const bool a = zl.at(G0 + m, 0, ra, sl), b = zl.at(G0 + m, 1, rb, sl);
   Cx<T> v[V];
 #pragma unroll
   for (int r = 0; r < V; ++r) {
     const int j = t + TT * r;
-    v[r] = {ga < nlines ? f[ga * N + j] : T(0),
-            ga + 1 < nlines ? f[(ga + 1) * N + j] : T(0)};
+    v[r] = {a ? f[ra + j] : T(0), b ? f[rb + j] : T(0)};
   }
   auto at = [&](int j) -> Cx<T>& { return s[pad<T>(m * N + j)]; };
   line_fft<N, false>(v, t, tw, at);
@@ -864,15 +924,14 @@ __global__ void __launch_bounds__(256)
   __syncthreads();
   for (int e = threadIdx.x; e < P * NZH; e += blockDim.x) {
     const int mm = e / NZH, k = e - mm * NZH;
-    const int64_t gb = g0 + 2 * mm;
     const Cx<T> z = s[pad<T>(mm * N + k)];
     const Cx<T> zc = s[pad<T>(mm * N + (k ? N - k : 0))];
     // A = (Z[k] + conj Z[n-k]) / 2,  B = (Z[k] - conj Z[n-k]) / 2i
-    if (gb < nlines)
-      spec[gb * NZH + k] = {T(0.5) * (z.r + zc.r), T(0.5) * (z.i - zc.i)};
-    if (gb + 1 < nlines)
-      spec[(gb + 1) * NZH + k] = {T(0.5) * (z.i + zc.i),
-                                  T(0.5) * (zc.r - z.r)};
+    int64_t r, l;
+    if (zl.at(G0 + mm, 0, r, l))
+      spec[l * NZH + k] = {T(0.5) * (z.r + zc.r), T(0.5) * (z.i - zc.i)};
+    if (zl.at(G0 + mm, 1, r, l))
+      spec[l * NZH + k] = {T(0.5) * (z.i + zc.i), T(0.5) * (zc.r - z.r)};
   }
 }
 
@@ -881,31 +940,32 @@ __global__ void __launch_bounds__(256)
 template <typename T, int N>
 __global__ void __launch_bounds__(256)
     z_inv_reg(const Cx<T>* __restrict__ spec, T* __restrict__ out,
-              const Cx<T>* __restrict__ tw, int64_t nlines) {
+              const Cx<T>* __restrict__ tw, ZLines zl) {
   constexpr int V = plan_v(N), TT = N / V, NZH = N / 2 + 1;
   const int t = threadIdx.x & (TT - 1), m = threadIdx.x / TT;
-  const int64_t ga = static_cast<int64_t>(blockIdx.x) * 2 * (256 / TT) +
-                     2 * m;
+  const int64_t G = static_cast<int64_t>(blockIdx.x) * (256 / TT) + m;
   Cx<T>* s = smem_base<T>();
+  int64_t ra = 0, rb = 0, la = -1, lb = -1;
+  const bool a = zl.at(G, 0, ra, la), b = zl.at(G, 1, rb, lb);
   Cx<T> v[V];
 #pragma unroll
   for (int r = 0; r < V; ++r) {
     const int j = t + TT * r;
-    const Cx<T> a = full_bin(spec, ga, nlines, j, N, NZH);
-    const Cx<T> b = full_bin(spec, ga + 1, nlines, j, N, NZH);
-    v[r] = {a.r - b.i, a.i + b.r};
+    const Cx<T> x = full_bin(spec, a ? la : -1, j, N, NZH);
+    const Cx<T> y = full_bin(spec, b ? lb : -1, j, N, NZH);
+    v[r] = {x.r - y.i, x.i + y.r};
   }
   line_fft<N, true>(v, t, tw,
                     [&](int j) -> Cx<T>& { return s[pad<T>(m * N + j)]; });
 #pragma unroll
   for (int r = 0; r < V; ++r) {
     const int j = t + TT * r;
-    if (ga < nlines) out[ga * N + j] = v[r].r;
-    if (ga + 1 < nlines) out[(ga + 1) * N + j] = v[r].i;
+    if (a) out[ra + j] = v[r].r;
+    if (b) out[rb + j] = v[r].i;
   }
 }
 
-// y_line with the register FFT (ny = N): block (kz tile, c * nx + x) holds
+// y_line with the register FFT (ny = N): block (kz tile, c * nx + x, case) holds
 // TK consecutive kz columns of one row, TT threads a column; thread (t, q)
 // = t TK + q, so a warp's loads run along kz.
 template <typename T, int N, bool INV>
@@ -917,7 +977,7 @@ __global__ void __launch_bounds__(256)
   const int q = threadIdx.x & (TK - 1), t = threadIdx.x >> log2TK;
   const int kz0 = blockIdx.x * TK;
   const bool live = kz0 + q < nzl;
-  Cx<T>* g = spec + static_cast<int64_t>(blockIdx.y) * N * nzl + kz0 + q;
+  Cx<T>* g = spec + row_of() * N * nzl + kz0 + q;
   Cx<T>* s = smem_base<T>();
   Cx<T> v[V];
 #pragma unroll
@@ -950,7 +1010,7 @@ __host__ __device__ constexpr int x_threads_max() {
   return (C * (N / plan_v(N))) << x_log2tk_max<T>(C * (N / plan_v(N)));
 }
 
-// x_apply with the register FFT (nx = N): block (kz tile, y) holds TK
+// x_apply with the register FFT (nx = N): block (kz tile, y, case) holds TK
 // consecutive kz columns of all C components, TT threads a column and
 // component; thread (c, t, q) = (c TT + t) TK + q.  Each thread transforms
 // its own component's line in registers (the exchanges through the
@@ -965,10 +1025,11 @@ __global__ void __launch_bounds__(x_threads_max<T, A::C, N>())
   const int TK = 1 << log2TK;
   const int q = threadIdx.x & (TK - 1), ct = threadIdx.x >> log2TK;
   const int c = ct / TT, t = ct & (TT - 1);
-  const int kz0 = blockIdx.x * TK, y = blockIdx.y;
+  const int kz0 = blockIdx.x * TK, y = blockIdx.y, b = blockIdx.z;
   const bool live = kz0 + q < nzl;
   const int64_t sx = static_cast<int64_t>(ny) * nzl;
-  Cx<T>* g = spec + c * (N * sx) + static_cast<int64_t>(y) * nzl + kz0 + q;
+  Cx<T>* g = spec + (b * A::C + c) * (N * sx) +
+             static_cast<int64_t>(y) * nzl + kz0 + q;
   Cx<T>* s = smem_base<T>();
   Cx<T> v[V];
 #pragma unroll
@@ -985,7 +1046,7 @@ __global__ void __launch_bounds__(x_threads_max<T, A::C, N>())
   __syncthreads();
   const int bins = N << log2TK;
   const int bs = pad<T>(bins);      // a component's padded stride
-  const typename A::Row row = apply.row(y);
+  const typename A::Row row = apply.row(y, b);
   for (int e = threadIdx.x; e < bins; e += blockDim.x) {
     const int i = e >> log2TK, qq = e & (TK - 1);
     if (kz0 + qq < nzl) apply(s + pad<T>(e), bs, row, i, koff + kz0 + qq);
@@ -1051,69 +1112,69 @@ int cover_log2(int lmax, int nzl) {
 }
 
 template <typename T, int N>
-int launch_z_reg(const void* in, void* out, const void* twz, int64_t nlines,
+int launch_z_reg(const void* in, void* out, const void* twz, const ZLines& zl,
                  bool inv, cudaStream_t st) {
   using Cp = Cx<T>;
   constexpr int P = 256 / (N / plan_v(N));     // complex lines per block
-  const unsigned blocks =
-      static_cast<unsigned>((nlines + 2 * P - 1) / (2 * P));
+  const unsigned blocks = static_cast<unsigned>((zl.total + P - 1) / P);
   const size_t bytes = padded_bytes<T>(size_t(P) * N);
   cudaError_t err;
   if (inv) {
     if ((err = allow_smem(z_inv_reg<T, N>, bytes))) return int(err);
     z_inv_reg<T, N><<<blocks, 256, bytes, st>>>(
         static_cast<const Cp*>(in), static_cast<T*>(out),
-        static_cast<const Cp*>(twz), nlines);
+        static_cast<const Cp*>(twz), zl);
   } else {
     if ((err = allow_smem(z_fwd_reg<T, N>, bytes))) return int(err);
     z_fwd_reg<T, N><<<blocks, 256, bytes, st>>>(
         static_cast<const T*>(in), static_cast<Cp*>(out),
-        static_cast<const Cp*>(twz), nlines);
+        static_cast<const Cp*>(twz), zl);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The z pass on nlines real lines of length nz (C * nx * ny of a field, or
+// The z pass on the real lines of zl (C * nx * ny a case of a field, or
 // of an x-slab): forward (real in -> half-spectrum rows out) or inverse.
 template <typename T>
-int launch_z(const void* in, void* out, const void* twz, int64_t nlines,
-             int nz, bool inv, void* stream) {
+int launch_z(const void* in, void* out, const void* twz, const ZLines& zl,
+             bool inv, void* stream) {
   using Cp = Cx<T>;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nz = zl.nz;
   if (reg_route(nz)) {
-    FG_WITH_N(nz, (launch_z_reg<T, N>(in, out, twz, nlines, inv, st)));
+    FG_WITH_N(nz, (launch_z_reg<T, N>(in, out, twz, zl, inv, st)));
   }
   const int nzh = nz / 2 + 1, lz = log2_or_neg(nz);
   // 2^lP complex lines (twice as many real lines) per block
   const size_t zunit = (lz >= 0 ? 1 : 2) * nz * sizeof(Cp);
   const int lP = pick_log2(zunit, nz >= 2048 ? 1 : 2048 / nz, 1 << 30);
-  const int64_t zper = 2LL << lP;
-  const unsigned zblocks = static_cast<unsigned>((nlines + zper - 1) / zper);
+  const unsigned zblocks =
+      static_cast<unsigned>((zl.total + (1 << lP) - 1) >> lP);
   const size_t zb = zunit << lP;
   cudaError_t err;
   if (inv) {
     if ((err = allow_smem(z_inv<T>, zb))) return static_cast<int>(err);
     z_inv<T><<<zblocks, kThreads, zb, st>>>(
         static_cast<const Cp*>(in), static_cast<T*>(out),
-        static_cast<const Cp*>(twz), nz, lz, nzh, nlines, lP);
+        static_cast<const Cp*>(twz), nz, lz, nzh, zl, lP);
   } else {
     if ((err = allow_smem(z_fwd<T>, zb))) return static_cast<int>(err);
     z_fwd<T><<<zblocks, kThreads, zb, st>>>(
         static_cast<const T*>(in), static_cast<Cp*>(out),
-        static_cast<const Cp*>(twz), nz, lz, nzh, nlines, lP);
+        static_cast<const Cp*>(twz), nz, lz, nzh, zl, lP);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int N>
-int launch_y_reg(Cx<T>* sp, const Cx<T>* tw, int rows, int nzl, bool inv,
-                 cudaStream_t st) {
+int launch_y_reg(Cx<T>* sp, const Cx<T>* tw, int rows, int B, int nzl,
+                 bool inv, cudaStream_t st) {
   constexpr int TT = N / plan_v(N);
   int lmax = 0;                      // at most 256 threads a block
   while ((TT << (lmax + 1)) <= 256) ++lmax;
   const int l = cover_log2(lmax, nzl);
   const size_t bytes = padded_bytes<T>(size_t(N) << l);
-  const dim3 grid((nzl + (1 << l) - 1) >> l, rows);
+  const dim3 grid((nzl + (1 << l) - 1) >> l, rows, B);
   cudaError_t err;
   if (inv) {
     if ((err = allow_smem(y_line_reg<T, N, true>, bytes))) return int(err);
@@ -1125,14 +1186,15 @@ int launch_y_reg(Cx<T>* sp, const Cx<T>* tw, int rows, int nzl, bool inv,
   return static_cast<int>(cudaGetLastError());
 }
 
-// c2c along y on every (c, x) row of a (rows, ny, nzl) spectrum, in place
+// c2c along y on every (c, x) row of each of the B cases of a (B, rows,
+// ny, nzl) spectrum, in place
 template <typename T>
-int launch_y(Cx<T>* sp, const void* twy, int rows, int ny, int nzl, bool inv,
-             cudaStream_t st) {
+int launch_y(Cx<T>* sp, const void* twy, int rows, int B, int ny, int nzl,
+             bool inv, cudaStream_t st) {
   using Cp = Cx<T>;
   const Cp* tw = static_cast<const Cp*>(twy);
   if (reg_route(ny)) {
-    FG_WITH_N(ny, (launch_y_reg<T, N>(sp, tw, rows, nzl, inv, st)));
+    FG_WITH_N(ny, (launch_y_reg<T, N>(sp, tw, rows, B, nzl, inv, st)));
   }
   const int ly = log2_or_neg(ny);
   const int want = sizeof(T) == 4 ? 16 : 8;
@@ -1141,19 +1203,19 @@ int launch_y(Cx<T>* sp, const void* twy, int rows, int ny, int nzl, bool inv,
   const size_t yb = yunit << lTy;
   cudaError_t err;
   if ((err = allow_smem(y_line<T>, yb))) return static_cast<int>(err);
-  const dim3 yg((nzl + (1 << lTy) - 1) >> lTy, rows);
+  const dim3 yg((nzl + (1 << lTy) - 1) >> lTy, rows, B);
   y_line<T><<<yg, kThreads, yb, st>>>(sp, tw, ny, ly, nzl, lTy, inv);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, class A, int N>
 int launch_x_reg(Cx<T>* sp, const Cx<T>* tw, const A& apply, int ny,
-                 int nzl, int koff, cudaStream_t st) {
+                 int nzl, int koff, int B, cudaStream_t st) {
   constexpr int C = A::C, TT = N / plan_v(N);
   int l = cover_log2(x_log2tk_max<T>(C * TT), nzl);
   while (l > 0 && padded_bytes<T>(size_t(C) * N << l) > kMaxBytes) --l;
   const size_t bytes = padded_bytes<T>(size_t(C) * N << l);
-  const dim3 grid((nzl + (1 << l) - 1) >> l, ny);
+  const dim3 grid((nzl + (1 << l) - 1) >> l, ny, B);
   cudaError_t err;
   if ((err = allow_smem(x_apply_reg<T, A, N>, bytes))) return int(err);
   x_apply_reg<T, A, N><<<grid, (C * TT) << l, bytes, st>>>(
@@ -1161,15 +1223,17 @@ int launch_x_reg(Cx<T>* sp, const Cx<T>* tw, const A& apply, int ny,
   return static_cast<int>(cudaGetLastError());
 }
 
-// x forward, the apply, x inverse on a (C, nx, ny, nzl) spectrum, in place
+// x forward, the apply, x inverse on each case of a (B, C, nx, ny, nzl)
+// spectrum, in place
 template <typename T, class A>
 int launch_x(Cx<T>* sp, const void* twx, const A& apply, int nx, int ny,
-             int nzl, int koff, cudaStream_t st) {
+             int nzl, int koff, int B, cudaStream_t st) {
   using Cp = Cx<T>;
   constexpr int C = A::C;
   const Cp* tw = static_cast<const Cp*>(twx);
   if (reg_route(nx)) {
-    FG_WITH_N(nx, (launch_x_reg<T, A, N>(sp, tw, apply, ny, nzl, koff, st)));
+    FG_WITH_N(nx, (launch_x_reg<T, A, N>(sp, tw, apply, ny, nzl, koff, B,
+                                         st)));
   }
   const int lx = log2_or_neg(nx);
   const int want = sizeof(T) == 4 ? 16 : 8;
@@ -1178,40 +1242,61 @@ int launch_x(Cx<T>* sp, const void* twx, const A& apply, int nx, int ny,
   const size_t xb = xunit << lTx;
   cudaError_t err;
   if ((err = allow_smem(x_apply<T, A>, xb))) return static_cast<int>(err);
-  const dim3 xg((nzl + (1 << lTx) - 1) >> lTx, ny);
+  const dim3 xg((nzl + (1 << lTx) - 1) >> lTx, ny, B);
   x_apply<T, A><<<xg, kThreads, xb, st>>>(sp, tw, apply, nx, lx, ny, nzl,
                                           koff, lTx);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The middle on a (C, nx, ny, nzl) spectrum whose column q is global kz bin
-// koff + q: y forward, x forward + apply + x inverse, y inverse, in place.
+// The middle on a (B, C, nx, ny, nzl) spectrum whose column q is global kz
+// bin koff + q: y forward, x forward + apply + x inverse, y inverse, in
+// place.  The case is a grid axis of its own (blockIdx.z), so the y rows
+// (C * nx, in blockIdx.y) stay within a case's.
 template <typename T, class A>
 int launch_middle(void* spec, const void* twx, const void* twy,
-                  const A& apply, int nx, int ny, int nzl, int koff,
+                  const A& apply, int nx, int ny, int nzl, int koff, int B,
                   void* stream) {
   if (nzl <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   Cx<T>* sp = static_cast<Cx<T>*>(spec);
-  int err = launch_y<T>(sp, twy, A::C * nx, ny, nzl, false, st);
-  if (!err) err = launch_x<T, A>(sp, twx, apply, nx, ny, nzl, koff, st);
-  if (!err) err = launch_y<T>(sp, twy, A::C * nx, ny, nzl, true, st);
+  int err = launch_y<T>(sp, twy, A::C * nx, B, ny, nzl, false, st);
+  if (!err) err = launch_x<T, A>(sp, twx, apply, nx, ny, nzl, koff, B, st);
+  if (!err) err = launch_y<T>(sp, twy, A::C * nx, B, ny, nzl, true, st);
   return err;
 }
 
-// The whole chain on one device: z forward, the middle on every kz bin,
-// z inverse.
+// The whole chain on one device for B right-hand sides: z forward, the
+// middle on every kz bin, z inverse.  Case b of f and out starts at b * fcs
+// and b * ocs (in elements; a case's C * nx * ny lines of length nz are
+// contiguous); the spectrum is a contiguous (B, C, nx, ny, nz/2+1).  A
+// single right-hand side is the call with B = 1.
 template <typename T, class A>
 int launch(const void* f, void* spec, void* out, const void* twx,
            const void* twy, const void* twz, const A& apply, int nx, int ny,
-           int nz, void* stream) {
-  const int64_t zlines = static_cast<int64_t>(A::C) * nx * ny;
-  int err = launch_z<T>(f, spec, twz, zlines, nz, false, stream);
+           int nz, int B, int64_t fcs, int64_t ocs, void* stream) {
+  if (B < 1 || B > 65535 || nx > 65535 || ny > 65535 ||
+      static_cast<int64_t>(A::C) * nx > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t lines = static_cast<int64_t>(A::C) * nx * ny;
+  int err = launch_z<T>(f, spec, twz, z_lines(lines, B, fcs, nz), false,
+                        stream);
   if (!err)
     err = launch_middle<T, A>(spec, twx, twy, apply, nx, ny, nz / 2 + 1, 0,
-                              stream);
-  if (!err) err = launch_z<T>(spec, out, twz, zlines, nz, true, stream);
+                              B, stream);
+  if (!err)
+    err = launch_z<T>(spec, out, twz, z_lines(lines, B, ocs, nz), true,
+                      stream);
   return err;
+}
+
+// A single right-hand side: the batch of one
+template <typename T, class A>
+int launch1(const void* f, void* spec, void* out, const void* twx,
+            const void* twy, const void* twz, const A& apply, int nx, int ny,
+            int nz, void* stream) {
+  const int64_t n = static_cast<int64_t>(A::C) * nx * ny * nz;
+  return launch<T>(f, spec, out, twx, twy, twz, apply, nx, ny, nz, 1, n, n,
+                   stream);
 }
 
 template <typename T>
@@ -1238,8 +1323,14 @@ G collocated(const void* tx, const void* ty, const void* tz, const void* E,
 // K6).  K6 reads components 1..5 of its input and writes components 1..5 of
 // its output: f and out point at component 1.
 //
-// Each chain has a whole-field entry <chain>_<T> (one device) and, for the
-// sharded x-slab solve (the kz-slab chain, replacing
+// Each chain has a whole-field entry <chain>_<T> (one right-hand side on
+// one device), a batched entry <chain>_batched_<T> for B right-hand sides
+// in one launch of each pass (the JAX package's _middle under jax.vmap,
+// whose batching rule adds B to the grid): case b of f and out at b * fcs
+// and b * ocs elements (K6: a (B, 6, ...) batch's components 1..5, fcs =
+// ocs = 6 nx ny nz), E (K5, K6) B rows of C values (6 for K6), spec a
+// (B, C, nx, ny, nz/2+1) workspace; the single entry is its B = 1 call.
+// For the sharded x-slab solve (the kz-slab chain, replacing
 // pallas_chain._run_middle_slab), a middle entry <chain>_middle_<T> on a
 // kz-slab (C, nx, ny, nzl) of global offset koff (nx, ny, nz the whole
 // grid's), between chain_z_fwd_<T> / chain_z_inv_<T> on the x-slabs'
@@ -1249,6 +1340,9 @@ G collocated(const void* tx, const void* ty, const void* tz, const void* E,
   const void *f, void *spec, void *out, const void *tx, const void *ty,      \
       const void *tz, const void *twx, const void *twy, const void *twz
 #define FG_CHAIN_PASS f, spec, out, twx, twy, twz
+#define FG_BATCH_ARGS                                                        \
+  int nx, int ny, int nz, int B, long long fcs, long long ocs, void *stream
+#define FG_BATCH_PASS nx, ny, nz, B, fcs, ocs, stream
 #define FG_MIDDLE_ARGS                                                       \
   void *spec, const void *tx, const void *ty, const void *tz,                \
       const void *twx, const void *twy
@@ -1257,9 +1351,18 @@ G collocated(const void* tx, const void* ty, const void* tz, const void* E,
                               double B, double beta, int nx, int ny,         \
                               int nz, void* stream) {                        \
     const double n = static_cast<double>(nx) * ny * nz;                      \
+    return launch1<T>(FG_CHAIN_PASS,                                         \
+                      collocated<G<T>, T>(tx, ty, tz, E, A, B, beta, n), nx, \
+                      ny, nz, stream);                                       \
+  }
+#define FG_COLLOCATED_BATCHED(NAME, SUF, T, G)                               \
+  extern "C" int NAME##_batched_##SUF(FG_CHAIN_ARGS, const void* E,         \
+                                      double A, double Bc, double beta,      \
+                                      FG_BATCH_ARGS) {                       \
+    const double n = static_cast<double>(nx) * ny * nz;                      \
     return launch<T>(FG_CHAIN_PASS,                                          \
-                     collocated<G<T>, T>(tx, ty, tz, E, A, B, beta, n), nx,  \
-                     ny, nz, stream);                                        \
+                     collocated<G<T>, T>(tx, ty, tz, E, A, Bc, beta, n),     \
+                     FG_BATCH_PASS);                                         \
   }
 #define FG_COLLOCATED_MIDDLE(NAME, SUF, T, G)                                \
   extern "C" int NAME##_middle_##SUF(FG_MIDDLE_ARGS, const void* E,         \
@@ -1269,63 +1372,73 @@ G collocated(const void* tx, const void* ty, const void* tz, const void* E,
     const double n = static_cast<double>(nx) * ny * nz;                      \
     return launch_middle<T>(                                                 \
         spec, twx, twy, collocated<G<T>, T>(tx, ty, tz, E, A, B, beta, n),   \
-        nx, ny, nzl, koff, stream);                                          \
+        nx, ny, nzl, koff, 1, stream);                                       \
   }
+
+#define FG_G0_VECTOR(T)                                                      \
+  G0Vector<T> {                                                              \
+    staggered_tables<T>(tx, ty, tz, nx, ny, nz), T(c10 / n), T(c20 / n)      \
+  }
+#define FG_G0_SCALAR(T)                                                      \
+  G0Scalar<T> { staggered_tables<T>(tx, ty, tz, nx, ny, nz), T(c10 / n) }
 
 #define FG_CHAIN_ENTRIES(SUF, T)                                             \
   extern "C" int g0_staggered_chain_##SUF(FG_CHAIN_ARGS, double c10,        \
                                           double c20, int nx, int ny,        \
                                           int nz, void* stream) {            \
     const double n = static_cast<double>(nx) * ny * nz;                      \
-    return launch<T>(                                                        \
-        FG_CHAIN_PASS,                                                       \
-        G0Vector<T>{staggered_tables<T>(tx, ty, tz, nx, ny, nz), T(c10 / n), \
-                    T(c20 / n)},                                             \
-        nx, ny, nz, stream);                                                 \
+    return launch1<T>(FG_CHAIN_PASS, FG_G0_VECTOR(T), nx, ny, nz, stream);   \
+  }                                                                          \
+  extern "C" int g0_staggered_chain_batched_##SUF(                          \
+      FG_CHAIN_ARGS, double c10, double c20, FG_BATCH_ARGS) {                \
+    const double n = static_cast<double>(nx) * ny * nz;                      \
+    return launch<T>(FG_CHAIN_PASS, FG_G0_VECTOR(T), FG_BATCH_PASS);         \
   }                                                                          \
   extern "C" int g0_staggered_heat_chain_##SUF(FG_CHAIN_ARGS, double c10,   \
                                                int nx, int ny, int nz,       \
                                                void* stream) {               \
     const double n = static_cast<double>(nx) * ny * nz;                      \
-    return launch<T>(                                                        \
-        FG_CHAIN_PASS,                                                       \
-        G0Scalar<T>{staggered_tables<T>(tx, ty, tz, nx, ny, nz), T(c10 / n)},\
-        nx, ny, nz, stream);                                                 \
+    return launch1<T>(FG_CHAIN_PASS, FG_G0_SCALAR(T), nx, ny, nz, stream);   \
+  }                                                                          \
+  extern "C" int g0_staggered_heat_chain_batched_##SUF(                     \
+      FG_CHAIN_ARGS, double c10, FG_BATCH_ARGS) {                            \
+    const double n = static_cast<double>(nx) * ny * nz;                      \
+    return launch<T>(FG_CHAIN_PASS, FG_G0_SCALAR(T), FG_BATCH_PASS);         \
   }                                                                          \
   extern "C" int g0_staggered_chain_middle_##SUF(                           \
       FG_MIDDLE_ARGS, double c10, double c20, int nx, int ny, int nz,        \
       int nzl, int koff, void* stream) {                                     \
     const double n = static_cast<double>(nx) * ny * nz;                      \
-    return launch_middle<T>(                                                 \
-        spec, twx, twy,                                                      \
-        G0Vector<T>{staggered_tables<T>(tx, ty, tz, nx, ny, nz), T(c10 / n), \
-                    T(c20 / n)},                                             \
-        nx, ny, nzl, koff, stream);                                          \
+    return launch_middle<T>(spec, twx, twy, FG_G0_VECTOR(T), nx, ny, nzl,    \
+                            koff, 1, stream);                                \
   }                                                                          \
   extern "C" int g0_staggered_heat_chain_middle_##SUF(                      \
       FG_MIDDLE_ARGS, double c10, int nx, int ny, int nz, int nzl, int koff, \
       void* stream) {                                                        \
     const double n = static_cast<double>(nx) * ny * nz;                      \
-    return launch_middle<T>(                                                 \
-        spec, twx, twy,                                                      \
-        G0Scalar<T>{staggered_tables<T>(tx, ty, tz, nx, ny, nz), T(c10 / n)},\
-        nx, ny, nzl, koff, stream);                                          \
+    return launch_middle<T>(spec, twx, twy, FG_G0_SCALAR(T), nx, ny, nzl,    \
+                            koff, 1, stream);                                \
   }                                                                          \
   extern "C" int chain_z_fwd_##SUF(const void* f, void* spec,               \
                                    const void* twz, long long nlines, int nz,\
                                    void* stream) {                           \
-    return launch_z<T>(f, spec, twz, nlines, nz, false, stream);             \
+    return launch_z<T>(f, spec, twz, z_lines(nlines, 1, nlines * nz, nz),    \
+                       false, stream);                                       \
   }                                                                          \
   extern "C" int chain_z_inv_##SUF(const void* spec, void* out,             \
                                    const void* twz, long long nlines, int nz,\
                                    void* stream) {                           \
-    return launch_z<T>(spec, out, twz, nlines, nz, true, stream);            \
+    return launch_z<T>(spec, out, twz, z_lines(nlines, 1, nlines * nz, nz),  \
+                       true, stream);                                        \
   }                                                                          \
   FG_COLLOCATED_ENTRY(gamma_collocated_chain, SUF, T, Gamma6)                \
   FG_COLLOCATED_ENTRY(gamma_collocated_heat_chain, SUF, T, Gamma3)           \
   FG_COLLOCATED_ENTRY(gamma_collocated_zt_chain, SUF, T, GammaZt)            \
   FG_COLLOCATED_ENTRY(gamma_collocated_hyper_chain, SUF, T,                  \
                       GammaCollocatedHyper)                                  \
+  FG_COLLOCATED_BATCHED(gamma_collocated_chain, SUF, T, Gamma6)              \
+  FG_COLLOCATED_BATCHED(gamma_collocated_heat_chain, SUF, T, Gamma3)         \
+  FG_COLLOCATED_BATCHED(gamma_collocated_zt_chain, SUF, T, GammaZt)          \
   FG_COLLOCATED_MIDDLE(gamma_collocated_chain, SUF, T, Gamma6)               \
   FG_COLLOCATED_MIDDLE(gamma_collocated_heat_chain, SUF, T, Gamma3)          \
   FG_COLLOCATED_MIDDLE(gamma_collocated_zt_chain, SUF, T, GammaZt)           \

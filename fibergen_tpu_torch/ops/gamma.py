@@ -42,6 +42,16 @@ Willot's Gamma and ``freq_hack`` on the plain slab transforms
 The means (of tau for the Delta schemes' adjustment and for the mixed-BC
 correction) are the slabs' means added in slab order.
 
+The ``*_batched`` forms apply an operator to B right-hand sides at once
+(the JAX package's batched CG, which vmaps them, ls.py:944-986): the
+case-wise stage before the chain runs case by case, writing each case's
+chain input into a (B, C, nx, ny, nz) batch, one batched chain
+(``green.*_fused_batched``) transforms the batch, and the case-wise stage
+after it runs case by case on the batch's rows; each case's arithmetic is
+its single form's.  They take the whole field (no ``par``) and pure-strain
+loading (no ``bc``), as ``LSSolver.run_batched`` runs them, and return one
+result per case.
+
 ``bc`` (a solvers.bc.BCProjector that is not trivial) adds the mixed-BC
 mean correction alpha R, R = bc_correction(bc, mean(tau)), as
 initBCProjector/applyBCProjector do (fibergen.cpp:20220-20279): the
@@ -214,6 +224,124 @@ def fused_visc(grid, r, p_prev, beta, E, mu_x, lam_x, mu0, lam0, par=None,
     w, dot_raw = eps_from_u_dot_slabs(grid, adj, u, r if p is None else p,
                                       mu_x=mu_x, tau2c=bdelta, mu0=mu0)
     return w, p, dot_raw
+
+
+def _chain_input(tau, C, stage):
+    """The (B, C, nx, ny, nz) input of a batched chain: ``stage(tau[b])``
+    of each case, formed in turn into its row."""
+    f = tau.new_empty((tau.shape[0], C) + tuple(tau.shape[2:]))
+    for b in range(tau.shape[0]):
+        f[b] = stage(tau[b])
+    return f
+
+
+def _case(E, b):
+    """Case b's mean: E[b] of a list of the cases' means, else E."""
+    return E[b] if isinstance(E, list) else E
+
+
+def gamma_staggered_batched(grid, E, mu_0, lambda_0, tau, alpha=-1.0):
+    """:func:`gamma_staggered` (the FFT G0) of each case of a (B, 6, nx, ny,
+    nz) batch ``tau`` with one batched K3 chain; ``E`` one mean, or a list
+    of the cases' means.  A list of the B results."""
+    f = _chain_input(tau, 3, lambda t: staggered.div_staggered(grid, t))
+    u = green.g0_staggered_fused_batched(grid, mu_0, lambda_0, f, alpha)
+    del f
+    return [staggered.eps_staggered(grid, _case(E, b), x)
+            for b, x in enumerate(u)]
+
+
+def delta_staggered_batched(grid, E, mu_0, tau, alpha=-1.0):
+    """:func:`delta_staggered` of each case of a (B, 6, nx, ny, nz) batch
+    ``tau`` with one batched K3 chain (the dual constants); a list of the
+    B results."""
+    mu0v = 1.0 / (4.0 * mu_0)
+    b = 2.0 * alpha * mu0v
+    adj = [_shifted_mean(E, -b, t) for t in tau]
+    eta = gamma_staggered_batched(grid, adj, -1.0 / (4.0 * mu0v),
+                                  float("inf"), tau, alpha)
+    for e, t in zip(eta, tau):
+        e.add_(b * t)
+    return eta
+
+
+def gamma_heat_staggered_batched(grid, E, mu_0, tau):
+    """:func:`gamma_heat_staggered` of each case of a (B, 3, nx, ny, nz)
+    batch ``tau`` with one batched K4 chain; a list of the B results."""
+    f = _chain_input(tau, 1, lambda t: staggered.div_staggered_heat(grid, t))
+    u = green.g0_staggered_heat_fused_batched(grid, mu_0, 0.0, f)
+    del f
+    return [staggered.eps_staggered_heat(grid, E, x) for x in u]
+
+
+def _k1_batch(grid, rs, p_prevs, betas, mu_x, lam_x, mu0, lam0,
+              want_tau_sum=False):
+    """K1 of each case (init mode with ``p_prevs=None``), each writing its
+    force into row b of one (B, 3, nx, ny, nz) batch: (the batch, each
+    case's other outputs)."""
+    f = rs[0].new_empty((len(rs), 3) + tuple(rs[0].shape[1:]))
+    rest = [stress_div_beta(grid, r, None if p_prevs is None else p_prevs[b],
+                            None if betas is None else betas[b], mu_x, lam_x,
+                            mu0, lam0, want_tau_sum=want_tau_sum,
+                            out=f[b])[1:]
+            for b, r in enumerate(rs)]
+    return f, rest
+
+
+def k1_k3_k2_batched(grid, rs, p_prevs, betas, E, mu_x, lam_x, mu0, lam0):
+    """Staggered elasticity's fused operator (LSSolver._k1_k3_k2, without
+    ``bc``) on B right-hand sides: K1 of each case writes its force into
+    row b of the batched K3 chain's input, K2 reads row b of its output and
+    writes w into row b of one (B, 6, nx, ny, nz) batch.  In step mode
+    (``p_prevs``, ``betas``: one per case) (ws, ps, dots); in init mode
+    (``p_prevs=None``) ps and dots are None."""
+    f, rest = _k1_batch(grid, rs, p_prevs, betas, mu_x, lam_x, mu0, lam0)
+    ps = [p for p, in rest]
+    u = green.g0_staggered_fused_batched(grid, mu0, lam0, f)
+    del f
+    w = u.new_empty((len(rs), 6) + tuple(u.shape[2:]))
+    dots = [eps_from_u_dot(grid, E, x, p, out=wb)[1]
+            for x, p, wb in zip(u, ps, w)]
+    return list(w), ps, dots
+
+
+def fused_visc_batched(grid, rs, p_prevs, betas, E, mu_x, lam_x, mu0, lam0):
+    """:func:`fused_visc` on B right-hand sides: K1 tau-sum mode of each
+    case into row b of the batched K3 chain's input (the dual constants),
+    K2 Delta mode of each case on row b of its output, into row b of one
+    (B, 6, nx, ny, nz) batch of w.  (ws, ps, dots), ps None in init mode
+    (``p_prevs=None``)."""
+    bdelta = 2.0 * (-1.0) * (1.0 / (4.0 * mu0))    # 2 alpha mu0v
+    f, rest = _k1_batch(grid, rs, p_prevs, betas, mu_x, lam_x, mu0, lam0,
+                        want_tau_sum=True)
+    u = green.g0_staggered_fused_batched(grid, -mu0, float("inf"), f)
+    del f
+    w = u.new_empty((len(rs), 6) + tuple(u.shape[2:]))
+    dots = [eps_from_u_dot(grid, E - (bdelta / grid.nxyz) * tau_sum, x,
+                           r if p is None else p, mu_x=mu_x, tau2c=bdelta,
+                           mu0=mu0, out=wb)[1]
+            for x, r, (p, tau_sum), wb in zip(u, rs, rest, w)]
+    return list(w), [p for p, _ in rest], dots
+
+
+def gamma_collocated_batched(grid, E, mu_0, lambda_0, tau, alpha=-1.0,
+                             beta=0.0):
+    """:func:`gamma_collocated` (without ``freq_hack``) of each case of a
+    (B, 6, nx, ny, nz) or (B, 3, nx, ny, nz) batch ``tau`` with one batched
+    K5 chain; a list of the B results (rows of one batch)."""
+    fused = green.gamma_collocated_fused_batched if tau.shape[1] == 6 else \
+        green.gamma_collocated_heat_fused_batched
+    return list(fused(grid, E, mu_0, lambda_0, tau, alpha, beta))
+
+
+def delta_collocated_batched(grid, E, mu_0, tau, alpha=-1.0, beta=0.0):
+    """:func:`delta_collocated` of each case of a traceless (B, 6, nx, ny,
+    nz) batch ``tau`` with one batched K6 chain; a list of the B results
+    (rows of one batch)."""
+    mu0v = 1.0 / (4.0 * mu_0)
+    return list(green.gamma_collocated_zt_fused_batched(
+        grid, E, -1.0 / (4.0 * mu0v), float("inf"), tau, alpha,
+        2.0 * alpha * mu0v + beta))
 
 
 def gamma_collocated(grid, E, mu_0, lambda_0, tau, alpha=-1.0, beta=0.0,

@@ -17,7 +17,9 @@ through the plain slab transforms (:func:`slab_transformed`) with each
 kz-slab's own wavenumbers.  With ``par`` (a parallel.fft.SlabPar) the field
 is a list of x-slabs and the chain runs on them (``*_chain_slab``;
 green.py:217-236, :336-345, :499-590 of the JAX package pass ``par`` the
-same way)."""
+same way).  The ``*_fused_batched`` forms take a (B, C, nx, ny, nz) batch of
+right-hand sides through one batched chain (``*_chain_batched``), as the
+JAX package's batched CG vmaps its fused operators (ls.py:944-986)."""
 from __future__ import annotations
 
 import itertools
@@ -57,6 +59,13 @@ def g0_staggered_fused(grid, mu_0, lambda_0, f, alpha=-1.0, par=None):
     return spectral_kernels.g0_staggered_chain(grid, f, c10, c20)
 
 
+def g0_staggered_fused_batched(grid, mu_0, lambda_0, f, alpha=-1.0):
+    """:func:`g0_staggered_fused` of each case of a (B, 3, nx, ny, nz)
+    batch in one batched K3 chain."""
+    c10, c20 = g0_constants(mu_0, lambda_0, alpha)
+    return spectral_kernels.g0_staggered_chain_batched(grid, f, c10, c20)
+
+
 def g0_staggered_heat(grid, mu_0, lambda_0, tau_hat, alpha=-1.0):
     """Scalar staggered G0 (G0OperatorFourierStaggeredGeneralHeat,
     fibergen.cpp:19778-19830): eta = -alpha/(2 mu0 |k|^2) * tau on a
@@ -75,6 +84,13 @@ def g0_staggered_heat_fused(grid, mu_0, lambda_0, f, alpha=-1.0, par=None):
             par, grid, f, -alpha / (2.0 * mu_0))
     return spectral_kernels.g0_staggered_heat_chain(grid, f,
                                                     -alpha / (2.0 * mu_0))
+
+
+def g0_staggered_heat_fused_batched(grid, mu_0, lambda_0, f, alpha=-1.0):
+    """:func:`g0_staggered_heat_fused` of each case of a (B, 1, nx, ny, nz)
+    batch in one batched K4 chain."""
+    return spectral_kernels.g0_staggered_heat_chain_batched(
+        grid, f, -alpha / (2.0 * mu_0))
 
 
 def hyper_constants(mu_0, lambda_0, alpha=-1.0):
@@ -226,6 +242,16 @@ def gamma_collocated_fused(grid, E, mu_0, lambda_0, tau, alpha=-1.0,
     return spectral_kernels.gamma_collocated_chain(grid, tau, A, B, E, beta)
 
 
+def gamma_collocated_fused_batched(grid, E, mu_0, lambda_0, tau,
+                                   alpha=-1.0, beta=0.0):
+    """:func:`gamma_collocated_fused` (without ``freq_hack``) of each case
+    of a (B, 6, nx, ny, nz) batch in one batched K5 chain; ``E`` a (B, 6)
+    table of the cases' means, or one for all."""
+    A, B = collocated_constants(mu_0, lambda_0, alpha)
+    return spectral_kernels.gamma_collocated_chain_batched(grid, tau, A, B,
+                                                           E, beta)
+
+
 def gamma_collocated_heat_fused(grid, E, mu_0, lambda_0, tau, alpha=-1.0,
                                 beta=0.0, par=None):
     """eta = ifftn(gamma_collocated_heat(fftn(tau))) on a real 3-component
@@ -234,6 +260,14 @@ def gamma_collocated_heat_fused(grid, E, mu_0, lambda_0, tau, alpha=-1.0,
         return spectral_kernels.gamma_collocated_chain_slab(
             par, grid, tau, alpha / (2.0 * mu_0), 0.0, E, beta)
     return spectral_kernels.gamma_collocated_chain(
+        grid, tau, alpha / (2.0 * mu_0), 0.0, E, beta)
+
+
+def gamma_collocated_heat_fused_batched(grid, E, mu_0, lambda_0, tau,
+                                        alpha=-1.0, beta=0.0):
+    """:func:`gamma_collocated_heat_fused` of each case of a (B, 3, nx, ny,
+    nz) batch in one batched K5 chain (C = 3)."""
+    return spectral_kernels.gamma_collocated_chain_batched(
         grid, tau, alpha / (2.0 * mu_0), 0.0, E, beta)
 
 
@@ -250,6 +284,16 @@ def gamma_collocated_zt_fused(grid, E, mu_0, lambda_0, tau, alpha=-1.0,
                                                                A, B, E, beta)
     return spectral_kernels.gamma_collocated_zt_chain(grid, tau, A, B, E,
                                                       beta)
+
+
+def gamma_collocated_zt_fused_batched(grid, E, mu_0, lambda_0, tau,
+                                      alpha=-1.0, beta=0.0):
+    """:func:`gamma_collocated_zt_fused` of each case of a traceless (B, 6,
+    nx, ny, nz) batch in one batched K6 chain; ``E`` a (B, 6) table, or one
+    for all."""
+    A, B = collocated_constants(mu_0, lambda_0, alpha)
+    return spectral_kernels.gamma_collocated_zt_chain_batched(grid, tau, A, B,
+                                                              E, beta)
 
 
 def gamma_collocated_hyper(grid, E, mu_0, lambda_0, tau_hat, alpha=-1.0,

@@ -27,6 +27,15 @@ with real xi = f/d per axis (tables from :func:`collocated_tables`).
 Tables are in natural rfft bin order; transforms are norm="forward" like
 ``ops/fft.py``.
 
+The ``*_chain_batched`` forms run a chain on B right-hand sides at once, a
+real contiguous (B, C, nx, ny, nz) batch (the JAX package's ``_middle``
+under ``jax.vmap``, whose batching rule adds B to its grid): one launch of
+each of the five passes for the whole batch, each case with its own DC
+vector E (a (B, C) table, or one C-vector for all), bitwise the B single
+chains on the card; the single chains are the batch of one.  Their plain
+twins (``*_batched_plain``) transform the batch in one ``torch.fft`` call
+each way around the single twins' applies.
+
 The ``*_chain_slab`` forms run a chain on the x-slabs of a sharded field
 (``parallel/``; the kz-slab chain of pallas_chain._run_middle_slab): each
 x-slab's lines are z-transformed, the spectrum moves to kz-slabs
@@ -39,10 +48,11 @@ A wrapper given CPU tensors computes the plain twin (``torch.fft`` around
 the plain apply, ``*_apply_plain``); given CUDA tensors it launches the
 kernel or raises, with the tensors' device current.  ``launches`` counts
 kernel launches only (a slab chain counts each of its per-slab z, middle
-and z-inverse launches); K5 counts every component count (6, 3 and 9)
-under one name, and its slab forms under another.  ``calls`` counts the
-applications of each chain wrapper, by (wrapper, components), on any
-device (LSSolver.get_fft_time reads it).
+and z-inverse launches, a batched chain one launch for the batch); K5
+counts every component count (6, 3 and 9) under one name, and its slab and
+batched forms under others.  ``calls`` counts the applications of each
+chain wrapper, by (wrapper, components), on any device
+(LSSolver.get_fft_time reads it); a batched wrapper's call counts once.
 """
 from __future__ import annotations
 
@@ -58,6 +68,10 @@ from . import _build, fft
 
 launches = {"g0_staggered_chain": 0, "g0_staggered_heat_chain": 0,
             "gamma_collocated_chain": 0, "gamma_collocated_zt_chain": 0,
+            "g0_staggered_chain_batched": 0,
+            "g0_staggered_heat_chain_batched": 0,
+            "gamma_collocated_chain_batched": 0,
+            "gamma_collocated_zt_chain_batched": 0,
             "g0_staggered_chain_slab": 0, "g0_staggered_heat_chain_slab": 0,
             "gamma_collocated_chain_slab": 0,
             "gamma_collocated_zt_chain_slab": 0}
@@ -300,14 +314,16 @@ def g0_staggered_heat_chain_plain(grid, f, c10):
 
 
 def _applied(fn):
-    """Count each call of the chain wrapper ``fn`` in ``calls``; the field
-    is its second argument (its third on x-slabs)."""
+    """Count each call of the chain wrapper ``fn`` in ``calls`` under its
+    components; the field is its second argument (its third on x-slabs; a
+    batch's components its second axis)."""
     slab = fn.__name__.endswith("_slab")
+    axis = 1 if fn.__name__.endswith("_batched") else 0
 
     @functools.wraps(fn)
     def wrapper(*args):
         f = args[2][0] if slab else args[1]
-        key = (fn.__name__, int(f.shape[0]))
+        key = (fn.__name__, int(f.shape[axis]))
         calls[key] = calls.get(key, 0) + 1
         return fn(*args)
     return wrapper
@@ -320,38 +336,62 @@ def _stream(device):
 def _chain(fn_name, counter, grid, f, ncomp, tables, consts, ptrs=(),
            out=None):
     """Launch the CUDA chain entry ``fn_name`` on a real (ncomp, nx, ny, nz)
-    contiguous ``f`` with the per-axis ``tables``, the device pointers
-    ``ptrs`` and the constants ``consts``; writes ``out`` (a new field if
-    None) and returns it."""
+    contiguous ``f``, or its batched entry ``<fn_name>_batched`` on a (B,
+    ncomp, nx, ny, nz) ``f`` whose cases are each contiguous (a case's
+    stride may be larger: K6 takes components 1.. of a 6-component batch),
+    with the per-axis ``tables``, the device pointers ``ptrs`` and the
+    constants ``consts``; writes ``out`` (laid out as ``f``; a new
+    contiguous field if None) and returns it."""
     if f.device.type != "cuda":
         raise ValueError(f"unsupported device {f.device}")
     if f.dtype not in _SUFFIX:
         raise TypeError(f"{fn_name} takes float32/float64, got {f.dtype}")
+    batched = f.dim() == 5
     shape = (ncomp,) + grid.shape
-    if tuple(f.shape) != shape:
-        raise ValueError(f"f has shape {tuple(f.shape)}, expected {shape}")
-    if not f.is_contiguous():
-        raise ValueError("f must be contiguous")
+    lead = tuple(f.shape[:1]) if batched else ()
+    if tuple(f.shape) != lead + shape:
+        raise ValueError(f"f has shape {tuple(f.shape)}, expected "
+                         f"{lead + shape}")
+    if out is None:
+        out = torch.empty(f.shape, dtype=f.dtype, device=f.device)
+    for name, t in (("f", f), ("out", out)):
+        if not _cases_contiguous(t):
+            raise ValueError(f"{name} must be contiguous within each case")
     cdt = _COMPLEX[f.dtype]
     tx, ty, tz = tables
     twx, twy, twz = (_twiddle(n, cdt, f.device) for n in grid.shape)
-    spec = torch.empty((ncomp,) + grid.rshape, dtype=cdt, device=f.device)
-    if out is None:
-        out = torch.empty_like(f)
+    spec = torch.empty(lead + (ncomp,) + grid.rshape, dtype=cdt,
+                       device=f.device)
     vp = ctypes.c_void_p
+    tail = [ctypes.c_int] * 3
+    if batched:
+        fn_name += "_batched"
+        tail += [ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
     fn = _build.function(
         "g0_staggered_chain", f"{fn_name}_{_SUFFIX[f.dtype]}", ctypes.c_int,
-        [vp] * (9 + len(ptrs)) + [ctypes.c_double] * len(consts)
-        + [ctypes.c_int] * 3 + [vp])
+        [vp] * (9 + len(ptrs)) + [ctypes.c_double] * len(consts) + tail
+        + [vp])
+    sizes = (grid.nx, grid.ny, grid.nz)
+    if batched:
+        sizes += (f.shape[0], f.stride(0), out.stride(0))
     with torch.cuda.device(f.device):
         err = fn(f.data_ptr(), spec.data_ptr(), out.data_ptr(),
                  tx.data_ptr(), ty.data_ptr(), tz.data_ptr(), twx.data_ptr(),
                  twy.data_ptr(), twz.data_ptr(),
                  *(p.data_ptr() for p in ptrs), *(float(c) for c in consts),
-                 grid.nx, grid.ny, grid.nz, _stream(f.device))
+                 *sizes, _stream(f.device))
     _build.check(err, "g0_staggered_chain")
     launches[counter] += 1
     return out
+
+
+def _cases_contiguous(t):
+    """Whether each case of a (B, C, nx, ny, nz) batch is contiguous and
+    the cases do not overlap (a field: whether it is contiguous)."""
+    if t.dim() != 5:
+        return t.is_contiguous()
+    per = t[0].numel()
+    return t[0].is_contiguous() and (t.shape[0] == 1 or t.stride(0) >= per)
 
 
 @_applied
@@ -425,6 +465,145 @@ def gamma_collocated_zt_chain(grid, tau, A, B, E, beta):
            tau[1:], 5, collocated_tables(grid, tau.dtype, tau.device),
            (A, B, beta), ptrs=(_vector(E, tau, 6),), out=out[1:])
     torch.add(out[1], out[2], out=out[0]).neg_()
+    return out
+
+
+# ------------------------------------------- batched chains (#7 vmapped)
+
+def _check_batch(name, f, grid, ncomp):
+    """Refuse a batch the batched chains do not take: ``f`` must be a real
+    contiguous (B, ncomp, nx, ny, nz) float32/float64 tensor, B >= 1."""
+    if f.dtype not in _SUFFIX:
+        raise TypeError(f"{name} must be float32/float64, got {f.dtype}")
+    shape = (ncomp,) + grid.shape
+    if f.dim() != 5 or tuple(f.shape[1:]) != shape or f.shape[0] < 1:
+        raise ValueError(f"{name} has shape {tuple(f.shape)}, expected "
+                         f"(B,) + {shape}")
+    if not f.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _batch_vectors(E, like, n):
+    """E as a contiguous (B, n) tensor of ``like``'s dtype and device (B =
+    like.shape[0]): a (B, n) table, or one n-vector for every case."""
+    B = like.shape[0]
+    E = torch.as_tensor(E, dtype=like.dtype, device=like.device)
+    if E.dim() <= 1:
+        return _vector(E, like, n).expand(B, n).contiguous()
+    if tuple(E.shape) != (B, n):
+        raise ValueError(f"E has shape {tuple(E.shape)}, expected ({B}, {n})"
+                         f" or ({n},)")
+    return E.contiguous()
+
+
+def _applied_each(y, apply):
+    """``apply(y[b], b)`` of each case of a batched spectrum, stacked."""
+    return torch.stack([apply(yb, b) for b, yb in enumerate(y)])
+
+
+def g0_staggered_chain_batched_plain(grid, f, c10, c20):
+    """Plain twin of :func:`g0_staggered_chain_batched`: ``torch.fft`` over
+    the batch around the single twin's apply."""
+    tables = staggered_tables(grid, f.dtype, f.device)
+    y = _applied_each(fft.fftn(f), lambda yb, b: g0_staggered_apply_plain(
+        yb, tables, c10, c20))
+    return fft.ifftn(y, grid.shape)
+
+
+def g0_staggered_heat_chain_batched_plain(grid, f, c10):
+    """Plain twin of :func:`g0_staggered_heat_chain_batched`."""
+    tables = staggered_tables(grid, f.dtype, f.device)
+    y = _applied_each(fft.fftn(f), lambda yb, b: (
+        g0_staggered_heat_apply_plain(yb, tables, c10)))
+    return fft.ifftn(y, grid.shape)
+
+
+def gamma_collocated_chain_batched_plain(grid, tau, A, B, E, beta):
+    """Plain twin of :func:`gamma_collocated_chain_batched`: case b's DC
+    bin takes E[b]."""
+    tables = collocated_tables(grid, tau.dtype, tau.device)
+    E = _batch_vectors(E, tau, tau.shape[1])
+    y = _applied_each(fft.fftn(tau), lambda yb, b: (
+        gamma_collocated_apply_plain(yb, tables, A, B, E[b], beta)))
+    return fft.ifftn(_real_z_planes(y, grid.nz), grid.shape)
+
+
+def gamma_collocated_zt_chain_batched_plain(grid, tau, A, B, E, beta):
+    """Plain twin of :func:`gamma_collocated_zt_chain_batched`: the
+    zero-trace transforms of each case (components 1.. transformed,
+    component 0 -(c1 + c2) in the spectrum and in real space)."""
+    tables = collocated_tables(grid, tau.dtype, tau.device)
+    E = _batch_vectors(E, tau, 6)
+    y = fft.fftn(tau[:, 1:])
+    y = torch.cat([-(y[:, 0] + y[:, 1])[:, None], y], dim=1)
+    y = _applied_each(y, lambda yb, b: gamma_collocated_apply_plain(
+        yb, tables, A, B, E[b], beta))
+    x = fft.ifftn(_real_z_planes(y, grid.nz)[:, 1:], grid.shape)
+    return torch.cat([-(x[:, 0] + x[:, 1])[:, None], x], dim=1)
+
+
+@_applied
+def g0_staggered_chain_batched(grid, f, c10, c20):
+    """K3 on B right-hand sides in one launch of each pass: u[b] =
+    irfftn(G0 rfftn f[b]) for a real contiguous (B, 3, nx, ny, nz) ``f``;
+    returns a new batch."""
+    _check_batch("f", f, grid, 3)
+    if f.device.type == "cpu":
+        return g0_staggered_chain_batched_plain(grid, f, c10, c20)
+    return _chain("g0_staggered_chain", "g0_staggered_chain_batched", grid,
+                  f, 3, staggered_tables(grid, f.dtype, f.device), (c10, c20))
+
+
+@_applied
+def g0_staggered_heat_chain_batched(grid, f, c10):
+    """K4 on B right-hand sides in one launch of each pass, a real
+    contiguous (B, 1, nx, ny, nz) ``f``; returns a new batch."""
+    _check_batch("f", f, grid, 1)
+    if f.device.type == "cpu":
+        return g0_staggered_heat_chain_batched_plain(grid, f, c10)
+    return _chain("g0_staggered_heat_chain",
+                  "g0_staggered_heat_chain_batched", grid, f, 1,
+                  staggered_tables(grid, f.dtype, f.device), (c10,))
+
+
+@_applied
+def gamma_collocated_chain_batched(grid, tau, A, B, E, beta):
+    """K5 on B right-hand sides in one launch of each pass, a real
+    contiguous (B, 6, nx, ny, nz) (elasticity) or (B, 3, nx, ny, nz) (heat,
+    porous flow) ``tau``; ``E`` a (B, C) table of the cases' DC values, or
+    one C-vector for every case.  Returns a new batch."""
+    ncomp = tau.shape[1] if tau.dim() == 5 else -1
+    if ncomp not in (6, 3):
+        raise ValueError(f"tau has shape {tuple(tau.shape)}, expected (B, 6,"
+                         " nx, ny, nz) or (B, 3, nx, ny, nz)")
+    _check_batch("tau", tau, grid, ncomp)
+    Eb = _batch_vectors(E, tau, ncomp)
+    if tau.device.type == "cpu":
+        return gamma_collocated_chain_batched_plain(grid, tau, A, B, Eb, beta)
+    name = "gamma_collocated_chain" if ncomp == 6 else \
+        "gamma_collocated_heat_chain"
+    return _chain(name, "gamma_collocated_chain_batched", grid, tau, ncomp,
+                  collocated_tables(grid, tau.dtype, tau.device),
+                  (A, B, beta), ptrs=(Eb,))
+
+
+@_applied
+def gamma_collocated_zt_chain_batched(grid, tau, A, B, E, beta):
+    """K6 on B right-hand sides in one launch of each pass: a real
+    contiguous traceless (B, 6, nx, ny, nz) ``tau``, whose components 1..5
+    the chain reads in place (case stride 6 nx ny nz); ``E`` a (B, 6)
+    table, or one 6-vector for every case; out[:, 0] = -(out[:, 1] +
+    out[:, 2]).  Returns a new batch."""
+    _check_batch("tau", tau, grid, 6)
+    Eb = _batch_vectors(E, tau, 6)
+    if tau.device.type == "cpu":
+        return gamma_collocated_zt_chain_batched_plain(grid, tau, A, B, Eb,
+                                                       beta)
+    out = torch.empty_like(tau)
+    _chain("gamma_collocated_zt_chain", "gamma_collocated_zt_chain_batched",
+           grid, tau[:, 1:], 5, collocated_tables(grid, tau.dtype, tau.device),
+           (A, B, beta), ptrs=(Eb,), out=out[:, 1:])
+    torch.add(out[:, 1], out[:, 2], out=out[:, 0]).neg_()
     return out
 
 

@@ -21,7 +21,10 @@ planes None in init mode), K2 ``halo=(u minus plane, u plus plane)``.
 
 A wrapper given CPU tensors computes the plain twin (``*_plain``); given
 CUDA tensors it launches the kernel or raises, with the tensors' device
-current.  ``launches`` counts kernel launches only.
+current.  ``launches`` counts kernel launches only.  ``out=`` hands K1 the
+tensor for its f and K2 the one for its w (a contiguous field, such as row
+b of a batch: the batched CG writes each case's force straight into the
+batched chain's input); the plain twins copy their result there.
 """
 from __future__ import annotations
 
@@ -139,15 +142,25 @@ def _halo_ptrs(planes, shapes, dt, dev):
     return (_VP * len(ptrs))(*ptrs)
 
 
+def _into(res, out):
+    """A plain twin's result tuple with its first entry copied into
+    ``out`` (as it is without one)."""
+    if out is None:
+        return res
+    return (out.copy_(res[0]),) + tuple(res[1:])
+
+
 def stress_div_beta(grid, r, p_prev, beta, mu_x, lam_x, mu0, lam0,
-                    want_tau_sum=False, halo=None):
+                    want_tau_sum=False, halo=None, out=None):
     """K1.  ``beta`` is a 0-d tensor or a ``(gamma, gamma_prev)`` pair of
     0-d tensors on the fields' device; ``mu0``/``lam0`` are numbers.
     Returns (f, p) with p None in init mode (``p_prev=None``), plus the (6,)
-    grid sum of tau with ``want_tau_sum``.  ``halo``: see the module."""
+    grid sum of tau with ``want_tau_sum``; f is written into ``out`` when
+    given.  ``halo``: see the module."""
     if r.device.type == "cpu":
-        return stress_div_beta_plain(grid, r, p_prev, beta, mu_x, lam_x,
-                                     mu0, lam0, want_tau_sum, halo)
+        return _into(stress_div_beta_plain(grid, r, p_prev, beta, mu_x,
+                                           lam_x, mu0, lam0, want_tau_sum,
+                                           halo), out)
     if r.device.type != "cuda":
         raise ValueError(f"unsupported device {r.device}")
     dt, dev = r.dtype, r.device
@@ -165,7 +178,11 @@ def stress_div_beta(grid, r, p_prev, beta, mu_x, lam_x, mu0, lam0,
         pshape = None if p_prev is None else plane6
         hptr = _halo_ptrs((rm, pm, mum, lm, rq, pq, muq, lq),
                           (plane6, pshape, plane1, plane1) * 2, dt, dev)
-    f = torch.empty((3,) + vox, dtype=dt, device=dev)
+    if out is None:
+        f = torch.empty((3,) + vox, dtype=dt, device=dev)
+    else:
+        _check("out", out, (3,) + vox, dt, dev)
+        f = out
     if p_prev is None:
         p = None
         ptrs = (None, None, None, None)
@@ -205,14 +222,16 @@ def stress_div_beta(grid, r, p_prev, beta, mu_x, lam_x, mu0, lam0,
 
 
 def eps_from_u_dot(grid, E, u, p=None, mu_x=None, tau2c=0.0, mu0=0.0,
-                   halo=None):
+                   halo=None, out=None):
     """K2.  ``E`` is a (6,) tensor on the fields' device.  Returns
-    (w, dot_raw) with dot_raw a 0-d tensor, or None without ``p``.  With
-    ``mu_x`` (Delta mode; ``p`` required) ``w`` gains
-    ``2 tau2c (mu_x - mu0) p``; ``tau2c``/``mu0`` are numbers.  ``halo``:
-    see the module (the dot is then this slab's sum)."""
+    (w, dot_raw) with dot_raw a 0-d tensor, or None without ``p``; w is
+    written into ``out`` when given.  With ``mu_x`` (Delta mode; ``p``
+    required) ``w`` gains ``2 tau2c (mu_x - mu0) p``; ``tau2c``/``mu0`` are
+    numbers.  ``halo``: see the module (the dot is then this slab's
+    sum)."""
     if u.device.type == "cpu":
-        return eps_from_u_dot_plain(grid, E, u, p, mu_x, tau2c, mu0, halo)
+        return _into(eps_from_u_dot_plain(grid, E, u, p, mu_x, tau2c, mu0,
+                                          halo), out)
     if u.device.type != "cuda":
         raise ValueError(f"unsupported device {u.device}")
     dt, dev = u.dtype, u.device
@@ -225,7 +244,11 @@ def eps_from_u_dot(grid, E, u, p=None, mu_x=None, tau2c=0.0, mu0=0.0,
     if halo is not None:
         plane3 = (3, 1) + vox[1:]
         hptr = _halo_ptrs(tuple(halo), (plane3, plane3), dt, dev)
-    w = torch.empty((6,) + vox, dtype=dt, device=dev)
+    if out is None:
+        w = torch.empty((6,) + vox, dtype=dt, device=dev)
+    else:
+        _check("out", out, (6,) + vox, dt, dev)
+        w = out
     if mu_x is not None:
         if p is None:
             raise ValueError("the Delta term reads p: pass p with mu_x")

@@ -963,7 +963,7 @@ class LSSolver:
         JAX package's generic step).  Sharded, each slab takes the same step
         (``slabs.smap``).  ``metric=False`` skips the estimator's metric
         (None in its place)."""
-        grid, tiny = self.grid, self._tiny
+        grid = self.grid
         beta = slabs.smap(lambda g, gp: (g, gp), gamma, gamma_prev)
         fused = self._k1_route
         if fused and self.mode == "elasticity":
@@ -976,10 +976,16 @@ class LSSolver:
                 self.lambda_0, par=self.par, mod_halo=self._mod_halo)
             denom = slabs.smap(lambda d: d / grid.nxyz, dot_raw)
         else:
-            p = slabs.smap(lambda r, pp, g, gp: r + (g / gp) * pp, r, p_prev,
-                           gamma, gamma_prev)
+            p = _direction(r, p_prev, gamma, gamma_prev)
             w = self._gamma(p, zero, mu_x, lam_x, bc)
             denom = fields.inner_l2_diff(p, p, w)
+        return self._cg_update(eps, r, p, w, denom, gamma, metric)
+
+    def _cg_update(self, eps, r, p, w, denom, gamma, metric=True):
+        """The end of a CG step from the direction p, its operator image w
+        and the denominator <p, p - w>: eps and r are updated in place (w
+        is used up); returns (eps, r, p, delta, gamma, metric)."""
+        tiny = self._tiny
         alpha = slabs.smap(lambda g, d: g / (d + tiny), gamma, denom)
         slabs.smap(torch.Tensor.addcmul_, eps, p, alpha)   # eps + alpha p
         met = self._metric(eps) if metric else None
@@ -1077,17 +1083,119 @@ class LSSolver:
             refinemod.refine(self, E)
 
     # ------------------------------------------------------ batched CG
+    def _batched_chain(self):
+        """Whether run_batched steps its cases through one batched chain:
+        every whole-field path whose operator reaches a chain (K3, K4, K5,
+        K6).  Willot's Gamma and ``freq_hack`` (torch.fft) and the
+        multigrid G0 (plain PyTorch) launch no chain, and on the x-slab
+        mesh each case takes its kz-slab chain, as the JAX package's
+        sharded batched program runs no Pallas kernel (ls.py:961): those
+        keep the per-case loop."""
+        return (self.par is None and self.scheme != "willot"
+                and not (self.opt.freq_hack and self.scheme == "collocated"
+                         and self.mode == "elasticity")
+                and not (self.opt.g0_solver == "multigrid"
+                         and self.mode == "elasticity"
+                         and self.scheme != "collocated"))
+
+    def _stress_diffs(self, xs):
+        """(C(x) - C0) : x of each field of ``xs`` as one (B, ...) batch,
+        each case's formed in turn into its row."""
+        tau = None
+        for b, x in enumerate(xs):
+            t = self.mat.stress_diff(x, self.mu_0, self.lambda_0)
+            if tau is None:
+                tau = t.new_empty((len(xs),) + tuple(t.shape))
+            tau[b] = t
+        return tau
+
+    def _k1_batched(self, rs, p_prevs, betas, E, mu_x, lam_x):
+        """The K1 route's fused operator on B right-hand sides (K1 and K2
+        per case around one batched K3): (ws, ps, dots), as
+        ``gammamod.k1_k3_k2_batched`` or ``fused_visc_batched`` give
+        them."""
+        op = gammamod.k1_k3_k2_batched if self.mode == "elasticity" else \
+            gammamod.fused_visc_batched
+        return op(self.grid, rs, p_prevs, betas, E, mu_x, lam_x, self.mu_0,
+                  self.lambda_0)
+
+    def _gamma_batched(self, xs, E, mu_x, lam_x):
+        """:meth:`_gamma` (pure strain) of each of the B fields ``xs`` with
+        one batched chain: the case-wise stage before it (K1, or the stress
+        difference and its stencil), the chain, the case-wise stage after
+        it (``gammamod``'s ``*_batched`` forms).  A list of the B
+        results."""
+        grid, mu0, lam0 = self.grid, self.mu_0, self.lambda_0
+        if self._k1_route:
+            return self._k1_batched(xs, None, None, E, mu_x, lam_x)[0]
+        tau = self._stress_diffs(xs)
+        if self.scheme == "collocated":
+            if self.mode == "viscosity":
+                return gammamod.delta_collocated_batched(grid, E, mu0, tau)
+            return gammamod.gamma_collocated_batched(grid, E, mu0, lam0, tau)
+        if self.mode == "viscosity":
+            return gammamod.delta_staggered_batched(grid, E, mu0, tau)
+        if self.dim == 3:
+            return gammamod.gamma_heat_staggered_batched(grid, E, mu0, tau)
+        return gammamod.gamma_staggered_batched(grid, E, mu0, lam0, tau)
+
+    def _cg_init_batched(self, Es, cases, mu_x, lam_x, zero):
+        """:meth:`_cg_init` of every case of a batch with one batched
+        chain: case b's strain, the constant field of ``Es[b]``, is formed
+        in its row ``cases[b]``.  Returns the cases' states [eps, r, p,
+        gamma, gamma_prev] and their initial metrics."""
+        Ejs = [self._vector(E) for E in Es]
+        for eps, Ej in zip(cases, Ejs):
+            eps.copy_(Ej.reshape(-1, 1, 1, 1).expand_as(eps))
+        rs = self._gamma_batched(cases, zero, mu_x, lam_x)
+        states, mets = [], []
+        for eps, r, Ej in zip(cases, rs, Ejs):
+            r.add_(Ej.reshape(-1, 1, 1, 1) - eps)
+            gamma0 = fields.inner_l2(r, r) + self._tiny
+            states.append([eps, r, torch.zeros_like(r), gamma0, gamma0])
+            mets.append(self._metric(eps))
+        return states, mets
+
+    def _cg_step_batched(self, states, mu_x, lam_x, zero):
+        """One CG step of every case of a batch with one batched chain.
+        Each case's state [eps, r, p, gamma, gamma_prev] is updated in
+        place, with the direction, scalars, vector updates and reductions
+        that :meth:`_cg_step` forms.  Returns the cases' metrics."""
+        grid = self.grid
+        if self._k1_route:
+            ws, ps, dots = self._k1_batched(
+                [st[1] for st in states], [st[2] for st in states],
+                [(st[3], st[4]) for st in states], zero, mu_x, lam_x)
+            denoms = [d / grid.nxyz for d in dots]
+        else:
+            ps = [_direction(*st[1:]) for st in states]
+            ws = self._gamma_batched(ps, zero, mu_x, lam_x)
+            denoms = [fields.inner_l2_diff(p, p, w) for p, w in zip(ps, ws)]
+        mets = []
+        for st, p, w, d in zip(states, ps, ws, denoms):
+            out = self._cg_update(st[0], st[1], p, w, d, st[3])
+            st[:] = out[:5]                 # eps, r, p, gamma, gamma_prev
+            mets.append(out[5])
+        return mets
+
     def run_batched(self, Es, pallas_mid="auto") -> bool:
         """B pure-strain load cases (the rows of ``Es``) against the one
         operator, advanced in lockstep by the linear CG (the JAX package's
         run_batched, ls.py:2008-2136): each right-hand side has its own
-        (eps, r, p, gamma, gamma_prev) and takes the single solve's step,
-        so the kernels launch once per right-hand side and step.  Each
-        chunk of ``check_every`` steps reads the (K, B) gamma and metric
-        history to the host once; one estimator runs per right-hand side,
-        and the batch stops at the chunk in which the worst of them
-        converges.  The boundary conditions are pure strain whatever P and
-        S say, as in the JAX package.
+        (eps, r, p, gamma, gamma_prev) and the single solve's step.  Each
+        step (and the init) applies the operator to all B cases with one
+        batched chain (``_cg_step_batched``: one launch of K3, K4, K5 or
+        K6 for the batch, as the JAX package's vmapped program runs one
+        Pallas middle for all cases; K1 and K2 once per case, as its
+        manual-DMA sweeps have no batching rule), and each case's scalars,
+        vector updates and reductions are formed as run() forms them.
+        Willot's Gamma, ``freq_hack``, the multigrid G0 and the x-slab mesh
+        step case by case (``_batched_chain``).  Each chunk of
+        ``check_every`` steps reads the (K, B) gamma and metric history to
+        the host once; one estimator runs per right-hand side, and the batch
+        stops at the chunk in which the worst of them converges.  The
+        boundary conditions are pure strain whatever P and S say, as in the
+        JAX package.
 
         On success ``eps_batch`` holds (B, dim, nx, ny, nz) and ``eps`` the
         last case (``eps_batch[-1]``); calc_mean_stress_batched() gives the
@@ -1096,7 +1204,8 @@ class LSSolver:
         slabs' (B, dim, nx/D, ny, nz) blocks.  Returns True on failure,
         False on success (run() semantics).  ``pallas_mid`` (the JAX
         package's choice of its batched chain) is accepted and has no
-        effect: the port launches its chain once per right-hand side."""
+        effect: the port takes its batched chain wherever the path has
+        one."""
         if self.opt.method != "cg" or self.mode == "hyperelasticity":
             raise SolverError("run_batched requires the linear CG")
         if self.sharding is not None and self.par is None:
@@ -1133,15 +1242,19 @@ class LSSolver:
                                   self.grid.nz), dtype=self.dtype, device=d)
                      for d in self.par.devices]
         cases = _batch_cases(eps_b)
-        states, g0, m0 = [], [], []
-        for b in range(B):
-            eps, r, p, gamma, gamma_prev, met0 = self._cg_init(
-                self._vector(Es[b]), mu_x, lam_x, zero)
-            slabs.smap(torch.Tensor.copy_, cases[b], eps)
-            del eps
-            states.append([cases[b], r, p, gamma, gamma_prev])
-            g0.append(slabs.local(gamma))
-            m0.append(met0)
+        batched = self._batched_chain()
+        if batched:
+            states, m0 = self._cg_init_batched(Es, cases, mu_x, lam_x, zero)
+        else:
+            states, m0 = [], []
+            for b in range(B):
+                eps, r, p, gamma, gamma_prev, met0 = self._cg_init(
+                    self._vector(Es[b]), mu_x, lam_x, zero)
+                slabs.smap(torch.Tensor.copy_, cases[b], eps)
+                del eps
+                states.append([cases[b], r, p, gamma, gamma_prev])
+                m0.append(met0)
+        g0 = [slabs.local(st[3]) for st in states]
         self.eps = cases[-1]
         g0 = torch.stack(g0).cpu().numpy().astype(np.float64)
         for b, e in enumerate(ests):
@@ -1153,11 +1266,14 @@ class LSSolver:
             gs, ms = [], []
             for _ in range(K):
                 gs.append(torch.stack([slabs.local(st[3]) for st in states]))
-                mk = []
-                for st in states:
-                    out = self._cg_step(*st, mu_x, lam_x, zero)
-                    st[:] = out[:5]             # eps, r, p, gamma, gamma_prev
-                    mk.append(out[5])
+                if batched:
+                    mk = self._cg_step_batched(states, mu_x, lam_x, zero)
+                else:
+                    mk = []
+                    for st in states:
+                        out = self._cg_step(*st, mu_x, lam_x, zero)
+                        st[:] = out[:5]       # eps, r, p, gamma, gamma_prev
+                        mk.append(out[5])
                 ms.append(None if mk[0] is None else
                           torch.stack([slabs.local(m) for m in mk]))
             gs = torch.stack(gs).cpu().numpy().astype(np.float64)  # (K, B)
@@ -1202,7 +1318,10 @@ class LSSolver:
         ``ncomp``-component field of the solve's layout."""
         fn = getattr(spectral_kernels, name)
         gen = torch.Generator().manual_seed(0)
-        f = torch.randn((ncomp,) + self.grid.shape, generator=gen,
+        # a batched chain on a batch of the last run_batched's size
+        lead = (self.eps_batch.shape[0],) if name.endswith("_batched") \
+            else ()
+        f = torch.randn(lead + (ncomp,) + self.grid.shape, generator=gen,
                         dtype=self.dtype).to(self.device)
         args = (self.grid, f)
         if self.par is not None:
@@ -1524,6 +1643,13 @@ class LSSolver:
         err_S = voigt.norm_2(Q_S - self._current_S) / (
             1.0 if norm_S < self.opt.bc_tol else norm_S)
         return float(max(err_F, err_S))
+
+
+def _direction(r, p_prev, gamma, gamma_prev):
+    """The CG direction p = r + (gamma / gamma_prev) p_prev (slab by slab
+    on a mesh)."""
+    return slabs.smap(lambda r, pp, g, gp: r + (g / gp) * pp, r, p_prev,
+                      gamma, gamma_prev)
 
 
 def _batch_cases(eps_batch):

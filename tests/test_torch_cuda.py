@@ -704,7 +704,8 @@ def test_cuda_sharded_hyper_solve_matches_cpu(cuda, scheme, tangent, chain):
 
 
 # the load-case paths: mode -> (dim, law, (fibre, matrix) moduli); each path
-# launches the kernels of its trivial-BC solve and no other
+# launches the kernels of its trivial-BC solve, its chain batched, and no
+# other
 LOAD_CASE_MATERIALS = {
     "elasticity": (6, "isotropic", ((10.0, 5.0), (1.0, 1.0))),
     "heat": (3, "scalar", ((10.0,), (1.0,))),
@@ -712,13 +713,13 @@ LOAD_CASE_MATERIALS = {
 }
 LOAD_CASE_KERNELS = {
     ("elasticity", "staggered"): {"stress_div_beta", "eps_from_u_dot",
-                                  "g0_staggered_chain"},
-    ("heat", "staggered"): {"g0_staggered_heat_chain"},
+                                  "g0_staggered_chain_batched"},
+    ("heat", "staggered"): {"g0_staggered_heat_chain_batched"},
     ("viscosity", "staggered"): {"stress_div_beta", "eps_from_u_dot",
-                                 "g0_staggered_chain"},
-    ("elasticity", "collocated"): {"gamma_collocated_chain"},
-    ("heat", "collocated"): {"gamma_collocated_chain"},
-    ("viscosity", "collocated"): {"gamma_collocated_zt_chain"},
+                                 "g0_staggered_chain_batched"},
+    ("elasticity", "collocated"): {"gamma_collocated_chain_batched"},
+    ("heat", "collocated"): {"gamma_collocated_chain_batched"},
+    ("viscosity", "collocated"): {"gamma_collocated_zt_chain_batched"},
 }
 
 
@@ -753,6 +754,92 @@ def test_cuda_run_batched_matches_cpu(cuda, mode, scheme):
                     set(_launched(before, after)))
     (rc, Sc, kc), (rg, Sg, kg) = res["cpu"], res["cuda"]
     assert kc == set() and kg == LOAD_CASE_KERNELS[(mode, scheme)]
+    assert len(rg) == len(rc)
+    np.testing.assert_allclose(rg, rc, rtol=1e-9)
+    np.testing.assert_allclose(Sg, Sc, rtol=0,
+                               atol=1e-10 * np.max(np.abs(Sc)))
+
+
+# the batched chains: name -> (components of the batch, its E's length or
+# None, the batched wrapper's counter, the batched wrapper, the single
+# wrapper of one case, the batched plain twin)
+def _batched_chains(g):
+    c10, c20 = green.g0_constants(MU0, 0.4)
+    A, Bc = green.collocated_constants(MU0, 0.4)
+    sk = spectral_kernels
+
+    def gamma(C, B):
+        name = "gamma_collocated_zt_chain" if C == 5 else \
+            "gamma_collocated_chain"
+        return (6 if C != 3 else 3, 6 if C != 3 else 3, name + "_batched",
+                lambda f, E: getattr(sk, name + "_batched")(g, f, A, B, E,
+                                                            0.3),
+                lambda f, E: getattr(sk, name)(g, f, A, B, E, 0.3),
+                lambda f, E: getattr(sk, name + "_batched_plain")(
+                    g, f, A, B, E, 0.3))
+    return {
+        "K3": (3, None, "g0_staggered_chain_batched",
+               lambda f, E: sk.g0_staggered_chain_batched(g, f, c10, c20),
+               lambda f, E: sk.g0_staggered_chain(g, f, c10, c20),
+               lambda f, E: sk.g0_staggered_chain_batched_plain(g, f, c10,
+                                                                c20)),
+        "K4": (1, None, "g0_staggered_heat_chain_batched",
+               lambda f, E: sk.g0_staggered_heat_chain_batched(g, f, c10),
+               lambda f, E: sk.g0_staggered_heat_chain(g, f, c10),
+               lambda f, E: sk.g0_staggered_heat_chain_batched_plain(g, f,
+                                                                     c10)),
+        "K5-6": gamma(6, Bc), "K5-3": gamma(3, 0.0), "K6": gamma(5, Bc),
+    }
+
+
+@pytest.mark.parametrize("shape", [(33, 17, 29), (64, 32, 16), (32, 64, 1)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_cuda_batched_chains_bitwise_single_launches(cuda, shape, dtype, tol):
+    """Each batched chain (B = 3; K6 reads components 1..5 of its (B, 6,
+    ...) batch in place, a case stride of 6 voxel planes) bitwise equal to
+    B single launches and within ``tol`` of its plain twin, one launch
+    counted per call; B = 1 bitwise the single launch."""
+    g = Grid(*shape, dx=1.0, dy=0.7, dz=1.3)
+    rng = np.random.default_rng(9)
+    B = 3
+    for name, (C, ne, counter, batched, single, plain) in \
+            _batched_chains(g).items():
+        f = torch.as_tensor(rng.standard_normal((B, C) + shape), dtype=dtype,
+                            device=cuda)
+        if name == "K6":
+            f[:, 0] = -(f[:, 1] + f[:, 2])
+        E = None if ne is None else torch.as_tensor(
+            rng.standard_normal((B, ne)), dtype=dtype, device=cuda)
+        before = dict(spectral_kernels.launches)
+        out = batched(f, E)
+        torch.cuda.synchronize()
+        assert _launched(before, spectral_kernels.launches) == {counter: 1}
+        ref = torch.stack([single(f[b], None if E is None else E[b])
+                           for b in range(B)])
+        assert torch.equal(out, ref), name
+        one = batched(f[1:2], None if E is None else E[1:2])
+        assert torch.equal(one[0], ref[1]), name
+        assert _rel(out, plain(f, E)) <= tol, name
+
+
+def test_cuda_run_batched_48_takes_one_chain_a_step(cuda):
+    """run_batched(np.eye(6)) at 48^3 float64 on the card against the CPU
+    within 1e-10: one batched K3 launch per step and one for the init, K1
+    and K2 once per case, no single chain."""
+    res = {}
+    for dev in ("cpu", "cuda"):
+        s = _load_case_solver(dev, "elasticity", "staggered", n=48)
+        before = dict(stencil_kernels.launches, **spectral_kernels.launches)
+        assert not s.run_batched(np.eye(6))
+        after = dict(stencil_kernels.launches, **spectral_kernels.launches)
+        res[dev] = (np.asarray(s.residuals), s.calc_mean_stress_batched(),
+                    _launched(before, after))
+    (rc, Sc, _), (rg, Sg, kg) = res["cpu"], res["cuda"]
+    steps = -(-len(rg) // 4) * 4
+    assert kg == {"g0_staggered_chain_batched": steps + 1,
+                  "stress_div_beta": 6 * (steps + 1),
+                  "eps_from_u_dot": 6 * (steps + 1)}
     assert len(rg) == len(rc)
     np.testing.assert_allclose(rg, rc, rtol=1e-9)
     np.testing.assert_allclose(Sg, Sc, rtol=0,
