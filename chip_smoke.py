@@ -164,11 +164,19 @@ constants) and collocated (K5 at C = 9).  Phases, each failing loudly:
    launches bitwise; "error" raises); gui.app.run_project_and_view(
    show=False) on the card (GUI_XML at 64^3 float32: the viewed slice,
    the loadstep snapshots, K1/K3/K2; at 24^3 float64 the card's slice
-   against the CPU's within 1e-10).
+   against the CPU's within 1e-10);
+17. the solver's spans (``solver_spans``) in the benchmark's cells
+   elastic-cases and elastic-tensor (``fgbench/``, 256^3 float32): one
+   request of each under ``torch.cuda.set_sync_debug_mode("warn")``, every
+   flagged synchronisation inside an ``fg.sync.*`` span and as many as
+   those spans besides ``fg.sync.end``, no ``fg.`` event on the device;
+   then the cases a second of traced 51 s windows with the spans and with
+   ``span()`` stubbed out (on, off, off, on).
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script exits non-zero before printing any result.
 """
+import collections
 import json
 import math
 import os
@@ -3138,6 +3146,171 @@ def rest_of_port(run_counted, res32, path_launches, opt4, n=256, nm=32,
     log(f"  phase 16 in {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 17: the solver's spans in the benchmark's two cells (fgbench/)
+SPAN_CELLS = ("elastic-cases", "elastic-tensor")
+FLAGGED = "syncdebug.flagged"
+
+
+def flagged_syncs(solver, entry, loads, cuda):
+    """One request of ``entry`` traced with every synchronisation that
+    ``torch.cuda.set_sync_debug_mode("warn")`` flags marked in the trace
+    (a zero-length host event ``FLAGGED`` where its warning reaches
+    Python, inside the call that synchronised).  Returns (the profile's
+    events, the flagged calls' innermost frames in order)."""
+    import traceback
+    import warnings
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from fgbench.harness import program
+    sites = []
+
+    def hook(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" in str(message):
+            with torch._C._profiler._RecordFunctionFast(FLAGGED):
+                pass
+            frames = [f for f in traceback.extract_stack()[:-1]
+                      if not f.filename.endswith("warnings.py")]
+            sites.append(" < ".join(
+                f"{os.path.basename(f.filename)}:{f.lineno} {f.name}"
+                for f in reversed(frames[-6:])))
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = hook
+        with profile(activities=acts) as prof:
+            if cuda:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                program.call(solver, entry, loads)
+            finally:
+                if cuda:
+                    torch.cuda.set_sync_debug_mode(0)
+    return prof.profiler.kineto_results.events(), sites
+
+
+def solver_spans(dev="cuda:0", n=None, seconds=51.0, seed=2 ** 31 + 17):
+    """Phase 17: the solver's spans (``utils.logging.span``, listed in
+    ``solvers/ls.py``) on the card, in the benchmark's two cells as
+    ``fgbench/`` drives them (``n``: a smaller grid than the cells'):
+
+    a. after a warm-up request, one request of each cell traced under
+       ``torch.cuda.set_sync_debug_mode("warn")``: every synchronisation
+       the mode flags lies inside an ``fg.sync.*`` span, and their count
+       equals the ``fg.sync.*`` spans other than ``fg.sync.end`` (an
+       explicit ``torch.cuda.synchronize``, which the mode does not flag);
+       no device event bears an ``fg.`` name (the spans are host-scope
+       record functions, which the profiler does not mirror onto the
+       device);
+    b. the cost of the spans while a profiler records: the cases a second
+       of a traced window of ``seconds`` of each cell with the spans and
+       with ``span()`` stubbed out, in turns (on, off, off, on), and the
+       per-layer metrics of each window.
+    ``dev`` the CPU for a dry run of the code at small sizes (no
+    synchronisation is flagged there, and nothing is asserted)."""
+    t_phase = time.perf_counter()
+    log(f"phase 17: the solver's spans in {', '.join(SPAN_CELLS)}, seed "
+        f"{seed}")
+    span_syncs(dev, n, seed)
+    span_cost(dev, n, seconds, seed)
+    log(f"  phase 17 in {time.perf_counter() - t_phase:.1f} s")
+
+
+def span_syncs(dev, n, seed):
+    """Phase 17 a (``solver_spans``)."""
+    import torch
+    from fgbench.harness import cell, manifest, problem, program
+    from fgbench.harness import traffic as trafficmod
+    device = torch.device(dev)
+    cuda = device.type == "cuda"
+    ft = cell.import_program(manifest.ROOT)
+    man = manifest.load_manifest()
+    for name in SPAN_CELLS:
+        _, config, traffic = manifest.cell(man, name)
+        shape = (n,) * 3 if n else tuple(config["grid"])
+        rng = problem.rng_of(seed)
+        shift = problem.shift_of(config, rng, shape)
+        loads = problem.load_cases(config, traffic)
+        cases = list(next(trafficmod.requests(traffic, len(loads), rng)))
+        solver = program.build(ft, config, problem.phase_field(
+            config, shift, shape, device), device)
+        program.call(solver, traffic["entry"], loads[cases])    # warm-up
+        if cuda:
+            torch.cuda.synchronize(device)
+        events, sites = flagged_syncs(solver, traffic["entry"], loads[cases],
+                                      cuda)
+        host = [(int(e.start_ns()), int(e.start_ns()) + int(e.duration_ns()),
+                 e.name()) for e in events
+                if not str(e.device_type()).endswith("CUDA")]
+        on_device = sorted({e.name() for e in events
+                            if str(e.device_type()).endswith("CUDA")
+                            and e.name().startswith("fg.")})
+        syncs = [h for h in host if h[2].startswith("fg.sync.")]
+        marks = sorted(h[0] for h in host if h[2] == FLAGGED)
+        spans_by = collections.Counter(w for _, _, w in syncs)
+        flagged_by = collections.Counter()
+        outside = []
+        for t, site in zip(marks, sites):
+            within = [h for h in syncs if h[0] <= t <= h[1]]
+            if within:
+                flagged_by[max(within)[2]] += 1
+            else:
+                outside.append(site)
+        log(f"  {name} ({traffic['entry']}, {len(cases)} case(s), "
+            f"{len(solver.residuals)} iterations): {len(marks)} syncs "
+            f"flagged; fg.sync spans {json.dumps(spans_by, sort_keys=True)}"
+            f", flagged in them {json.dumps(flagged_by, sort_keys=True)}; "
+            f"fg. names on the device: {on_device}")
+        for site in outside:
+            log(f"    flagged outside every fg.sync span: {site}")
+        if cuda:
+            end = "fg.sync.end"
+            assert len(marks) == len(sites) and not outside, name
+            assert all(flagged_by[w] == c for w, c in spans_by.items()
+                       if w != end), (name, flagged_by, spans_by)
+            assert flagged_by[end] in (0, spans_by[end]), name
+            assert not on_device, on_device
+        del solver, events
+        if cuda:
+            torch.cuda.empty_cache()
+
+
+def span_cost(dev, n, seconds, seed):
+    """Phase 17 b (``solver_spans``)."""
+    import io
+    from fgbench.harness import cell
+    from fibergen_tpu_torch.utils import logging as fglog
+
+    def window(name, stub):
+        saved = fglog._RecordFunctionFast
+        if stub:
+            fglog._RecordFunctionFast = lambda _name: fglog._OFF
+        try:
+            rc, res = cell.execute(name, seed, seconds, True,
+                                   t_process=time.perf_counter(),
+                                   device=dev, shape=None if not n else
+                                   (n,) * 3, log=io.StringIO())
+        finally:
+            fglog._RecordFunctionFast = saved
+        assert rc == 0 and res["correct"], (name, stub, rc, res)
+        rate = res["attempted"] / res["device"]["window_s"]
+        layers = {k: v["value"] for k, v in res["metrics"].items()}
+        log(f"  {name} traced {seconds:g} s, spans "
+            f"{'stubbed' if stub else 'on'}: {rate!r} cases/s "
+            f"({res['attempted']} in {res['device']['window_s']!r} s), "
+            f"{json.dumps(layers)}")
+        return rate
+
+    for name in SPAN_CELLS:
+        rates = {False: [], True: []}
+        for stub in (False, True, True, False):
+            rates[stub].append(window(name, stub))
+        on, off = (sum(rates[k]) / 2 for k in (False, True))
+        log(f"  {name}: the spans' cost while traced "
+            f"{100 * (off / on - 1):.3f} % (cases/s stubbed {off!r}, on "
+            f"{on!r})")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3562,6 +3735,9 @@ def main():
     rest_of_port(run_counted, res32, path_launches,
                  dict(error_estimator="residual", tol=1e-6, check_every=8,
                       maxiter=4000))
+
+    # ---- phase 17: the solver's spans in the benchmark's cells
+    solver_spans()
 
     # ---- phase 7: launches and per-kernel numbers.  The per-kernel list
     # takes the key "kernels"; the launch counts of each path's timed 256^3

@@ -14,6 +14,7 @@ import math
 import torch
 
 from ..parallel import slabs
+from ..utils.logging import span
 from . import voigt
 
 _SPACE = (-3, -2, -1)
@@ -31,8 +32,12 @@ def component_norm(field):
 
 
 def _w(dim, like):
-    return torch.as_tensor(voigt.weights(dim), dtype=like.dtype,
-                           device=like.device).reshape(dim, 1, 1, 1)
+    """The Voigt weights on ``like``'s device: a pageable copy from the
+    host, which waits for the device (the span ``fg.sync.upload``)."""
+    with span("fg.sync.upload"):
+        w = torch.as_tensor(voigt.weights(dim), dtype=like.dtype,
+                            device=like.device)
+    return w.reshape(dim, 1, 1, 1)
 
 
 def inner_l2(a, b):

@@ -83,10 +83,24 @@ means among them, and ``g0_solver="multigrid"`` runs the slab multigrid
 as in the JAX package.  A mesh whose nx or ny does not divide it raises a
 ``SolverError``; under ``sharding_fallback="warn"`` it warns and solves
 whole on the mesh's first device.
+
+Spans (``utils.logging.span``: host events in the trace of a recording
+``torch.profiler``, free without one): ``fg.run`` and ``fg.run_batched``
+over the entries, ``fg.mean_stress`` over calc_mean_stress(_batched),
+``fg.cg.init`` over the CG's init, ``fg.cg.step`` over each step launched
+(one a batch step, whichever path its cases take), ``fg.cg.test`` over the
+host's convergence test of a chunk, and ``fg.sync.<why>`` over every point
+where the host waits for the device: ``residuals`` (a chunk's history
+read), ``gamma0``, ``metric0``, ``metric`` (the basic schemes' read),
+``upload`` (a pageable host-to-device copy: ``_vector``, the seed, the
+Voigt weights of ``fields.inner_l2``), ``end`` (the closing synchronize),
+``mean_stress``, ``mean_strain``, ``bc_error`` and ``ref_material`` (the
+eigenvalue bounds, once per material state).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import sys
 import time
@@ -105,7 +119,7 @@ from ..ops.stencil_kernels import (eps_from_u_dot, eps_from_u_dot_slabs,
                                    stress_div_beta, stress_div_beta_slabs)
 from ..parallel import comm, shard_field, slabs
 from ..parallel.fft import slab_fft_for, slab_reject_reason
-from ..utils.logging import LOG
+from ..utils.logging import LOG, span
 from . import bc as bcmod
 from . import lowmem, newton
 from . import refine as refinemod
@@ -278,6 +292,24 @@ def _agrees(device, mesh_devices):
     d = torch.device(device)
     return all(m.type == d.type and d.index in (None, m.index)
                for m in mesh_devices)
+
+
+def _spanned(name):
+    """A method run inside the span ``name``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
+
+
+def _read(x, why):
+    """The tensor ``x`` on the host as a numpy array, inside the span
+    ``fg.sync.<why>``: the host waits there for the device."""
+    with span("fg.sync." + why):
+        return x.cpu().numpy()
 
 
 class LSSolver:
@@ -479,18 +511,25 @@ class LSSolver:
 
     def calc_mean_strain(self):
         """Mean strain; a refined solve's from its float64 solution."""
+        return self._mean_strain("mean_strain")
+
+    def _mean_strain(self, why):
         if self.eps64 is not None:
             return self._refiner.mean_strain(self.eps64)
-        return slabs.local(fields.mean(self.eps)).cpu().numpy()
+        return _read(slabs.local(fields.mean(self.eps)), why)
 
+    @_spanned("fg.mean_stress")
     def calc_mean_stress(self):
         """Mean stress; the mean first Piola-Kirchhoff stress in
         hyperelasticity.  A refined solve's comes from its float64
         solution through the float64 material (the float32 reduction
         would drop the digits the refinement bought)."""
+        return self._mean_stress("mean_stress")
+
+    def _mean_stress(self, why):
         if self.eps64 is not None:
             return self._refiner.mean_stress(self.eps64)
-        return slabs.local(self.mat.mean_pk1(self.eps)).cpu().numpy()
+        return _read(slabs.local(self.mat.mean_pk1(self.eps)), why)
 
     def calc_mean_cauchy(self):
         if self.eps64 is not None:
@@ -518,16 +557,18 @@ class LSSolver:
         of the tangent at the current ``eps``, recomputed at every call
         (Newton calls it at the shifted F)."""
         if self.mode == "hyperelasticity":
-            lmin, lmax = (float(x) for x in self.mat.eig_range(self.eps))
+            with span("fg.sync.ref_material"):
+                lmin, lmax = (float(x) for x in self.mat.eig_range(self.eps))
         else:
             key = self.mat.state()
             if self._eig_memo is None or len(self._eig_memo[0]) != len(key) \
                     or not all(a is b for a, b in zip(self._eig_memo[0], key)):
-                self._eig_memo = (key, tuple(
-                    float(x) for x in self.mat.eig_range(
-                        zero_trace=self.mode == "viscosity",
-                        devices=None if self.par is None
-                        else self.par.devices)))
+                with span("fg.sync.ref_material"):
+                    self._eig_memo = (key, tuple(
+                        float(x) for x in self.mat.eig_range(
+                            zero_trace=self.mode == "viscosity",
+                            devices=None if self.par is None
+                            else self.par.devices)))
             lmin, lmax = self._eig_memo[1]
         if lmin < 0:
             LOG.warn(f"negative tangent eigenvalue ({lmin}); cutting off at 0")
@@ -593,6 +634,7 @@ class LSSolver:
         return np.asarray(bcmod.calc_bc_mean(self._bc, E, S), dtype=np.float64)
 
     # -------------------------------------------------------------- run
+    @_spanned("fg.run")
     def run(self) -> bool:
         """Full solve over all loadsteps (run, fibergen.cpp:21247-21398).
         Returns True on failure or cancel, False on success, like the
@@ -637,14 +679,16 @@ class LSSolver:
 
     def _seed(self):
         """The initial field: Id in hyperelasticity, zero otherwise."""
-        return self._const(self._id if self.mode == "hyperelasticity"
-                           else np.zeros(self.dim))
+        with span("fg.sync.upload"):
+            return self._const(self._id if self.mode == "hyperelasticity"
+                               else np.zeros(self.dim))
 
     def _sync(self):
         devices = [self.device] if self.par is None else self.par.devices
-        for d in dict.fromkeys(devices):
-            if d.type == "cuda":
-                torch.cuda.synchronize(d)
+        with span("fg.sync.end"):
+            for d in dict.fromkeys(devices):
+                if d.type == "cuda":
+                    torch.cuda.synchronize(d)
 
     def _reset_stall(self):
         """Reset the stagnation tracker: per solve phase (each loadstep and
@@ -808,13 +852,14 @@ class LSSolver:
 
     def _host_metric(self, eps):
         m = self._metric(eps)
-        return None if m is None else slabs.local(m).cpu().numpy()
+        return None if m is None else _read(slabs.local(m), "metric")
 
     # ------------------------------------------- values of a sharded solve
     def _vector(self, values):
         """A (n,) vector on the solve's device, or, sharded, on every slab's
         device."""
-        v = torch.as_tensor(values, dtype=self.dtype, device=self.device)
+        with span("fg.sync.upload"):
+            v = torch.as_tensor(values, dtype=self.dtype, device=self.device)
         return v if self.par is None else comm.replicate(v, self.par.devices)
 
     def _const(self, values):
@@ -1022,7 +1067,9 @@ class LSSolver:
         route = self._route = lowmem.route(self, bc, K)
 
         if route == "lm6":
-            eps, r, p, gamma, gamma_prev, met0 = lowmem.lm6_init(self, Ej, bc)
+            with span("fg.cg.init"):
+                eps, r, p, gamma, gamma_prev, met0 = lowmem.lm6_init(self, Ej,
+                                                                     bc)
             self._lm6_eps_t = eps
 
             def step(*a):
@@ -1031,8 +1078,9 @@ class LSSolver:
             def reinit(eps):
                 return lowmem.lm6_reinit(self, eps, Ej, bc)
         else:
-            eps, r, p, gamma, gamma_prev, met0 = self._cg_init(
-                Ej, mu_x, lam_x, zero, bc)
+            with span("fg.cg.init"):
+                eps, r, p, gamma, gamma_prev, met0 = self._cg_init(
+                    Ej, mu_x, lam_x, zero, bc)
             self.eps = eps
 
             if route == "stacked":
@@ -1053,26 +1101,30 @@ class LSSolver:
             gs, ms = [], []
             for _ in range(K):
                 gs.append(slabs.local(gamma))
-                eps, r, p, gamma, gamma_prev, met = step(eps, r, p, gamma,
-                                                         gamma_prev)
+                with span("fg.cg.step"):
+                    eps, r, p, gamma, gamma_prev, met = step(eps, r, p, gamma,
+                                                             gamma_prev)
                 ms.append(None if met is None else slabs.local(met))
                 steps += 1
                 if reinit_every and steps % reinit_every == 0:
                     r, gamma = reinit(eps)
             if gamma0 is None:
                 ee.start(None if met0 is None else
-                         slabs.local(met0).cpu().numpy())
-                gamma0 = float(gs[0])
-            gs = torch.stack(gs).cpu().numpy()
-            ms = None if ms[0] is None else torch.stack(ms).cpu().numpy()
-            for k in range(K):
-                if ee.metric_kind == "residual":
-                    ee.update_cg(float(gs[k]), gamma0)
-                else:
-                    ee.update(None if ms is None else ms[k])
-                it, done = self._converged(it, ee.abs_error(), ee.rel_error())
-                if done:
-                    break
+                         _read(slabs.local(met0), "metric0"))
+                with span("fg.sync.gamma0"):
+                    gamma0 = float(gs[0])
+            gs = _read(torch.stack(gs), "residuals")
+            ms = None if ms[0] is None else _read(torch.stack(ms), "residuals")
+            with span("fg.cg.test"):
+                for k in range(K):
+                    if ee.metric_kind == "residual":
+                        ee.update_cg(float(gs[k]), gamma0)
+                    else:
+                        ee.update(None if ms is None else ms[k])
+                    it, done = self._converged(it, ee.abs_error(),
+                                               ee.rel_error())
+                    if done:
+                        break
         if route == "lm6":
             # the r and p components go before eps is stacked
             del r, p
@@ -1178,6 +1230,7 @@ class LSSolver:
             mets.append(out[5])
         return mets
 
+    @_spanned("fg.run_batched")
     def run_batched(self, Es, pallas_mid="auto") -> bool:
         """B pure-strain load cases (the rows of ``Es``) against the one
         operator, advanced in lockstep by the linear CG (the JAX package's
@@ -1243,52 +1296,56 @@ class LSSolver:
                      for d in self.par.devices]
         cases = _batch_cases(eps_b)
         batched = self._batched_chain()
-        if batched:
-            states, m0 = self._cg_init_batched(Es, cases, mu_x, lam_x, zero)
-        else:
-            states, m0 = [], []
-            for b in range(B):
-                eps, r, p, gamma, gamma_prev, met0 = self._cg_init(
-                    self._vector(Es[b]), mu_x, lam_x, zero)
-                slabs.smap(torch.Tensor.copy_, cases[b], eps)
-                del eps
-                states.append([cases[b], r, p, gamma, gamma_prev])
-                m0.append(met0)
+        with span("fg.cg.init"):
+            if batched:
+                states, m0 = self._cg_init_batched(Es, cases, mu_x, lam_x,
+                                                   zero)
+            else:
+                states, m0 = [], []
+                for b in range(B):
+                    eps, r, p, gamma, gamma_prev, met0 = self._cg_init(
+                        self._vector(Es[b]), mu_x, lam_x, zero)
+                    slabs.smap(torch.Tensor.copy_, cases[b], eps)
+                    del eps
+                    states.append([cases[b], r, p, gamma, gamma_prev])
+                    m0.append(met0)
         g0 = [slabs.local(st[3]) for st in states]
         self.eps = cases[-1]
-        g0 = torch.stack(g0).cpu().numpy().astype(np.float64)
+        g0 = _read(torch.stack(g0), "gamma0").astype(np.float64)
         for b, e in enumerate(ests):
             e.start(None if m0[b] is None else
-                    slabs.local(m0[b]).cpu().numpy())
+                    _read(slabs.local(m0[b]), "metric0"))
         del m0
         it, done = 0, False
         while not done:
             gs, ms = [], []
             for _ in range(K):
                 gs.append(torch.stack([slabs.local(st[3]) for st in states]))
-                if batched:
-                    mk = self._cg_step_batched(states, mu_x, lam_x, zero)
-                else:
-                    mk = []
-                    for st in states:
-                        out = self._cg_step(*st, mu_x, lam_x, zero)
-                        st[:] = out[:5]       # eps, r, p, gamma, gamma_prev
-                        mk.append(out[5])
+                with span("fg.cg.step"):
+                    if batched:
+                        mk = self._cg_step_batched(states, mu_x, lam_x, zero)
+                    else:
+                        mk = []
+                        for st in states:
+                            out = self._cg_step(*st, mu_x, lam_x, zero)
+                            st[:] = out[:5]   # eps, r, p, gamma, gamma_prev
+                            mk.append(out[5])
                 ms.append(None if mk[0] is None else
                           torch.stack([slabs.local(m) for m in mk]))
-            gs = torch.stack(gs).cpu().numpy().astype(np.float64)  # (K, B)
-            ms = None if ms[0] is None else torch.stack(ms).cpu().numpy()
-            for k in range(K):
-                for b, e in enumerate(ests):
-                    if e.metric_kind == "residual":
-                        e.update_cg(gs[k, b], g0[b])
-                    else:
-                        e.update(None if ms is None else ms[k, b])
-                it, done = self._converged(
-                    it, max(e.abs_error() for e in ests),
-                    max(e.rel_error() for e in ests))
-                if done:
-                    break
+            gs = _read(torch.stack(gs), "residuals").astype(np.float64)
+            ms = None if ms[0] is None else _read(torch.stack(ms), "residuals")
+            with span("fg.cg.test"):                       # gs: (K, B)
+                for k in range(K):
+                    for b, e in enumerate(ests):
+                        if e.metric_kind == "residual":
+                            e.update_cg(gs[k, b], g0[b])
+                        else:
+                            e.update(None if ms is None else ms[k, b])
+                    it, done = self._converged(
+                        it, max(e.abs_error() for e in ests),
+                        max(e.rel_error() for e in ests))
+                    if done:
+                        break
         del states
         self.eps_batch = eps_b
         self.eps = cases[-1]
@@ -1389,11 +1446,12 @@ class LSSolver:
         if np.isfinite(self.mu_0):
             self._make_bc()
 
+    @_spanned("fg.mean_stress")
     def calc_mean_stress_batched(self):
         """(B, dim) mean stresses of the last run_batched."""
-        return torch.stack([slabs.local(self.mat.mean_pk1(e))
-                            for e in _batch_cases(self.eps_batch)]
-                           ).cpu().numpy()
+        return _read(torch.stack([slabs.local(self.mat.mean_pk1(e))
+                                  for e in _batch_cases(self.eps_batch)]),
+                     "mean_stress")
 
     # ------------------------------------------------- basic, polarization
     def _run_basic(self, E0, S0):
@@ -1625,11 +1683,11 @@ class LSSolver:
             return 0.0
         if self.eps is None and self._lm6_eps_t is not None:
             # an lm6 solve's tuple state (lowmem.lm6_means)
-            Emean, Smean = (t.cpu().numpy().astype(np.float64) for t in
+            Emean, Smean = (_read(t, "bc_error").astype(np.float64) for t in
                             lowmem.lm6_means(self, self._lm6_eps_t))
         else:
-            Emean = self.calc_mean_strain().astype(np.float64)
-            Smean = self.calc_mean_stress().astype(np.float64)
+            Emean = self._mean_strain("bc_error").astype(np.float64)
+            Smean = self._mean_stress("bc_error").astype(np.float64)
         Q = voigt.id4(self.dim) - self.P
         P_E = voigt.dyad4_mv(self.P, Emean)
         Q_S = voigt.dyad4_mv(Q, Smean)

@@ -6,12 +6,25 @@ RAII Timer with per-name statistics (fibergen.cpp:1643-1810, printed by the
 ``print_timings`` action).  Set ``LOG.enabled = False`` to quiet the
 per-iteration log.  The logger writes to the ``sys.stdout`` of the moment
 it writes, unless ``stream`` names another.
+
+Spans: :func:`span` marks a region of the host thread in a
+``torch.profiler`` trace, and :func:`timer` opens one named ``fg.<name>``.
+Tracing is on exactly while a profiler records; wrap any call in
+``torch.profiler.profile(...)`` and its trace holds the spans (the solver's
+are listed in ``solvers/ls.py``), on the profiler's clock beside the
+device's activities.  With no profiler recording a span costs one check.
 """
 from __future__ import annotations
 
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
+
+import torch
+
+_profiling = torch._C._autograd._profiler_enabled
+_RecordFunctionFast = torch._C._profiler._RecordFunctionFast
+_OFF = nullcontext()
 
 
 class Logger:
@@ -92,12 +105,25 @@ class TimerRegistry:
 TIMINGS = TimerRegistry()
 
 
+def span(name):
+    """A context manager marking a region of the calling thread as ``name``
+    in the trace of a recording ``torch.profiler``: a host-scope record
+    function (a host event only; ``torch.profiler.record_function`` would
+    record a user annotation, which the profiler mirrors onto the device's
+    timeline).  With no profiler recording it constructs nothing."""
+    if not _profiling():
+        return _OFF
+    return _RecordFunctionFast(name)
+
+
 @contextmanager
 def timer(name, log=False):
-    """Scope timer recording into :data:`TIMINGS` (host wall time)."""
+    """Scope timer recording into :data:`TIMINGS` (host wall time), and the
+    span ``fg.<name>``."""
     t0 = time.perf_counter()
     try:
-        yield
+        with span("fg." + name):
+            yield
     finally:
         dt = time.perf_counter() - t0
         TIMINGS.record(name, dt)
