@@ -650,6 +650,8 @@ WORK = {
                                           apply=176),
     "g0_staggered_chain[hyper]": dict(values=3 + 3, flops=None, comps=3,
                                       apply=56),
+    # the CG's vector update at C = 6: eps, r, p, w read, eps, r written
+    "cg_update": dict(values=6 * (4 + 2), flops=6 * 7),
 }
 # a slab kernel does the same work as its whole-field kernel (the halo
 # planes and the exchanged spectrum are the decomposition's own traffic)
@@ -834,6 +836,64 @@ def check_kernels(shape, dtype, timed):
                 lambda: fft.ifftn(fft.fftn(x), g.shape))
             log(f"  cuFFT rfftn+irfftn ({x.shape[0]}, {shape}) "
                 f"{str(dtype)[6:]}: {out[name]['library_ms']:.4f} ms")
+    return out
+
+
+def check_cg_update(shape, dtype, timed):
+    """Phase 2's CG vector update (``vector_kernels.cg_update``) on one
+    grid at C = 6 and 3: eps and r against the twin's (the plain sequence
+    the solver ran before the kernel) within phase 2's tolerance, delta
+    against the twin's in float64, two calls the same bits, w untouched;
+    with ``timed`` (C = 6) the kernel, the twin and the byte bound.
+    Returns {"cg_update": numbers} when timed."""
+    import torch
+    from fibergen_tpu_torch.ops import vector_kernels as vk
+
+    dev = torch.device("cuda")
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    tiny = float(torch.finfo(dtype).tiny)
+    tiny64 = float(torch.finfo(torch.float64).tiny)
+    out = {}
+    for C in (6, 3):
+        state = [torch.randn((C,) + tuple(shape), generator=gen, device=dev,
+                             dtype=dtype) for _ in range(4)]
+        state += [torch.tensor(0.83, dtype=dtype, device=dev),
+                  torch.tensor(1.7, dtype=dtype, device=dev)]
+        w0 = state[3].clone()
+        k, t = [x.clone() for x in state], [x.clone() for x in state]
+        d_k = vk.cg_update(*k, tiny)
+        vk.cg_update_plain(*t, tiny, tiny)
+        d_64 = vk.cg_update_plain(
+            *(x.to(torch.float64, copy=True) for x in state), tiny64, tiny64)
+        again = vk.cg_update(*[x.clone() for x in state], tiny)
+        errs = [rel_err(k[0], t[0]), rel_err(k[1], t[1]), dot_err(d_k, d_64)]
+        del t
+        worst = max(e[0] for e in errs)
+        rec = {"max_rel_err": worst, "max_abs_err": max(e[1] for e in errs)}
+        line = (f"  {'cg_update':24s} C={C} {tuple(shape)} "
+                f"{str(dtype)[6:]}: max rel err {worst:.3e} (delta "
+                f"{errs[2][0]:.3e} of the float64 twin's), repeatable "
+                f"{torch.equal(again, d_k)}")
+        if timed and C == 6:
+            itemsize = torch.empty((), dtype=dtype).element_size()
+            n = math.prod(shape)
+            rec["ms"] = cuda_ms(lambda: vk.cg_update(*k, tiny))
+            rec["plain_ms"] = cuda_ms(
+                lambda: vk.cg_update_plain(*k, tiny, tiny))
+            rec["bound_ms"], rec["bound_by"] = bound_ms("cg_update", n,
+                                                        itemsize)
+            rec["library_ms"] = None
+            line += (f", kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}"
+                     f" ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}"
+                     f", {rec['bound_ms'] / rec['ms']:.1%} of it)")
+            out["cg_update"] = rec
+        log(line)
+        if not (worst <= tol and torch.equal(again, d_k)
+                and torch.equal(k[3], w0)):
+            raise AssertionError(f"cg_update C={C}: error {worst:.3e} > "
+                                 f"{tol:g}, or not repeatable, or w moved")
+        del k, state
     return out
 
 
@@ -3322,6 +3382,7 @@ def main():
     from fibergen_tpu_torch.ops import _build
     from fibergen_tpu_torch.ops import spectral_kernels as spk
     from fibergen_tpu_torch.ops import stencil_kernels as sk
+    from fibergen_tpu_torch.ops import vector_kernels as vk
     from fibergen_tpu_torch.utils.logging import LOG
 
     t_start = time.perf_counter()
@@ -3348,24 +3409,28 @@ def main():
         log(f"  {src}: {len(regs)} kernels, at most {max(regs, default=0)} "
             f"registers a thread, {len(spills)} with spills")
 
+    update_launches = {}    # label -> the CG update's launches in it
+
     def run_counted(solver, label, path, fn=None, batched=False):
         """Run one solve (``fn``, the solver's run by default) with every
         launch count set to 0 just before it; fail unless each kernel of
         ``path`` launched in it and no other.  ``batched``: ``fn`` is a
         whole-field run_batched, which launches the path's chain batched
         (BATCHED_CHAIN) and never its single chain."""
-        for table in (sk.launches, spk.launches):
+        for table in (sk.launches, spk.launches, vk.launches):
             for name in table:
                 table[name] = 0
         fail = (fn or solver.run)()
         sync_all()
         got = dict(sk.launches, **spk.launches)
-        log(f"  {label} launches: {json.dumps(got)}")
+        log(f"  {label} launches: {json.dumps(got)}, the CG's vector "
+            f"update {vk.launches['cg_update']}")
         want = PATH_KERNELS[path] if solver.par is None else \
             SHARDED_KERNELS[path]
         if batched and solver.par is None:
             want = tuple(BATCHED_CHAIN.get(k, k) for k in want)
         assert all((got[k] > 0) == (k in want) for k in got), (label, got)
+        update_launches[label] = vk.launches["cg_update"]
         return fail, got
 
     # ---- phase 2: kernels against their twins
@@ -3384,6 +3449,12 @@ def main():
     check_kernels((128, 128, 1), torch.float32, timed=False)
     check_kernels((128, 128, 1), torch.float64, timed=False)
     check_kernels((33, 17, 1), torch.float64, timed=False)
+    # the CG's vector update: timed at 256^3 float32, checked on an odd
+    # grid (the scalar tail) in both precisions
+    main_nums.update(check_cg_update((256, 256, 256), torch.float32,
+                                     timed=True))
+    for dt in (torch.float32, torch.float64):
+        check_cg_update((33, 17, 29), dt, timed=False)
     torch.cuda.empty_cache()
     # the batched chains (run_batched's): bitwise B single launches and
     # their twins on every shape above in float32 and float64 (256^3 in
@@ -3748,7 +3819,10 @@ def main():
     k1, k2, ch = ("fibergen_tpu_torch/csrc/stress_div_beta.cu",
                   "fibergen_tpu_torch/csrc/eps_from_u_dot.cu",
                   "fibergen_tpu_torch/csrc/g0_staggered_chain.cu")
-    rows = [("stress_div_beta", "stress_div_beta", "elasticity", k1,
+    rows = [("cg_update", "cg_update", "elasticity",
+             "fibergen_tpu_torch/csrc/cg_update.cu",
+             "fibergen_tpu/solvers/ls.py:679 (an XLA fusion)"),
+            ("stress_div_beta", "stress_div_beta", "elasticity", k1,
              "fibergen_tpu/ops/pallas_sweep.py:301"),
             ("stress_div_beta[tau_sum]", "stress_div_beta", "viscosity", k1,
              "fibergen_tpu/ops/pallas_sweep.py:301"),
@@ -3887,10 +3961,12 @@ def main():
     kernels = []
     for name, counter, path, src, replaces in rows:
         m = main_nums[name]
+        counts = dict(path_launches[path], cg_update=update_launches.get(
+            f"256^3 float32 {path}", 0))      # phase 4's solve of the path
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
-            "launches": path_launches[path][counter] + sum(
+            "launches": counts[counter] + sum(
                 path_launches[p][counter] for p in more_paths.get(name, ())),
             "max_abs_err": m["max_abs_err"], "ms": m["ms"],
             "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],

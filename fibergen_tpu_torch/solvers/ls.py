@@ -88,14 +88,17 @@ Spans (``utils.logging.span``: host events in the trace of a recording
 ``torch.profiler``, free without one): ``fg.run`` and ``fg.run_batched``
 over the entries, ``fg.mean_stress`` over calc_mean_stress(_batched),
 ``fg.cg.init`` over the CG's init, ``fg.cg.step`` over each step launched
-(one a batch step, whichever path its cases take), ``fg.cg.test`` over the
-host's convergence test of a chunk, and ``fg.sync.<why>`` over every point
-where the host waits for the device: ``residuals`` (a chunk's history
-read), ``gamma0``, ``metric0``, ``metric`` (the basic schemes' read),
-``upload`` (a pageable host-to-device copy: ``_vector``, the seed, the
-Voigt weights of ``fields.inner_l2``), ``end`` (the closing synchronize),
-``mean_stress``, ``mean_strain``, ``bc_error`` and ``ref_material`` (the
-eigenvalue bounds, once per material state).
+(one a batch step, whichever path its cases take), within a step
+``fg.cg.update.kernel`` or ``fg.cg.update.plain`` over each vector update
+(``ops/vector_kernels.py``: the kernel or the plain twin; one a case and a
+slab), ``fg.cg.test`` over the host's convergence test of a chunk, and
+``fg.sync.<why>`` over every point where the host waits for the device:
+``residuals`` (a chunk's history read), ``gamma0``, ``metric0``,
+``metric`` (the basic schemes' read), ``upload`` (a pageable host-to-device
+copy: ``_vector``, the seed, the Voigt weights of ``fields.inner_l2``),
+``end`` (the closing synchronize), ``mean_stress``, ``mean_strain``,
+``bc_error`` and ``ref_material`` (the eigenvalue bounds, once per material
+state).
 """
 from __future__ import annotations
 
@@ -114,7 +117,7 @@ from ..core.device import resolve_device, resolve_dtype
 from ..materials import laws
 from ..materials.sharded import for_slabs
 from ..ops import gamma as gammamod
-from ..ops import green, spectral_kernels
+from ..ops import green, spectral_kernels, vector_kernels
 from ..ops.stencil_kernels import (eps_from_u_dot, eps_from_u_dot_slabs,
                                    stress_div_beta, stress_div_beta_slabs)
 from ..parallel import comm, shard_field, slabs
@@ -1028,15 +1031,13 @@ class LSSolver:
 
     def _cg_update(self, eps, r, p, w, denom, gamma, metric=True):
         """The end of a CG step from the direction p, its operator image w
-        and the denominator <p, p - w>: eps and r are updated in place (w
-        is used up); returns (eps, r, p, delta, gamma, metric)."""
-        tiny = self._tiny
-        alpha = slabs.smap(lambda g, d: g / (d + tiny), gamma, denom)
-        slabs.smap(torch.Tensor.addcmul_, eps, p, alpha)   # eps + alpha p
+        and the denominator <p, p - w>: eps and r are updated in place by
+        ``vector_kernels.cg_update`` (one pass on the card; a launch a slab
+        when sharded); returns (eps, r, p, delta, gamma, metric)."""
+        update = vector_kernels.cg_update_slabs if slabs.sharded(eps) else \
+            vector_kernels.cg_update
+        delta = update(eps, r, p, w, gamma, denom, self._tiny)
         met = self._metric(eps) if metric else None
-        slabs.smap(lambda r, w, p, a: r.addcmul_(w.sub_(p), a), r, w, p,
-                   alpha)                              # r - alpha (p - w)
-        delta = slabs.smap(lambda d: d + tiny, fields.inner_l2(r, r))
         return eps, r, p, delta, gamma, met
 
     def _run_cg(self, E0, S0):

@@ -12,11 +12,13 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 import fibergen_tpu_torch as ft
+from fibergen_tpu_torch import parallel
 from fibergen_tpu_torch.utils import logging as fglog
 
 N = 16
 TABLE = ("fg.run", "fg.run_batched", "fg.mean_stress", "fg.cg.init",
-         "fg.cg.step", "fg.cg.test", "fg.sync.residuals", "fg.sync.gamma0",
+         "fg.cg.step", "fg.cg.update.plain", "fg.cg.test",
+         "fg.sync.residuals", "fg.sync.gamma0",
          "fg.sync.metric0", "fg.sync.upload", "fg.sync.end",
          "fg.sync.mean_stress", "fg.sync.bc_error")
 EYE = np.eye(6)
@@ -30,9 +32,10 @@ def _quiet():
     fglog.LOG.enabled = old
 
 
-def _solver(**opt):
+def _solver(sharding=None, **opt):
     """The benchmark's sphere (radius 0.3, mu/lam 10/5 in 1/1) at 16^3,
-    staggered elasticity CG, residual estimator, tol 1e-6, check_every 8."""
+    staggered elasticity CG, residual estimator, tol 1e-6, check_every 8;
+    on the x-slabs of ``sharding`` when given."""
     x = (np.arange(N) + 0.5) / N
     X, Y, Z = np.meshgrid(x, x, x, indexing="ij")
     phi = torch.as_tensor(((X - .5) ** 2 + (Y - .5) ** 2 + (Z - .5) ** 2
@@ -46,7 +49,7 @@ def _solver(**opt):
               dtype="float64")
     kw.update(opt)
     return ft.LSSolver(ft.Grid(N, N, N), mat, ft.SolverOptions(**kw),
-                       device="cpu")
+                       device="cpu", sharding=sharding)
 
 
 def _run(s, strain=(1, 0, 0, 0, 0, 0)):
@@ -168,6 +171,28 @@ def test_step_spans_are_whole_chunks(case):
     if fn is _batch:
         assert s._batched_chain() == (case == "batched chain")
     assert steps == s.opt.check_every * _chunks(s) > 0
+
+
+@pytest.mark.parametrize("case", ["run", "batched chain",
+                                  "per-case loop (willot)", "sharded run"])
+def test_update_spans_one_a_case_step(case):
+    """On the CPU each case's vector update takes the plain twin, inside
+    its step's span: one ``fg.cg.update.plain`` a case and step (a slab
+    and step when sharded), no ``fg.cg.update.kernel``."""
+    opt = {"per-case loop (willot)": dict(gamma_scheme="willot"),
+           "sharded run": dict(sharding=parallel.field_sharding(
+               parallel.make_mesh(["cpu"] * 2)))}.get(case, {})
+    s = _solver(**opt)
+    fn = _run if case in ("run", "sharded run") else _batch
+    events = _traced(lambda: fn(s))
+    names = _names(events)
+    per_step = {"run": 1, "sharded run": 2}.get(case, 6)
+    assert names["fg.cg.update.plain"] == per_step * names["fg.cg.step"] > 0
+    assert names["fg.cg.update.kernel"] == 0
+    steps = [(a, b) for n, a, b, _ in events if n == "fg.cg.step"]
+    for n, a, b, _ in events:
+        if n == "fg.cg.update.plain":
+            assert any(s0 <= a <= b <= s1 for s0, s1 in steps)
 
 
 def _expected(case, s, steps, chunks):
