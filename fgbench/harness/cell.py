@@ -1,7 +1,7 @@
 """One run of one cell: set-up, warm-up, the measured window, the output
 check, the metrics and the result line.
 
-    set-up   the phase field on the device from the seed, the solver, and
+    set-up   the geometry on the device from the seed, the solver, and
              one request of the cell's traffic (which builds the CUDA
              sources on a checkout's first run and fixes the reference
              medium); ``setup_s`` is the process's start to the window's
@@ -139,15 +139,14 @@ def execute(workload, seed, seconds, trace, *, t_process, device="cuda",
     _mark("import program")
     shape = tuple(shape or config["grid"])
     rng = problem.rng_of(seed)
-    shift = problem.shift_of(config, rng, shape)
-    loads = problem.load_cases(config, traffic)
+    drawn = problem.draw(config, rng, shape, root)
+    loads = problem.load_cases(config, traffic, root)
     entry = traffic["entry"]
     schedule = trafficmod.requests(traffic, len(loads), rng)
     batch = trafficmod.per_request(traffic, len(loads))
 
-    solver = program.build(ft, config,
-                           problem.phase_field(config, shift, shape, dev),
-                           dev)
+    solver = program.build(ft, config, problem.fields(
+        config, drawn, shape, dev, root=root), dev, shape, root)
     if cuda:
         torch.cuda.synchronize(dev)
     _mark("solver")
@@ -185,18 +184,23 @@ def execute(workload, seed, seconds, trace, *, t_process, device="cuda",
     del cap         # the profiler's own copy of the events
 
     # the check: the last request's fields kept, the rest of the program
-    # freed, then the reference on the same phase field
+    # freed, then the reference on the same geometry
     last = program.fields(solver, entry)
     del solver
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    reference = manifest.plugin("reference", config["mode"], root)
-    phi = problem.phase_field(config, shift, shape, dev, torch.float64)
-    numbers = check.gaps(reference, config, phi, loads,
-                         [(r.cases, r.means) for r in requests],
-                         requests[-1].cases, last)
-    del last, phi
+    reference = problem.reference(config, root)
+    geom = problem.fields(config, drawn, shape, dev, torch.float64, root)
+    try:
+        numbers = check.gaps(reference, config, geom, loads,
+                             [(r.cases, r.means) for r in requests],
+                             requests[-1].cases, last)
+    except ValueError as e:     # a reference refusing the configuration
+        print(f"the reference {Path(reference.__file__).name} refuses the "
+              f"configuration: {e}", file=log)
+        numbers = {"stress_gap": float("nan"), "field_gap": float("nan")}
+    del last, geom
     numbers["failed_cases"] = sum(sum(r.failed) for r in requests)
     limits = check.limits_of(config)
     correct = check.verdict(numbers, limits)

@@ -1,11 +1,12 @@
 """The output check that decides ``correct``.
 
 Once the window has closed and the program's state is freed, the plain
-reference of the configuration's mode (``fgbench/reference/<mode>.py``)
-solves each load case that the window served, in float64 to a relative
-residual of 1e-10, from the same phase field, which it is given and from
-which it works out its moduli and preconditioner itself.  Compared, each
-against the configuration's limit (its ``check``):
+reference that the configuration names (``fgbench/reference/<reference>.py``,
+by default ``<mode>.py``) solves each load case that the window served, in
+float64 to a relative residual of 1e-10, on the same geometry, whose
+fields it is given and from which it works out its moduli and
+preconditioner itself.  Compared, each against the configuration's limit
+(its ``check``):
 
 * ``stress_gap``: over every request of the window and each of its cases,
   the largest |mean stress - reference| / |reference| (2-norms of the
@@ -25,14 +26,14 @@ REF_TOL = 1e-10
 NAMES = ("stress_gap", "field_gap", "failed_cases")
 
 
-def gaps(reference, config, phi, loads, requests, last_cases, last_fields):
+def gaps(reference, config, geom, loads, requests, last_cases, last_fields):
     """The compared numbers of a run.  ``requests``: (cases, means) pairs;
     ``last_fields``: the last request's (k, dim, ...) fields, on any
     device, in the order of ``last_cases``."""
     cases = sorted({c for cs, _ in requests for c in cs} | set(last_cases))
     stress, field = 0.0, 0.0
     for c in cases:
-        sol = reference.solve(config, phi, loads[c], tol=REF_TOL)
+        sol = reference.solve(config, geom, loads[c], tol=REF_TOL)
         ref = sol.mean.cpu().numpy()
         norm = np.linalg.norm(ref)
         for cs, means in requests:

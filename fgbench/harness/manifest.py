@@ -1,15 +1,21 @@
 """``BENCHMARK.json`` and the files it names.
 
 Everything that belongs to one configuration, traffic mix, metric, byte
-count or reference lives in a file of its own, found by name:
+count, geometry, mixing rule, set of load cases or reference lives in a
+file of its own, found by name:
 
     fgbench/configs/<config>.json     (the path is the manifest's ``file``)
     fgbench/traffic/<traffic>.json
     fgbench/metrics/<metric>.py       ``read(run) -> float | None``
     fgbench/counts/<operator>.py      bytes an application moves
-    fgbench/reference/<mode>.py       the plain reference of a mode
+    fgbench/geometry/<shape>.py       a configuration's ``inclusion.shape``
+    fgbench/mixing/<rule>.py          a configuration's ``mixing``
+    fgbench/loads/<set>.py            a traffic mix's ``load_cases``
+    fgbench/reference/<name>.py       a configuration's ``reference``, by
+                                      default its ``mode``
 
-so a new cell, metric or count is new files plus manifest entries.
+(``harness/problem.py`` gives the interfaces of the last four), so a new
+cell, configuration, metric or count is new files plus manifest entries.
 """
 from __future__ import annotations
 

@@ -1,49 +1,77 @@
-"""A cell's inputs from its configuration and ``--seed``: the phase field,
-the load cases and the order in which they are sent.
+"""A cell's inputs from its configuration and ``--seed``: the geometry, the
+load cases and the order in which they are sent, and the reference that
+judges the answers.  Each kind is a file of its own, found by name:
 
-The seed moves the inclusion's centre by whole voxels, a periodic
-translation: every seed has the same voxelised shape, the same iterations
-and the same work, and other fields.  The field is made on the device.
+    fgbench/geometry/<inclusion.shape>.py
+        draw(config, rng, shape)    every random draw the geometry needs
+        fields(config, drawn, shape, device, dtype)
+                                    what the material and the reference
+                                    are given, from the draws alone
+    fgbench/loads/<traffic.load_cases>.py
+        cases(config, dim)          the (n, dim) load vectors
+    fgbench/reference/<reference>.py   (``reference`` by default ``mode``)
+        DIM                         the load vectors' length
+        solve(config, geom, load, tol=, maxiter=, store=)
+
+The geometry's draws are the first of the seed's generator and the
+traffic's come after them, so a seed fixes both.  What ``fields`` returns
+the harness only passes on: to the configuration's mixing rule in float32
+and, once the program is freed, to the reference in float64.
 """
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 import torch
 
-DIM = {"elasticity": 6, "heat": 3}
+from fgbench.harness import manifest
+
+
+def plugin(kind: str, name: str, root: Path = manifest.ROOT):
+    """``fgbench/<kind>/<name>.py``; raises where there is none."""
+    mod = manifest.plugin(kind, name, root)
+    if mod is None:
+        raise FileNotFoundError(f"no fgbench/{kind}/{name}.py")
+    return mod
 
 
 def rng_of(seed: int) -> np.random.Generator:
     return np.random.default_rng(int(seed) % 2 ** 64)
 
 
-def shift_of(config: dict, rng: np.random.Generator, shape) -> tuple:
-    """The whole-voxel translation of the inclusion (the first draws)."""
-    return tuple(int(rng.integers(0, n)) for n in shape)
+def draw(config: dict, rng: np.random.Generator, shape,
+         root: Path = manifest.ROOT):
+    return plugin("geometry", config["inclusion"]["shape"], root).draw(
+        config, rng, shape)
 
 
-def phase_field(config: dict, shift, shape, device, dtype=torch.float32):
-    """The inclusion's indicator on the grid: 1 inside, 0 outside.  The
-    sphere of ``bench.py``: voxel centres (i + 0.5) / n - 0.5, inside where
-    x^2 + y^2 + z^2 < r^2, then rolled by ``shift``."""
-    inc = config["inclusion"]
-    if inc["shape"] != "sphere":
-        raise ValueError(f"unknown inclusion shape {inc['shape']!r}")
-    r2 = float(inc["radius"]) ** 2
-    a2 = [((torch.arange(n, dtype=torch.float64, device=device) + 0.5) / n
-           - 0.5) ** 2 for n in shape]
-    inside = (a2[0][:, None, None] + a2[1][None, :, None]
-              + a2[2][None, None, :]) < r2
-    return torch.roll(inside.to(dtype), shifts=tuple(shift), dims=(0, 1, 2))
+def fields(config: dict, drawn, shape, device, dtype=torch.float32,
+           root: Path = manifest.ROOT):
+    return plugin("geometry", config["inclusion"]["shape"], root).fields(
+        config, drawn, shape, device, dtype)
 
 
-def load_cases(config: dict, traffic: dict) -> np.ndarray:
+# the names phase 17 of chip_smoke.py calls
+shift_of, phase_field = draw, fields
+
+
+def reference(config: dict, root: Path = manifest.ROOT):
+    """The plain reference the configuration names, or its mode's."""
+    return plugin("reference", config.get("reference", config["mode"]), root)
+
+
+def dim(config: dict, root: Path = manifest.ROOT) -> int:
+    return int(reference(config, root).DIM)
+
+
+def load_cases(config: dict, traffic: dict,
+               root: Path = manifest.ROOT) -> np.ndarray:
     """(n_cases, dim) load vectors of the traffic's ``load_cases``."""
-    dim = DIM[config["mode"]]
-    if traffic["load_cases"] != "unit":
-        raise ValueError(f"unknown load_cases {traffic['load_cases']!r}")
-    return np.eye(dim)
-
-
-def region(phi, where):
-    return phi if where == "inside" else 1.0 - phi
+    d = dim(config, root)
+    out = np.asarray(plugin("loads", traffic["load_cases"], root).cases(
+        config, d), dtype=np.float64)
+    if out.ndim != 2 or out.shape[1] != d:
+        raise ValueError(f"load cases {traffic['load_cases']!r} give shape "
+                         f"{out.shape}, not (n, {d})")
+    return out

@@ -2,26 +2,23 @@
 the solver built from a configuration, and its two entries."""
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 import torch
 
-from fgbench.harness import problem
+from fgbench.harness import manifest, problem
 
 
-def build(ft, config: dict, phi: torch.Tensor, device):
-    """``LSSolver`` over the configuration's phases mixed by the Voigt rule
-    on ``phi``, as ``bench.py`` builds its RVE."""
-    laws = {"isotropic": lambda p: ft.LinearIsotropic(mu=p["mu"],
-                                                      lam=p["lam"]),
-            "scalar": lambda p: ft.ScalarLinearIsotropic(
-                mu=p["mu"], dim=problem.DIM[config["mode"]])}
-    if config.get("mixing", "voigt") != "voigt":
-        raise ValueError("only the Voigt rule is driven")
-    phases = [ft.Phase(p["name"], laws[p["law"]](p),
-                       problem.region(phi, p["region"]))
-              for p in config["phases"]]
-    mat = ft.VoigtMixed(phases, dim=problem.DIM[config["mode"]])
-    return ft.LSSolver(ft.Grid(*phi.shape), mat,
+def build(ft, config: dict, geom, device, shape=None,
+          root: Path = manifest.ROOT):
+    """``LSSolver`` on the grid ``shape`` (by default ``geom``'s own) over
+    the material that the configuration's mixing rule
+    (``fgbench/mixing/<mixing>.py``) builds on the geometry's fields
+    ``geom``."""
+    mat = problem.plugin("mixing", config["mixing"], root).build(
+        ft, config, geom, problem.dim(config, root))
+    return ft.LSSolver(ft.Grid(*(shape or geom.shape)), mat,
                        ft.SolverOptions(**config["solver"]), device=device)
 
 

@@ -29,14 +29,14 @@ def test_reference_agrees_with_the_port_in_float64(name):
     cfg = _config(name)
     cfg["solver"] = dict(cfg["solver"], dtype="float64", tol=1e-12)
     shape = (16, 12, 10)
-    phi = problem.phase_field(cfg, (3, 5, 1), shape, "cpu", torch.float64)
-    solver = program.build(ft, cfg, phi, "cpu")
-    reference = manifest.plugin("reference", cfg["mode"])
+    geom = problem.fields(cfg, (3, 5, 1), shape, "cpu", torch.float64)
+    solver = program.build(ft, cfg, geom, "cpu", shape)
+    reference = problem.reference(cfg)
     loads = problem.load_cases(cfg, {"load_cases": "unit"})
     for c in range(len(loads)):
         means, bad, _ = program.call(solver, "run", loads[[c]])
         assert not bad[0]
-        numbers = check.gaps(reference, cfg, phi, loads, [((c,), means)],
+        numbers = check.gaps(reference, cfg, geom, loads, [((c,), means)],
                              (c,), program.fields(solver, "run"))
         assert numbers["stress_gap"] < 1e-9 and numbers["field_gap"] < 1e-9
 
@@ -46,19 +46,19 @@ def test_float32_solve_passes_and_the_bfloat16_control_fails(name):
     ft = import_program(manifest.ROOT)
     cfg = _config(name)
     shape = (16, 16, 16)
-    phi = problem.phase_field(cfg, (1, 2, 3), shape, "cpu")
-    solver = program.build(ft, cfg, phi, "cpu")
+    geom = problem.fields(cfg, (1, 2, 3), shape, "cpu")
+    solver = program.build(ft, cfg, geom, "cpu", shape)
     loads = problem.load_cases(cfg, {"load_cases": "unit"})
-    reference = manifest.plugin("reference", cfg["mode"])
-    phi64 = phi.double()
+    reference = problem.reference(cfg)
+    geom64 = geom.double()
     cases = tuple(range(len(loads)))
     means, _, _ = program.call(solver, "run_batched", loads)
-    numbers = check.gaps(reference, cfg, phi64, loads, [(cases, means)],
+    numbers = check.gaps(reference, cfg, geom64, loads, [(cases, means)],
                          cases, program.fields(solver, "run_batched"))
     numbers["failed_cases"] = 0
     limits = check.limits_of(cfg)
     assert check.verdict(numbers, limits)
-    ctl, _ = control.readings(name, 5, device="cpu", n=16)
+    ctl, _ = control.readings(name, 5, "unit", device="cpu", n=16)
     assert not check.verdict(ctl, limits)
     # by a wide margin on the field, the number the control fails
     assert ctl["field_gap"] > 3 * limits["field_gap"]
@@ -87,3 +87,9 @@ def test_the_reference_takes_nothing_of_the_program():
                         "numpy", "fgbench"}, f
         assert not {m for m in _imports(f)
                     if m.startswith("fgbench.")} - {"fgbench.reference"}, f
+
+
+def test_the_geometry_takes_nothing_of_the_program():
+    for f in (manifest.ROOT / "fgbench" / "geometry").glob("*.py"):
+        tops = {m.split(".")[0] for m in _imports(f)}
+        assert tops <= {"__future__", "math", "torch", "numpy"}, f

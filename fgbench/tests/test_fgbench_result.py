@@ -81,9 +81,9 @@ def test_the_seed_gives_the_same_inputs_and_work():
 
     def inputs(seed):
         rng = problem.rng_of(seed)
-        shift = problem.shift_of(cfg, rng, shape)
+        shift = problem.draw(cfg, rng, shape)
         reqs = list(itertools.islice(traffic.requests(mix, 6, rng), 12))
-        return shift, reqs, problem.phase_field(cfg, shift, shape, "cpu")
+        return shift, reqs, problem.fields(cfg, shift, shape, "cpu")
 
     a, b, c = inputs(2 ** 33 + 5), inputs(2 ** 33 + 5), inputs(2 ** 31 + 1)
     assert a[0] == b[0] and a[1] == b[1] and torch.equal(a[2], b[2])

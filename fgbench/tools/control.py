@@ -6,7 +6,8 @@ run's (``harness/check.py``).  A sound check fails it.
     python3 fgbench/tools/control.py --config sphere-elastic-256 --seeds 1 2 3
 
 prints one JSON line per seed: the compared numbers beside the limits and
-whether the control failed them.  ``--device cpu --n 16`` runs it small.
+whether the control failed them.  ``--device cpu --n 16`` runs it small;
+``--load-cases`` names the set of load cases (``fgbench/loads/``).
 The benchmark's own runs never run it.
 """
 from __future__ import annotations
@@ -25,35 +26,37 @@ sys.path.insert(0, str(ROOT))
 from fgbench.harness import check, manifest, problem  # noqa: E402
 
 
-def answers(reference, config, phi, loads, cases, store):
+def answers(reference, config, geom, loads, cases, store):
     """The reference put in the program's place, computed with its fields
     kept in ``store``: (mean stresses, fields) of ``cases``, as a request
     of the program gives them."""
     means, fields = [], []
     for c in cases:
-        sol = reference.solve(config, phi, loads[c], tol=float(
+        sol = reference.solve(config, geom, loads[c], tol=float(
             config["solver"]["tol"]), store=store)
         means.append(sol.mean.cpu().numpy())
         fields.append(sol.field.float())
     return np.stack(means), torch.stack(fields)
 
 
-def readings(config_name, seed, device="cuda", n=None, store=None):
+def readings(config_name, seed, load_cases, device="cuda", n=None,
+             store=None):
     """The control's compared numbers on ``seed``: every load case of the
-    configuration, each answered by the reference kept in ``store``."""
+    set ``load_cases`` (``fgbench/loads/``), each answered by the
+    configuration's reference kept in ``store``."""
     store = store or torch.bfloat16
     man = manifest.load_manifest()
     entry = manifest.by_name(man["configs"], config_name, "config")
     config = manifest.load_json(ROOT / entry["file"])
     shape = (n,) * 3 if n else tuple(config["grid"])
-    shift = problem.shift_of(config, problem.rng_of(seed), shape)
-    loads = problem.load_cases(config, {"load_cases": "unit"})
-    reference = manifest.plugin("reference", config["mode"])
-    phi = problem.phase_field(config, shift, shape, torch.device(device),
-                              torch.float64)
+    drawn = problem.draw(config, problem.rng_of(seed), shape)
+    loads = problem.load_cases(config, {"load_cases": load_cases})
+    reference = problem.reference(config)
+    geom = problem.fields(config, drawn, shape, torch.device(device),
+                          torch.float64)
     cases = tuple(range(len(loads)))
-    means, fields = answers(reference, config, phi, loads, cases, store)
-    numbers = check.gaps(reference, config, phi, loads, [(cases, means)],
+    means, fields = answers(reference, config, geom, loads, cases, store)
+    numbers = check.gaps(reference, config, geom, loads, [(cases, means)],
                          cases, fields)
     numbers["failed_cases"] = 0
     return numbers, check.limits_of(config)
@@ -65,9 +68,11 @@ def main(argv=None):
     ap.add_argument("--seeds", type=int, nargs="+", required=True)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--n", type=int, default=None)
+    ap.add_argument("--load-cases", default="unit")
     args = ap.parse_args(argv)
     for seed in args.seeds:
-        numbers, limits = readings(args.config, seed, args.device, args.n)
+        numbers, limits = readings(args.config, seed, args.load_cases,
+                                   args.device, args.n)
         print(json.dumps({"config": args.config, "seed": seed,
                           "numbers": numbers, "limits": limits,
                           "control_fails": not check.verdict(numbers,
