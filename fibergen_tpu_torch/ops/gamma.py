@@ -12,7 +12,9 @@ K2 directly):
   kernel there too); with ``g0_solver="multigrid"`` the multigrid
   Poisson solves of solvers/multigrid.py in place of K3;
 * :func:`gamma_heat_staggered`: the heat/porous branch of
-  ``gamma_operator``, div_staggered_heat -> K4 -> eps_staggered_heat;
+  ``gamma_operator``, div_staggered_heat -> K4 -> eps_staggered_heat
+  (the two plain stencils in the spans ``fg.stencil.heat.div`` and
+  ``fg.stencil.heat.grad``);
 * :func:`fused_visc`: the viscosity Delta scheme's staggered branch of
   ``delta_operator`` on one direction build, as the JAX solver's
   ``fused_visc`` runs it: K1 tau-sum mode -> K3 with the dual constants
@@ -65,6 +67,7 @@ import torch
 from ..core import fields
 from ..parallel import comm, slabs
 from ..solvers.bc import bc_correction
+from ..utils.logging import span
 from . import fft, green, staggered
 from .stencil_kernels import (eps_from_u_dot, eps_from_u_dot_slabs,
                               stress_div_beta, stress_div_beta_slabs)
@@ -176,21 +179,32 @@ def delta_staggered(grid, E, mu_0, tau, alpha=-1.0, bc=None, par=None):
     return eta
 
 
+def _heat_div(grid, tau, halo=None):
+    """The plain heat divergence (one field or slab) in the span
+    ``fg.stencil.heat.div``."""
+    with span("fg.stencil.heat.div"):
+        return staggered.div_staggered_heat(grid, tau, halo=halo)
+
+
+def _heat_grad(grid, E, u, halo=None):
+    """The plain heat gradient plus E (one field or slab) in the span
+    ``fg.stencil.heat.grad``."""
+    with span("fg.stencil.heat.grad"):
+        return staggered.eps_staggered_heat(grid, E, u, halo=halo)
+
+
 def gamma_heat_staggered(grid, E, mu_0, tau, par=None, bc=None):
     """eta = -Gamma tau with mean E on (3, nx, ny, nz) fields
     (gamma_operator, mode heat/porous, staggered scheme, alpha = -1)."""
     if par is not None:
-        f = _per_slab(
-            lambda t, h: staggered.div_staggered_heat(grid, t, halo=h), tau)
+        f = _per_slab(lambda t, h: _heat_div(grid, t, halo=h), tau)
         u = green.g0_staggered_heat_fused(grid, mu_0, 0.0, f, par=par)
         E = _corrected(E, bc, tau, -1.0)
-        return [staggered.eps_staggered_heat(grid, slabs.part(E, j), x,
-                                             halo=h)
+        return [_heat_grad(grid, slabs.part(E, j), x, halo=h)
                 for j, (x, h) in enumerate(zip(u, _halos(u)))]
-    f = staggered.div_staggered_heat(grid, tau)
+    f = _heat_div(grid, tau)
     u = green.g0_staggered_heat_fused(grid, mu_0, 0.0, f)
-    return staggered.eps_staggered_heat(grid, _corrected(E, bc, tau, -1.0),
-                                        u)
+    return _heat_grad(grid, _corrected(E, bc, tau, -1.0), u)
 
 
 def fused_visc(grid, r, p_prev, beta, E, mu_x, lam_x, mu0, lam0, par=None,
@@ -268,10 +282,10 @@ def delta_staggered_batched(grid, E, mu_0, tau, alpha=-1.0):
 def gamma_heat_staggered_batched(grid, E, mu_0, tau):
     """:func:`gamma_heat_staggered` of each case of a (B, 3, nx, ny, nz)
     batch ``tau`` with one batched K4 chain; a list of the B results."""
-    f = _chain_input(tau, 1, lambda t: staggered.div_staggered_heat(grid, t))
+    f = _chain_input(tau, 1, lambda t: _heat_div(grid, t))
     u = green.g0_staggered_heat_fused_batched(grid, mu_0, 0.0, f)
     del f
-    return [staggered.eps_staggered_heat(grid, E, x) for x in u]
+    return [_heat_grad(grid, E, x) for x in u]
 
 
 def _k1_batch(grid, rs, p_prevs, betas, mu_x, lam_x, mu0, lam0,

@@ -91,7 +91,11 @@ over the entries, ``fg.mean_stress`` over calc_mean_stress(_batched),
 (one a batch step, whichever path its cases take), within a step
 ``fg.cg.update.kernel`` or ``fg.cg.update.plain`` over each vector update
 (``ops/vector_kernels.py``: the kernel or the plain twin; one a case and a
-slab), ``fg.cg.test`` over the host's convergence test of a chunk, and
+slab), ``fg.material.stress_diff`` over each stress difference the
+material forms (the paths off the K1 route: one a case and operator
+application), ``fg.stencil.heat.div`` and ``fg.stencil.heat.grad`` over
+the plain heat stencils around K4 (ops/gamma.py: one a case, and a slab),
+``fg.cg.test`` over the host's convergence test of a chunk, and
 ``fg.sync.<why>`` over every point where the host waits for the device:
 ``residuals`` (a chunk's history read), ``gamma0``, ``metric0``,
 ``metric`` (the basic schemes' read), ``upload`` (a pageable host-to-device
@@ -906,9 +910,9 @@ class LSSolver:
         if self.mode == "hyperelasticity":
             return gammamod.gamma_hyper(
                 grid, self.scheme, E, mu0, lam0,
-                self.mat.stress_diff(eps, mu0, lam0), par=par, bc=bc)
+                self._stress_diff(eps), par=par, bc=bc)
         if self.scheme in ("collocated", "willot"):
-            return self._gamma_apply(E, self.mat.stress_diff(eps, mu0, lam0),
+            return self._gamma_apply(E, self._stress_diff(eps),
                                      bc=bc)
         if self.mode == "viscosity":
             if self._k1_route and bc is None:
@@ -916,17 +920,23 @@ class LSSolver:
                                            lam_x, mu0, lam0, par=par,
                                            mod_halo=self._mod_halo)[0]
             return gammamod.delta_staggered(
-                grid, E, mu0, self.mat.stress_diff(eps, mu0, lam0), bc=bc,
+                grid, E, mu0, self._stress_diff(eps), bc=bc,
                 par=par)
         if self.dim == 3:
             return gammamod.gamma_heat_staggered(
-                grid, E, mu0, self.mat.stress_diff(eps, mu0, lam0), par=par,
+                grid, E, mu0, self._stress_diff(eps), par=par,
                 bc=bc)
         if not self._k1_route:
             return gammamod.gamma_staggered(
-                grid, E, mu0, lam0, self.mat.stress_diff(eps, mu0, lam0),
+                grid, E, mu0, lam0, self._stress_diff(eps),
                 bc=bc, g0_solver=self.opt.g0_solver, par=par)
         return self._k1_k3_k2(eps, None, None, E, mu_x, lam_x, bc)[0]
+
+    def _stress_diff(self, x):
+        """(C(x) - C0) : x of one field (the material's stress difference,
+        ``calcStressDiff``), in the span ``fg.material.stress_diff``."""
+        with span("fg.material.stress_diff"):
+            return self.mat.stress_diff(x, self.mu_0, self.lambda_0)
 
     def _gamma_apply(self, E, tau, alpha=-1.0, beta=0.0, bc=None):
         """alpha Gamma tau + beta tau with mean E on the collocated grid
@@ -1156,7 +1166,7 @@ class LSSolver:
         each case's formed in turn into its row."""
         tau = None
         for b, x in enumerate(xs):
-            t = self.mat.stress_diff(x, self.mu_0, self.lambda_0)
+            t = self._stress_diff(x)
             if tau is None:
                 tau = t.new_empty((len(xs),) + tuple(t.shape))
             tau[b] = t

@@ -262,6 +262,33 @@ def test_cuda_register_fft_chains_match_twins(cuda, shape, dtype, tol):
     assert _rel(out3, ref3) <= tol
 
 
+# One-voxel-thick grids (an axis of length one) with lines of 1024-4096,
+# which the shared-memory radix-4 FFT takes: the heat demo's fibre mat at
+# its grown size, 4096 x 4096 x 1, in the batch of its three gradients.
+THIN_SHAPES = [(1, (1024, 64, 1)), (1, (64, 4096, 1)), (1, (4096, 32, 1)),
+               (3, (2048, 1024, 1)), (3, (4096, 4096, 1))]
+
+
+@pytest.mark.parametrize("batch,shape", THIN_SHAPES)
+def test_cuda_heat_chains_on_one_voxel_thick_grids(cuda, batch, shape):
+    """K4 and the batched K4 against their plain twins, float32, on grids
+    with a z axis of length one and long lines."""
+    g = Grid(*shape)
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    f = torch.randn((batch, 1) + shape, generator=gen, device=cuda)
+    c10 = 1.0 / 11.0
+    before = dict(spectral_kernels.launches)
+    out = spectral_kernels.g0_staggered_heat_chain_batched(g, f, c10)
+    one = spectral_kernels.g0_staggered_heat_chain(g, f[0], c10)
+    torch.cuda.synchronize()
+    assert _launched(before, dict(spectral_kernels.launches)) == {
+        "g0_staggered_heat_chain_batched": 1, "g0_staggered_heat_chain": 1}
+    ref = spectral_kernels.g0_staggered_heat_chain_batched_plain(g, f, c10)
+    assert _rel(out, ref) <= 1e-5
+    assert _rel(one, ref[0]) <= 1e-5
+    assert torch.equal(one, out[0])
+
+
 @pytest.mark.parametrize("d", [2, 4])
 def test_cuda_register_fft_slab_chains_match_twins(cuda, d):
     """The kz-slab K6 and K3 at power-of-two lengths (the slab middles run
