@@ -302,7 +302,7 @@ PATH_KERNELS = {
     "elasticity-full-staggered": ("g0_staggered_chain",),
     "elasticity-laminate": ("g0_staggered_chain",),
     "elasticity-laminate-collocated": ("gamma_collocated_chain",),
-    "heat-laminate": ("g0_staggered_heat_chain",),
+    "heat-laminate": ("g0_staggered_heat_chain", "laminate_heat"),
     "viscosity-generic": ("g0_staggered_chain",),
     "viscosity-lambda": ("g0_staggered_chain",),
     "viscosity-fluidity": ("g0_staggered_chain",),
@@ -313,7 +313,7 @@ PATH_KERNELS = {
     "fg-hashin": ("stress_div_beta", "eps_from_u_dot", "g0_staggered_chain"),
     "fg-transverse-isotropy": ("g0_staggered_chain",),
     # (heat's three and Nunan-Keller's five cases batched: run_batched)
-    "fg-heat": ("g0_staggered_heat_chain_batched",),
+    "fg-heat": ("g0_staggered_heat_chain_batched", "laminate_heat"),
     "fg-nunan-keller": ("g0_staggered_chain_batched",),
     # phase 12: meshes and file I/O (the raw CT volume's stiffness, the
     # mesh demos; the recovery chains count apart, meshes_and_io)
@@ -652,6 +652,9 @@ WORK = {
                                       apply=56),
     # the CG's vector update at C = 6: eps, r, p, w read, eps, r written
     "cg_update": dict(values=6 * (4 + 2), flops=6 * 7),
+    # the dim-3 laminate at B = 3: phi1, phi2, n read once, each case's
+    # strain read and stress difference written
+    "laminate_heat": dict(values=5 + 6 * 3, flops=15 + 9 * 3),
 }
 # a slab kernel does the same work as its whole-field kernel (the halo
 # planes and the exchanged spectrum are the decomposition's own traffic)
@@ -894,6 +897,62 @@ def check_cg_update(shape, dtype, timed):
             raise AssertionError(f"cg_update C={C}: error {worst:.3e} > "
                                  f"{tol:g}, or not repeatable, or w moved")
         del k, state
+    return out
+
+
+def check_laminate_heat(shape, dtype, timed):
+    """Phase 2's dim-3 laminate (``material_kernels.laminate_heat``) on one
+    grid, B = 3, both rules: the stress differences against the twin's
+    (the plain sequence the material ran before the kernel) within 1e-6
+    (float32) or 1e-12 (float64) of their largest, two calls the same bits;
+    with ``timed`` (the laminate rule) the kernel, the twin and the byte
+    bound.  Returns {"laminate_heat": numbers} when timed."""
+    import torch
+    from fibergen_tpu_torch.ops import material_kernels as mk
+
+    dev = torch.device("cuda")
+    tol = 1e-12 if dtype == torch.float64 else 1e-6
+    gen = torch.Generator(device=dev).manual_seed(2626)
+    rnd = lambda *s: torch.rand(s, generator=gen, device=dev, dtype=dtype)
+    phi1 = rnd(*shape)
+    phi1[rnd(*shape) < 0.6] = 0.0          # pure voxels, as in the mat
+    phi2 = 1.0 - phi1
+    n = 2.0 * rnd(3, *shape) - 1.0
+    xs = [torch.randn((3,) + tuple(shape), generator=gen, device=dev,
+                      dtype=dtype) for _ in range(3)]
+    k1, k2, mu0 = 1.0, 10.0, 2.75
+    out = {}
+    for rule in mk.RULES:
+        k = torch.empty((3, 3) + tuple(shape), dtype=dtype, device=dev)
+        t, again = torch.empty_like(k), torch.empty_like(k)
+        go = lambda o: mk.laminate_heat(phi1, phi2, n, xs, o, k1, k2, mu0,
+                                        rule)
+        plain = lambda o: mk.laminate_heat_plain(phi1, phi2, n, xs, o, k1, k2,
+                                                 mu0, rule)
+        go(k)
+        plain(t)
+        go(again)
+        worst, err = rel_err(k, t)
+        rec = {"max_rel_err": worst, "max_abs_err": err}
+        line = (f"  {'laminate_heat':24s} {rule} B=3 {tuple(shape)} "
+                f"{str(dtype)[6:]}: max rel err {worst:.3e}, repeatable "
+                f"{torch.equal(again, k)}")
+        if timed and rule == "laminate":
+            itemsize = torch.empty((), dtype=dtype).element_size()
+            rec["ms"] = cuda_ms(lambda: go(k))
+            rec["plain_ms"] = cuda_ms(lambda: plain(t))
+            rec["bound_ms"], rec["bound_by"] = bound_ms(
+                "laminate_heat", math.prod(shape), itemsize)
+            rec["library_ms"] = None
+            line += (f", kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f}"
+                     f" ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}"
+                     f", {rec['bound_ms'] / rec['ms']:.1%} of it)")
+            out["laminate_heat"] = rec
+        log(line)
+        if not (worst <= tol and torch.equal(again, k)):
+            raise AssertionError(f"laminate_heat {rule}: error {worst:.3e} > "
+                                 f"{tol:g}, or not repeatable")
+        del k, t, again
     return out
 
 
@@ -3380,6 +3439,7 @@ def main():
     import numpy as np
     import fibergen_tpu_torch as ft
     from fibergen_tpu_torch.ops import _build
+    from fibergen_tpu_torch.ops import material_kernels as mk
     from fibergen_tpu_torch.ops import spectral_kernels as spk
     from fibergen_tpu_torch.ops import stencil_kernels as sk
     from fibergen_tpu_torch.ops import vector_kernels as vk
@@ -3417,12 +3477,12 @@ def main():
         ``path`` launched in it and no other.  ``batched``: ``fn`` is a
         whole-field run_batched, which launches the path's chain batched
         (BATCHED_CHAIN) and never its single chain."""
-        for table in (sk.launches, spk.launches, vk.launches):
+        for table in (sk.launches, spk.launches, vk.launches, mk.launches):
             for name in table:
                 table[name] = 0
         fail = (fn or solver.run)()
         sync_all()
-        got = dict(sk.launches, **spk.launches)
+        got = dict(sk.launches, **spk.launches, **mk.launches)
         log(f"  {label} launches: {json.dumps(got)}, the CG's vector "
             f"update {vk.launches['cg_update']}")
         want = PATH_KERNELS[path] if solver.par is None else \
@@ -3455,6 +3515,12 @@ def main():
                                      timed=True))
     for dt in (torch.float32, torch.float64):
         check_cg_update((33, 17, 29), dt, timed=False)
+    # the dim-3 laminate: timed on the fibre mat's 4096 x 4096 x 1 in
+    # float32, checked on an odd grid (the scalar path) in both precisions
+    main_nums.update(check_laminate_heat((4096, 4096, 1), torch.float32,
+                                         timed=True))
+    for dt in (torch.float32, torch.float64):
+        check_laminate_heat((33, 17, 29), dt, timed=False)
     torch.cuda.empty_cache()
     # the batched chains (run_batched's): bitwise B single launches and
     # their twins on every shape above in float32 and float64 (256^3 in
@@ -3846,7 +3912,10 @@ def main():
              "hyperelasticity-collocated", ch,
              "fibergen_tpu/ops/pallas_chain.py:385"),
             ("g0_staggered_chain[hyper]", "g0_staggered_chain",
-             "hyperelasticity", ch, "fibergen_tpu/ops/pallas_chain.py:212")]
+             "hyperelasticity", ch, "fibergen_tpu/ops/pallas_chain.py:212"),
+            ("laminate_heat", "laminate_heat", "heat-laminate",
+             "fibergen_tpu_torch/csrc/laminate_heat.cu",
+             "none: plain jnp, fibergen_tpu/materials/laminate.py")]
     pk_, pc_ = ("fibergen_tpu/ops/pallas_kernels.py",
                 "fibergen_tpu/ops/pallas_chain.py")
     slab_rows = [
@@ -3926,6 +3995,7 @@ def main():
                                        "viscosity-nunan-keller",
                                        "fg-nunan-keller"),
         "g0_staggered_heat_chain_batched": ("fg-heat",),
+        "laminate_heat": ("fg-heat",),
         "gamma_collocated_chain": ("elasticity-general-collocated",
                                    "elasticity-laminate-collocated",
                                    "elasticity-nesterov-collocated",

@@ -148,6 +148,9 @@ class DfgMaterial:
     def stress_diff(self, F, mu_0, lambda_0):
         return restrict(self.inner.stress_diff(prolong(F), mu_0, lambda_0))
 
+    # each case prolonged, evaluated and restricted in turn
+    stress_diffs = MixedMaterial.stress_diffs
+
     def dpk1(self, F, W):
         return restrict(self.inner.dpk1(prolong(F), prolong(W)))
 

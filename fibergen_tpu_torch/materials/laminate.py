@@ -15,10 +15,11 @@ one Newton step from a = 0 is the exact minimizer: a per-voxel 3x3 solve,
 done here by Cramer's rule on the component fields; nonlinear (dim 9)
 laws take seven further Newton steps, as the JAX package does
 (laminate.py:194-232).  Scalar (dim 3) laws take the closed-form jump
-along n.  The tangent comes from ``torch.func.jvp`` through the stress, as
-the JAX package takes it from ``jax.jvp``, and the reference material of
-a nonlinear laminate from the eigenvalues of that tangent on the whole
-grid.
+along n (``material_kernels.laminate_jump``; two linear phases take
+``material_kernels.laminate_heat``, the kernel on the card).  The tangent
+comes from ``torch.func.jvp`` through the stress, as the JAX package takes
+it from ``jax.jvp``, and the reference material of a nonlinear laminate
+from the eigenvalues of that tangent on the whole grid.
 
 With more than two phases only the two largest-phi phases of a voxel take
 part, gathered into isotropic laws with per-voxel moduli.  On the
@@ -32,10 +33,11 @@ from typing import List
 import torch
 
 from ..core import voigt
-from ..parallel import shard_field
+from ..ops import material_kernels
+from ..ops.material_kernels import THR as _THR
+from ..ops.material_kernels import unit_or_ex as _unit_or_ex
+from ..parallel import shard_field, slabs
 from .mixing import MixedMaterial, Phase
-
-_THR = 1e-7  # interface threshold (10 eps in the reference)
 
 
 def _top2_phases(phis):
@@ -114,17 +116,6 @@ def _solve3(K, b):
             for i in range(3)]
 
 
-def _unit_or_ex(n, normalize):
-    """The normal field with e_x where it is (near) zero; unit length with
-    ``normalize``."""
-    nn2 = (n * n).sum(0, keepdim=True)
-    ex = torch.zeros_like(n)
-    ex[0] = 1.0
-    if normalize:
-        n = n / torch.sqrt(torch.clamp_min(nn2, 1e-30))
-    return torch.where(nn2 > 1e-12, n, ex)
-
-
 class _InterfaceMixed(MixedMaterial):
     """What the interface rules share: the ``normals`` field (3, nx, ny,
     nz), pointing from phase 2 into phase 1, kept in its own type on the
@@ -197,13 +188,9 @@ class LaminateMixed(_InterfaceMixed):
         a1, a2 = self._jump_coeffs(c1, c2)
         if self._dim == 3:
             # scalar jump s along n, closed form; conductivity k = 2 iso mu
-            k1 = 2.0 * law1.iso_moduli()[0]
-            k2 = 2.0 * law2.iso_moduli()[0]
-            ng = (n * F).sum(0)
-            s = (c1 * a1 * k1 - c2 * a2 * k2) * ng / (
-                c1 * a1 * a1 * k1 + c2 * a2 * a2 * k2)
-            s = torch.where(mask, s, torch.zeros_like(s))
-            return F - (a1 * s)[None] * n, F + (a2 * s)[None] * n
+            return material_kernels.laminate_jump(
+                F, n, c1, c2, a1, a2, 2.0 * law1.iso_moduli()[0],
+                2.0 * law2.iso_moduli()[0], mask)
         B = _dyad_basis(n, self._dim)
         w = torch.as_tensor(voigt.weights(self._dim), dtype=F.dtype,
                             device=F.device).reshape(-1, 1, 1, 1)
@@ -273,11 +260,67 @@ class LaminateMixed(_InterfaceMixed):
         self._jump_cache = (F, F._version, st)
         return st
 
+    def _heat_route(self, F):
+        """(phi1, phi2, normals, k1, k2) in F's layout where the input shows
+        that the dim-3 closed form takes ``material_kernels.laminate_heat``:
+        two phases with linear isotropic laws without lambda (pk1 = 2 mu F),
+        a whole float32 or float64 field.  An x-slab's view takes it on its
+        slab, one launch a slab on the slab's device (the map is per voxel,
+        and the view holds its own cut of phi and the normals).  None
+        otherwise (dim 6 and 9, more phases, a list of x-slabs)."""
+        if (self._dim != 3 or len(self.phases) != 2 or slabs.sharded(F)
+                or F.dtype not in (torch.float32, torch.float64)):
+            return None
+        ks = []
+        for p in self.phases:
+            if not (getattr(p.law, "is_linear", False)
+                    and hasattr(p.law, "iso_moduli")):
+                return None
+            mu, lam = p.law.iso_moduli()
+            if lam != 0.0:
+                return None
+            ks.append(2.0 * mu)
+        if self.normals is None:
+            raise ValueError(f"{self.rule} mixing requires a normals field")
+        phi1, phi2 = (torch.broadcast_to(c, F.shape[1:]).contiguous()
+                      for c in self.phase_fields(F))
+        n = self.normals.to(dtype=F.dtype, device=F.device).contiguous()
+        return phi1, phi2, n, ks[0], ks[1]
+
+    def _laminate_heat(self, route, xs, mu_0, out):
+        phi1, phi2, n, k1, k2 = route
+        return material_kernels.laminate_heat(
+            phi1, phi2, n, [x.contiguous() for x in xs], out, k1, k2, mu_0,
+            self.rule)
+
     def pk1(self, F):
+        route = self._heat_route(F)
+        if route is not None:
+            return self._laminate_heat(route, [F], 0.0,
+                                       F.new_empty((1,) + F.shape))[0]
         view = self._two_phase_view(F)
         F1, F2 = self._phase_strains(F, view)
         law1, law2, c1, c2 = view
         return c1[None] * law1.pk1(F1) + c2[None] * law2.pk1(F2)
+
+    def stress_diff(self, F, mu_0, lambda_0):
+        """P(F) - 2 mu_0 F: on the dim-3 route (:meth:`_heat_route`) one
+        launch of the laminate's kernel, else the generic difference."""
+        route = self._heat_route(F)
+        if route is None:
+            return super().stress_diff(F, mu_0, lambda_0)
+        return self._laminate_heat(route, [F], mu_0,
+                                   F.new_empty((1,) + F.shape))[0]
+
+    def stress_diffs(self, xs, mu_0, lambda_0, out):
+        """:meth:`stress_diff` of the B fields ``xs`` into ``out``: on the
+        dim-3 route the whole batch through the laminate's kernel (one
+        launch up to ``material_kernels.MAX_CASES`` cases), else case by
+        case."""
+        route = self._heat_route(xs[0])
+        if route is None:
+            return super().stress_diffs(xs, mu_0, lambda_0, out)
+        return self._laminate_heat(route, xs, mu_0, out)
 
     def w(self, F):
         view = self._two_phase_view(F)
@@ -290,8 +333,12 @@ class LaminateMixed(_InterfaceMixed):
         the one-step solve for linear laws; for nonlinear laws the
         derivative of the converged jump, a' = -K^{-1} dg/dF[W] (what the
         JAX package's jvp through its eight Newton steps converges to),
-        and dP = c1 C1(F1)[W - a1 a'.B] + c2 C2(F2)[W + a2 a'.B]."""
+        and dP = c1 C1(F1)[W - a1 a'.B] + c2 C2(F2)[W + a2 a'.B].  On the
+        dim-3 route the response is linear in F, so the tangent is pk1(W)
+        (a jvp cannot trace the kernel's launch)."""
         if all(getattr(p.law, "is_linear", False) for p in self.phases):
+            if self._heat_route(W) is not None:
+                return self.pk1(W)
             return torch.func.jvp(self.pk1, (F,), (W,))[1]
         (law1, law2, c1, c2), F1, F2, t = self._jump_state(F)
         B, w, a1, a2, mask = t["B"], t["w"], t["a1"], t["a2"], t["mask"]

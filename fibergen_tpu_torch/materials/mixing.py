@@ -338,6 +338,13 @@ class MixedMaterial:
             return tau
         return slabs.smap(diff, self.pk1(F), F)
 
+    def stress_diffs(self, xs, mu_0, lambda_0, out):
+        """:meth:`stress_diff` of each of the B fields ``xs`` into row b of
+        ``out`` (a (B, ...) batch), case by case; returns ``out``."""
+        for b, x in enumerate(xs):
+            out[b] = self.stress_diff(x, mu_0, lambda_0)
+        return out
+
     # ------------------------------------------------ reference material
     def eig_range(self, F=None, zero_trace=False, devices=None):
         """Per-voxel tangent eigenvalue bounds reduced over the grid

@@ -20,7 +20,7 @@ from ..core import fields
 from ..parallel import Mesh, slabs
 from . import laws
 from .dfg import DfgMaterial
-from .mixing import VoigtMixed, _reduce_bounds
+from .mixing import MixedMaterial, VoigtMixed, _reduce_bounds
 
 
 def for_slabs(mat):
@@ -82,6 +82,9 @@ class SlabMaterial:
 
     def stress_diff(self, F, mu_0, lambda_0):
         return self._each("stress_diff", F, mu_0, lambda_0)
+
+    # each case slab by slab in turn (``out``: a list of sharded rows)
+    stress_diffs = MixedMaterial.stress_diffs
 
     def polarization(self, mu_0, F, inv=False):
         if not slabs.sharded(F):

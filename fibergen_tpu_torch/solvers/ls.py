@@ -93,7 +93,9 @@ over the entries, ``fg.mean_stress`` over calc_mean_stress(_batched),
 (``ops/vector_kernels.py``: the kernel or the plain twin; one a case and a
 slab), ``fg.material.stress_diff`` over each stress difference the
 material forms (the paths off the K1 route: one a case and operator
-application), ``fg.stencil.heat.div`` and ``fg.stencil.heat.grad`` over
+application, one a batched application), within it
+``fg.material.laminate.kernel`` or ``fg.material.laminate.plain`` on the
+dim-3 laminate's route (ops/material_kernels.py), ``fg.stencil.heat.div`` and ``fg.stencil.heat.grad`` over
 the plain heat stencils around K4 (ops/gamma.py: one a case, and a slab),
 ``fg.cg.test`` over the host's convergence test of a chunk, and
 ``fg.sync.<why>`` over every point where the host waits for the device:
@@ -1163,14 +1165,12 @@ class LSSolver:
 
     def _stress_diffs(self, xs):
         """(C(x) - C0) : x of each field of ``xs`` as one (B, ...) batch,
-        each case's formed in turn into its row."""
-        tau = None
-        for b, x in enumerate(xs):
-            t = self._stress_diff(x)
-            if tau is None:
-                tau = t.new_empty((len(xs),) + tuple(t.shape))
-            tau[b] = t
-        return tau
+        written in place by the material's ``stress_diffs``, in one span
+        ``fg.material.stress_diff``."""
+        tau = xs[0].new_empty((len(xs),) + tuple(xs[0].shape))
+        with span("fg.material.stress_diff"):
+            return self.mat.stress_diffs(xs, self.mu_0, self.lambda_0,
+                                         out=tau)
 
     def _k1_batched(self, rs, p_prevs, betas, E, mu_x, lam_x):
         """The K1 route's fused operator on B right-hand sides (K1 and K2

@@ -54,8 +54,10 @@ def _laminate_heat(shape=(16, 12, 1)):
 
 @pytest.mark.parametrize("entry", ["run_batched", "run"])
 def test_laminate_heat_opens_one_span_a_case_and_application(entry):
-    """One stress difference, one divergence and one gradient a case and
-    operator application: the CG's init and each of its steps."""
+    """One divergence and one gradient a case and operator application (the
+    CG's init and each of its steps); one stress difference, with the
+    laminate's plain twin inside, a case of run() and a batch of
+    run_batched."""
     s = _laminate_heat()
     if entry == "run":
         s.set_strain([1.0, 0.3, 0.0])
@@ -66,8 +68,11 @@ def test_laminate_heat_opens_one_span_a_case_and_application(entry):
         cases = 3
     steps = len(s.residuals)
     assert steps > 1 and got["fg.cg.step"] == steps
-    for name in NEW:
+    for name in NEW[1:]:
         assert got[name] == cases * (steps + 1), (name, got)
+    for name in (NEW[0], "fg.material.laminate.plain"):
+        assert got[name] == steps + 1, (name, got)
+    assert got["fg.material.laminate.kernel"] == 0
 
 
 def test_nothing_is_opened_without_a_profiler(monkeypatch):
